@@ -1,0 +1,81 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+Each computes exactly what ``repro.kernels.ref`` defines for the JAX
+package, with the port's leading slot axis S on the packed kernels.  They
+are what the kernel wrappers run on a CPU tensor, and the oracle every
+kernel is held against on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG = -1e30
+
+
+def fwht_ref(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
+    """Walsh--Hadamard transform along the last axis (a power of two):
+    stage h pairs element i with i + h inside blocks of 2h, the same
+    butterfly order as the JAX package's ``preprocess.fwht``; the
+    normalized transform divides by sqrt(d)."""
+    d = x.shape[-1]
+    if d <= 0 or d & (d - 1):
+        raise ValueError(f"fwht needs a power-of-two axis, got {d}")
+    shape = x.shape
+    x = x.reshape(-1, d)
+    h = 1
+    while h < d:
+        x = x.reshape(-1, d // (2 * h), 2, h)
+        a, b = x[:, :, 0, :], x[:, :, 1, :]
+        x = torch.stack([a + b, a - b], dim=2).reshape(-1, d)
+        h *= 2
+    if normalize:
+        x = x / torch.tensor(math.sqrt(d), dtype=x.dtype)
+    return x.reshape(shape)
+
+
+def _gather_rows(x_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(S, b, n_pad) rows x_t[s, idx[s, j]]."""
+    return torch.gather(
+        x_t, 1, idx.long()[:, :, None].expand(-1, -1, x_t.shape[-1]))
+
+
+def momentum_dot_packed_ref(x_t: torch.Tensor, idx: torch.Tensor,
+                            log_lam: torch.Tensor, log_prev: torch.Tensor,
+                            sign: torch.Tensor,
+                            theta: torch.Tensor) -> torch.Tensor:
+    """delta[s, j] = sum_i sign_i (lam_i + theta_s (lam_i - lam_prev_i))
+    x_t[s, idx[s, j], i], lam = exp(log_lam).  Shapes: x_t (S, d, n_pad),
+    idx (S, b), vectors (S, n_pad), theta (S,) -> (S, b)."""
+    lam = torch.exp(log_lam)
+    lam_prev = torch.exp(log_prev)
+    mom = sign * (lam + theta[:, None] * (lam - lam_prev))
+    return torch.bmm(_gather_rows(x_t, idx), mom[:, :, None])[:, :, 0]
+
+
+def mwu_update_packed_ref(x_t: torch.Tensor, idx: torch.Tensor,
+                          log_lam: torch.Tensor, u: torch.Tensor,
+                          dw: torch.Tensor, sign: torch.Tensor,
+                          mwu_c: torch.Tensor, mwu_dot: torch.Tensor,
+                          d_eff: float):
+    """Packed dual update for both classes (lines 5-6 of Algorithm 2 plus
+    the incremental u).  ``mwu_c`` = 1 / (gamma + d_eff / tau) and
+    ``mwu_dot`` = d_eff / tau are the per-slot (S,) step scalars.
+
+    Returns (log_new UNNORMALIZED, u_new, m_p, s_p, m_m, s_m), each
+    scalar (S,): the per-class logsumexp is m + log(s), masked by the
+    sign vector (padding, sign 0, belongs to neither class)."""
+    dv = torch.bmm(dw[:, None, :], _gather_rows(x_t, idx))[:, 0, :]
+    v = sign * (u + d_eff * dv)
+    log_new = mwu_c[:, None] * (mwu_dot[:, None] * log_lam - v)
+    is_p = sign > 0
+    is_m = sign < 0
+    neg = torch.tensor(NEG, dtype=log_new.dtype, device=log_new.device)
+    m_p = torch.where(is_p, log_new, neg).amax(dim=-1)
+    m_m = torch.where(is_m, log_new, neg).amax(dim=-1)
+    zero = torch.zeros((), dtype=log_new.dtype, device=log_new.device)
+    s_p = torch.where(is_p, torch.exp(log_new - m_p[:, None]), zero).sum(-1)
+    s_m = torch.where(is_m, torch.exp(log_new - m_m[:, None]), zero).sum(-1)
+    return log_new, u + dv, m_p, s_p, m_m, s_m

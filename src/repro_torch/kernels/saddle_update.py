@@ -1,0 +1,149 @@
+"""Wrappers of the packed saddle-step CUDA kernels
+(``csrc/saddle_update.cu``).
+
+Both take a leading slot axis S: ``x_t`` (S, d, n_pad), ``idx`` (S, b)
+int32, point vectors (S, n_pad) and per-slot scalars (S,), all float32
+except ``idx``.  On CUDA tensors a wrapper launches its kernel or raises;
+on CPU tensors it runs the plain version in
+:mod:`repro_torch.kernels.ref`.  The kernels write per-tile partials,
+which the wrappers combine here in a fixed order, as the JAX wrappers do
+outside their ``pallas_call``.
+
+``idx`` must hold distinct coordinates in [0, d) (the solver's sampler
+and ``saddle.solve``'s injected schedules are validated where they are
+made).  An index outside that range raises ``IndexError`` on the CPU; on
+CUDA, where checking it would cost a read-back every step, the kernels
+skip the row and the outputs it touches are NaN.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels import ref
+
+LANE = 128   # points per kernel tile; packed lengths are multiples of it
+
+
+def _check_f32(name: str, t: torch.Tensor, shape: tuple,
+               device: torch.device, vector_loads: bool = False) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x_t on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if vector_loads and device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+
+
+def check_packed(x_t: torch.Tensor, idx: torch.Tensor,
+                 vectors: dict[str, torch.Tensor],
+                 scalars: dict[str, torch.Tensor],
+                 rows: dict[str, torch.Tensor] | None = None):
+    """Validate the packed operands; returns (S, d, n_pad, b)."""
+    if x_t.ndim != 3:
+        raise ValueError(f"x_t must be (S, d, n_pad), got shape "
+                         f"{tuple(x_t.shape)}")
+    s, d, n_pad = x_t.shape
+    if n_pad % LANE or n_pad == 0:
+        raise ValueError(
+            f"packed length {n_pad} must be lane-aligned (a positive "
+            f"multiple of {LANE}); use preprocess.pack_points")
+    if idx.ndim != 2 or idx.shape[0] != s or idx.shape[1] < 1:
+        raise ValueError(f"idx must be ({s}, b) with b >= 1, got shape "
+                         f"{tuple(idx.shape)}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if idx.device != x_t.device or not idx.is_contiguous():
+        raise ValueError("idx must be contiguous and on x_t's device")
+    b = idx.shape[1]
+    if b > d:
+        raise ValueError(f"b={b} sampled rows exceed d={d}")
+    _check_f32("x_t", x_t, (s, d, n_pad), x_t.device, vector_loads=True)
+    for name, t in vectors.items():
+        _check_f32(name, t, (s, n_pad), x_t.device, vector_loads=True)
+    for name, t in (rows or {}).items():
+        _check_f32(name, t, (s, b), x_t.device)
+    for name, t in scalars.items():
+        _check_f32(name, t, (s,), x_t.device)
+    if x_t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"packed kernels run on cuda or cpu, not "
+                         f"{x_t.device}")
+    if x_t.device.type == "cpu" and (idx.min() < 0 or idx.max() >= d):
+        raise IndexError(f"idx entries must lie in [0, {d})")
+    return s, d, n_pad, b
+
+
+def momentum_dot_packed(x_t: torch.Tensor, idx: torch.Tensor,
+                        log_lam: torch.Tensor, log_prev: torch.Tensor,
+                        sign: torch.Tensor,
+                        theta: torch.Tensor) -> torch.Tensor:
+    """delta (S, b) = sum_i sign_i mom_i x_t[s, idx[s, j], i] with the
+    momentum mom = lam + theta (lam - lam_prev), lam = exp(log_lam):
+    lines 2-3 of Algorithm 2 for both classes in one sweep."""
+    s, d, n_pad, b = check_packed(
+        x_t, idx, dict(log_lam=log_lam, log_prev=log_prev, sign=sign),
+        dict(theta=theta))
+    if x_t.device.type == "cpu":
+        return ref.momentum_dot_packed_ref(x_t, idx, log_lam, log_prev,
+                                           sign, theta)
+    from repro_torch.kernels import build
+    lib = build.library("saddle_update")
+    parts = torch.empty((s, n_pad // LANE, b), dtype=torch.float32,
+                        device=x_t.device)
+    with torch.cuda.device(x_t.device):
+        stream = torch.cuda.current_stream(x_t.device).cuda_stream
+        build.check(lib.momentum_dot_packed_f32(
+            x_t.data_ptr(), idx.data_ptr(), log_lam.data_ptr(),
+            log_prev.data_ptr(), sign.data_ptr(), theta.data_ptr(),
+            parts.data_ptr(), s, d, n_pad, b, stream), "momentum_dot_packed")
+    launch_counts["momentum_dot_packed"] += 1
+    return parts.sum(dim=1)
+
+
+def combine_class_partials(parts: torch.Tensor):
+    """Merge per-tile (m_p, s_p, m_m, s_m) partials (S, tiles, 4) into the
+    per-class (m, s) of the whole point axis, with lse = m + log(s)."""
+    m_p = parts[..., 0].amax(dim=1)
+    s_p = (parts[..., 1] * torch.exp(parts[..., 0] - m_p[:, None])).sum(1)
+    m_m = parts[..., 2].amax(dim=1)
+    s_m = (parts[..., 3] * torch.exp(parts[..., 2] - m_m[:, None])).sum(1)
+    return m_p, s_p, m_m, s_m
+
+
+def mwu_update_packed(x_t: torch.Tensor, idx: torch.Tensor,
+                      log_lam: torch.Tensor, u: torch.Tensor,
+                      dw: torch.Tensor, sign: torch.Tensor,
+                      mwu_c: torch.Tensor, mwu_dot: torch.Tensor,
+                      d_eff: float):
+    """Packed dual update (lines 5-6 of Algorithm 2 and the incremental
+    u) for both classes in one sweep.  Returns (log_new UNNORMALIZED,
+    u_new, m_p, s_p, m_m, s_m), the scalars (S,) with per-class
+    lse = m + log(s)."""
+    s, d, n_pad, b = check_packed(
+        x_t, idx, dict(log_lam=log_lam, u=u, sign=sign),
+        dict(mwu_c=mwu_c, mwu_dot=mwu_dot), rows=dict(dw=dw))
+    if x_t.device.type == "cpu":
+        return ref.mwu_update_packed_ref(x_t, idx, log_lam, u, dw, sign,
+                                         mwu_c, mwu_dot, d_eff)
+    from repro_torch.kernels import build
+    lib = build.library("saddle_update")
+    log_new = torch.empty_like(log_lam)
+    u_new = torch.empty_like(u)
+    parts = torch.empty((s, n_pad // LANE, 4), dtype=torch.float32,
+                        device=x_t.device)
+    with torch.cuda.device(x_t.device):
+        stream = torch.cuda.current_stream(x_t.device).cuda_stream
+        build.check(lib.mwu_update_packed_f32(
+            x_t.data_ptr(), idx.data_ptr(), dw.data_ptr(),
+            log_lam.data_ptr(), u.data_ptr(), sign.data_ptr(),
+            mwu_c.data_ptr(), mwu_dot.data_ptr(), float(d_eff),
+            log_new.data_ptr(), u_new.data_ptr(), parts.data_ptr(),
+            s, d, n_pad, b, stream), "mwu_update_packed")
+    launch_counts["mwu_update_packed"] += 1
+    return (log_new, u_new) + combine_class_partials(parts)

@@ -1,0 +1,205 @@
+"""The port's kernel entry points on the CPU (their plain PyTorch versions)
+against the JAX package's Pallas kernels (interpret mode) and its jnp
+oracles, at the tolerances of tests/test_kernels.py; plus the wrappers'
+input checks.  The CUDA kernels themselves are held against these plain
+versions on the card by chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+
+NEG = -1e30
+
+
+@pytest.mark.parametrize("n,d", [(1, 8), (5, 64), (33, 256), (100, 32)])
+def test_fwht_matches_jax(n, d):
+    rng = np.random.default_rng(n * d)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    got = ops.fwht(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jops.fwht(jnp.asarray(x))),
+                               atol=1e-4)
+    np.testing.assert_allclose(got, np.asarray(jref.fwht_ref(jnp.asarray(x))),
+                               atol=1e-4)
+
+
+def test_fwht_vector_and_unnormalized():
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=128).astype(np.float32)
+    got = ops.fwht(torch.from_numpy(x))
+    assert got.shape == (128,)
+    want = np.asarray(jref.fwht_ref(jnp.asarray(x)[None]))[0]
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    raw = ops.fwht(torch.from_numpy(x), normalize=False).numpy()
+    np.testing.assert_allclose(raw / np.sqrt(128), got.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [0, 3, 12, 100])
+def test_fwht_non_pow2_d_fails_fast(d):
+    with pytest.raises(ValueError, match="power of two"):
+        ops.fwht(torch.zeros((4, d)))
+
+
+def test_fwht_rejects_non_f32():
+    with pytest.raises(TypeError, match="float32"):
+        ops.fwht(torch.zeros((4, 8), dtype=torch.float64))
+
+
+def _packed_problem(rng, n_pad, n1, n2, d, b):
+    """Packed operand with lane padding and per-class log weights (numpy),
+    as tests/test_kernels.py builds it."""
+    x = rng.normal(size=(n_pad, d)).astype(np.float32)
+    x[n1 + n2:] = 0.0
+    sign = np.zeros(n_pad, np.float32)
+    sign[:n1] = 1.0
+    sign[n1:n1 + n2] = -1.0
+    log_lam = np.full(n_pad, NEG, np.float32)
+    log_lam[:n1] = -np.log(n1) + 0.1 * rng.normal(size=n1)
+    log_lam[n1:n1 + n2] = -np.log(n2) + 0.1 * rng.normal(size=n2)
+    idx = rng.choice(d, b, replace=False).astype(np.int32)
+    return np.ascontiguousarray(x.T), sign, log_lam, idx
+
+
+def _t(a):
+    """numpy -> torch with a leading slot axis of 1."""
+    return torch.from_numpy(np.asarray(a))[None].contiguous()
+
+
+# (n_pad, n1, n2, d, b): one tile; a single-class first tile and a mixed
+# one; an all-padding last tile (n1 + n2 <= n_pad - 128)
+PACKED_CASES = [(128, 40, 50, 16, 1), (512, 200, 250, 32, 8),
+                (512, 150, 200, 32, 32)]
+
+
+@pytest.mark.parametrize("n_pad,n1,n2,d,b", PACKED_CASES)
+def test_momentum_dot_packed_matches_jax(n_pad, n1, n2, d, b):
+    rng = np.random.default_rng(n_pad + b)
+    x_t, sign, ll, idx = _packed_problem(rng, n_pad, n1, n2, d, b)
+    lp = (ll + 0.05 * rng.normal(size=n_pad).astype(np.float32)
+          * (sign != 0)).astype(np.float32)
+    theta = np.float32(0.95)
+    got = ops.momentum_dot_packed(_t(x_t), _t(idx), _t(ll), _t(lp), _t(sign),
+                                  torch.tensor([theta]))[0].numpy()
+    args = [jnp.asarray(a) for a in (x_t, idx, ll, lp, sign)]
+    np.testing.assert_allclose(
+        got, np.asarray(jops.momentum_dot_packed(*args, theta)), atol=1e-4)
+    np.testing.assert_allclose(
+        got, np.asarray(jref.momentum_dot_packed_ref(*args, theta)),
+        atol=1e-4)
+
+
+@pytest.mark.parametrize("n_pad,n1,n2,d,b", PACKED_CASES)
+def test_mwu_update_packed_matches_jax(n_pad, n1, n2, d, b):
+    rng = np.random.default_rng(n_pad * 3 + b)
+    x_t, sign, ll, idx = _packed_problem(rng, n_pad, n1, n2, d, b)
+    u = (rng.normal(size=n_pad) * 0.1).astype(np.float32)
+    dw = (rng.normal(size=b) * 0.01).astype(np.float32)
+    gamma, tau, d_eff = 1e-3, 40.0, float(d)
+    mwu_c = np.float32(1.0 / (gamma + d_eff / tau))
+    mwu_dot = np.float32(d_eff / tau)
+    got = ops.mwu_update_packed(
+        _t(x_t), _t(idx), _t(ll), _t(u), _t(dw), _t(sign),
+        torch.tensor([mwu_c]), torch.tensor([mwu_dot]), d_eff)
+    got = [g[0].numpy() for g in got]
+    args = [jnp.asarray(a) for a in (x_t, idx, ll, u, dw, sign)]
+    for want in (jops.mwu_update_packed(*args, gamma=gamma, tau=tau,
+                                        d_eff=d_eff),
+                 jref.mwu_update_packed_ref(*args, gamma, tau, d_eff)):
+        want = [np.asarray(w) for w in want]
+        n = n1 + n2
+        np.testing.assert_allclose(got[0][:n], want[0][:n], atol=1e-4)
+        np.testing.assert_allclose(got[1], want[1], atol=1e-5)
+        assert (got[0][n:] < -1e20).all()
+        for (m_g, s_g), (m_w, s_w) in [((got[2], got[3]), (want[2], want[3])),
+                                       ((got[4], got[5]), (want[4], want[5]))]:
+            np.testing.assert_allclose(float(m_g) + np.log(float(s_g)),
+                                       float(m_w) + np.log(float(s_w)),
+                                       atol=1e-4)
+
+
+def test_class_partials_combine_like_jax():
+    """The CUDA wrapper's fixed-order merge of per-tile (m, s) partials,
+    run on the CPU: padding-only and single-class tiles give (NEG, 0) and
+    must not disturb the merged logsumexp."""
+    from repro_torch.kernels.saddle_update import combine_class_partials
+    rng = np.random.default_rng(3)
+    log_new = rng.normal(size=512).astype(np.float32)
+    sign = np.zeros(512, np.float32)
+    sign[:200], sign[200:350] = 1.0, -1.0
+    parts = []
+    for tile in range(4):
+        ln, sg = log_new[tile * 128:(tile + 1) * 128], sign[tile * 128:]
+        sg = sg[:128]
+        row = []
+        for cls in (1.0, -1.0):
+            m = ln[sg == cls].max() if (sg == cls).any() else NEG
+            s = np.exp(ln[sg == cls] - m).sum() if (sg == cls).any() else 0.0
+            row += [m, s]
+        parts.append(row)
+    m_p, s_p, m_m, s_m = combine_class_partials(
+        torch.tensor([parts], dtype=torch.float32))
+    for m, s, cls in ((m_p, s_p, 1.0), (m_m, s_m, -1.0)):
+        want = np.log(np.exp(log_new[sign == cls].astype(np.float64)).sum())
+        np.testing.assert_allclose(float(m[0] + torch.log(s[0])), want,
+                                   atol=1e-5)
+
+
+def _good_packed(n_pad=256, d=16, b=4):
+    x_t = torch.zeros((1, d, n_pad))
+    idx = torch.arange(b, dtype=torch.int32)[None]
+    vec = torch.zeros((1, n_pad))
+    return x_t, idx, vec
+
+
+@pytest.mark.parametrize("bad", ["lane", "idx_dtype", "vec_dtype", "shape",
+                                 "contiguous", "b_gt_d", "idx_negative",
+                                 "idx_ge_d"])
+def test_packed_wrappers_reject_bad_inputs(bad):
+    x_t, idx, vec = _good_packed()
+    theta = torch.ones(1)
+    log_lam, log_prev, sign = vec, vec.clone(), vec.clone()
+    err = ValueError
+    if bad == "lane":
+        x_t, log_lam = torch.zeros((1, 16, 200)), torch.zeros((1, 200))
+        log_prev, sign = log_lam.clone(), log_lam.clone()
+    elif bad == "idx_dtype":
+        idx, err = idx.long(), TypeError
+    elif bad == "vec_dtype":
+        log_lam, err = log_lam.double(), TypeError
+    elif bad == "shape":
+        sign = torch.zeros((1, 128))
+    elif bad == "contiguous":
+        x_t = torch.zeros((1, 256, 16)).transpose(1, 2)
+    elif bad == "b_gt_d":
+        idx = torch.arange(17, dtype=torch.int32)[None]
+    elif bad == "idx_negative":
+        idx, err = idx - 1, IndexError
+    elif bad == "idx_ge_d":
+        idx, err = idx + 13, IndexError
+    with pytest.raises(err):
+        ops.momentum_dot_packed(x_t, idx, log_lam, log_prev, sign, theta)
+    with pytest.raises(err):
+        b = idx.shape[1]
+        ops.mwu_update_packed(x_t, idx, log_lam, log_prev, torch.zeros((1, b)),
+                              sign, theta, theta, 4.0)
+
+
+def test_cpu_calls_are_not_counted_as_launches():
+    """launch_counts counts CUDA kernel launches only: a call served by a
+    plain version on the CPU leaves it unchanged."""
+    before = dict(ops.launch_counts)
+    x_t, idx, vec = _good_packed()
+    ops.momentum_dot_packed(x_t, idx, vec, vec, vec, torch.ones(1))
+    ops.fwht(torch.zeros((2, 8)))
+    assert dict(ops.launch_counts) == before
+
+
+def test_ref_fwht_is_orthonormal():
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(3, 64)).astype(np.float32))
+    np.testing.assert_allclose(ref.fwht_ref(ref.fwht_ref(x)).numpy(),
+                               x.numpy(), atol=1e-5)
