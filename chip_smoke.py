@@ -6,33 +6,52 @@
 Phases, each of which must pass (any failure exits non-zero, and there is
 no CPU fallback):
 
-  1. build     -- compile every kernel from ``src/repro_torch/kernels/csrc``
-                  with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. main path -- a nu-SVM fit at the paper's Figure 2 size (n=50,000,
-                  d=512, B=1) and a hard-margin fit in block mode
-                  (n=20,000, d=256, B=128), through ``SaddleNuSVC.fit`` /
-                  ``SaddleSVC.fit``, with the launch counts reset just
-                  before and read just after: each step makes exactly one
-                  launch of each packed kernel, the FWHT runs for the
-                  preprocessing and the recovery, the history is finite
-                  and falls.  The shape of every kernel call, the packed
-                  operands and the sampled coordinates are recorded.
-  3. kernels   -- each kernel against its plain PyTorch version on the
-                  card, at every shape the main path gave it (the packed
-                  kernels on the main path's own x_t and sign), and at a
-                  synthetic layout with an all-padding tile and
-                  single-class tiles; its time, the plain version's time,
-                  a one-call PyTorch yardstick and its bound.  An
-                  out-of-range row index gives NaN, not a fault.
-  4. profile   -- a short window of the nu-SVM solve under torch.profiler:
-                  the device's busy share and kernel time by name.
-  5. card vs CPU -- one fit (n=4,000, d=128, 2,000 iterations) on the card
-                  and on the CPU with the same signs and coordinate
-                  schedule; then both main-path fits replayed on the CPU
-                  with the coordinates the card sampled.
+  1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
+                   with nvcc for sm_90a into ``build/repro_torch_kernels/``.
+  2. paths      -- three paths, each driven with the launch counts reset
+                   just before it and read just after, recording the
+                   shape (and the operands) of every kernel call and the
+                   sampled coordinates:
+       a. serial fits: a nu-SVM fit at the paper's Figure 2 size
+          (n=50,000, d=512, B=1) and a hard-margin fit in block mode
+          (n=20,000, d=256, B=128), through ``SaddleNuSVC.fit`` /
+          ``SaddleSVC.fit``: one launch of each packed kernel per step,
+          3 FWHTs per fit, a finite history that falls.
+       b. distributed fits (Algorithm 4, k=20 clients on the card):
+          Figure 3's hard-margin shape (n=10,000, d=256, 6,000 steps) and
+          Figure 4's gisette-like nu-SVM (n=6,000, d=512, 5,000 steps),
+          through ``preprocess`` and ``distributed.solve_distributed``:
+          the packed kernels at S=20, 2 launches per step, 3 (HM) or 29
+          (nu) tallied client reductions per step, the objective falls,
+          every client holds the same w.
+       c. reference step: the unpacked kernels (4 launches per step, for
+          k=20 and serially) against the packed solves on the same
+          coordinates, 80 steps on the Figure 3 data, 1e-5 on w, the dual
+          weights and u; and one block of 4 steps at B=128.
+  3. serial vs distributed -- each distributed fit refit serially on the
+                   coordinates it drew: w within 1e-4.
+  4. profile    -- short windows of the serial nu-SVM solve and of both
+                   distributed fits under torch.profiler: the device's busy
+                   share and kernel time by name.
+  5. kernels    -- each kernel against its plain PyTorch version on the
+                   card, at every shape the paths gave it (on the paths'
+                   own data and step scalars, with fresh duals and u), and
+                   at the JAX kernel tests' shapes and a synthetic packed
+                   layout; its time, its device-only time (one profiler
+                   session per group), the plain version's, a one-call
+                   PyTorch yardstick and its bound.  At the path shapes
+                   the unpacked checks must also fail planted faults
+                   (momentum or u dropped, a client's last point left
+                   out).  An out-of-range row index gives NaN, not a
+                   fault.
+  6. card vs CPU -- a serial fit (n=4,000, d=128, 2,000 iterations) on the
+                   card and on the CPU with the same signs and schedule;
+                   both serial fits of path a and 1,000 steps of the Figure
+                   4 distributed fit replayed on the CPU with the
+                   coordinates the card sampled.
 
 The next-to-last line of standard output is a JSON object listing every
-kernel at every main-path shape with its launches, error, times and bound;
+kernel at every path shape with its launches, error, times and bound;
 the last line is ``{"ok": true, "device": {...}}``.  It imports nothing of
 JAX.
 """
@@ -52,18 +71,25 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM memory rate (data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 CSRC = "src/repro_torch/kernels/csrc"
-KERNELS = ("fwht", "momentum_dot_packed", "mwu_update_packed")
+KERNELS = ("fwht", "momentum_dot_packed", "mwu_update_packed",
+           "momentum_dot", "mwu_update")
+PACKED = ("momentum_dot_packed", "mwu_update_packed")
+UNPACKED = ("momentum_dot", "mwu_update")
 REPLACES = {
     "fwht": "src/repro/kernels/fwht.py:96",
     "momentum_dot_packed": "src/repro/kernels/saddle_update.py:359",
     "mwu_update_packed": "src/repro/kernels/saddle_update.py:432",
+    "momentum_dot": "src/repro/kernels/saddle_update.py:233",
+    "mwu_update": "src/repro/kernels/saddle_update.py:287",
 }
 SOURCES = {"fwht": f"{CSRC}/fwht.cu",
-           "momentum_dot_packed": f"{CSRC}/saddle_update.cu",
-           "mwu_update_packed": f"{CSRC}/saddle_update.cu"}
+           **{name: f"{CSRC}/saddle_update.cu" for name in KERNELS[1:]}}
 # Card vs CPU: a fit's w_ and b_ agree to 1e-4, its objective history to
-# 1e-3 relative.
+# 1e-3 relative.  Serial vs distributed: w to 1e-4, every client's w to
+# 1e-6 of the first's (tests/test_distributed.py); reference vs packed:
+# 1e-5 (tests/test_engine.py).
 FIT_ATOL, HIST_RTOL = 1e-4, 1e-3
+CLIENT_ATOL, REF_ATOL = 1e-6, 1e-5
 
 
 class PhaseError(RuntimeError):
@@ -110,30 +136,55 @@ class Timer:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def device_ms(self, fn, kernel: str, reps: int = 20) -> float:
-        """Mean device time of one launch of the CUDA kernel whose name
-        holds ``kernel``, from torch.profiler over ``reps`` calls of
-        ``fn``: the kernel alone, without the host's launch cost and the
-        wrapper's other ops."""
+    def device_ms(self, jobs, reps: int = 20) -> list[tuple[float, int]]:
+        """Mean device time of one launch of each job's CUDA kernel, from
+        ONE torch.profiler session over ``reps`` calls of every job
+        ``(fn, kernel)`` in turn: the kernel alone, without the host's
+        launch cost and the wrapper's other ops.  Each job runs inside a
+        labelled range, which the profiler also records on the device's
+        clock; the launches of the kernel whose name holds ``kernel``
+        that start inside the device range are that job's.  (A second
+        session in one process has been seen to offset the device clock
+        from the host's by milliseconds, and to lose the device events of
+        its first milliseconds: so ranges are read on the device side, and
+        the session first spends ~25 ms zeroing the flush buffer.)  The
+        mean is over the launches recorded, returned with their count; a
+        job with fewer than half of ``reps`` fails."""
         torch = self.torch
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
 
-        fn()
+        for fn, _ in jobs:
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(300):
                 self.flush.zero_()
-                fn()
             torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA and kernel in ev.key:
-                total = getattr(ev, "self_device_time_total", None)
-                if total is None:
-                    total = ev.self_cuda_time_total
-                return total / ev.count / 1e3
-        raise PhaseError(f"the profiler saw no launch of {kernel}")
+            for i, (fn, _) in enumerate(jobs):
+                with record_function(f"chip_smoke job {i}"):
+                    for _ in range(reps):
+                        self.flush.zero_()
+                        fn()
+                    torch.cuda.synchronize()
+        events = [ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA]
+        ranges = {ev.name: ev.time_range for ev in events
+                  if ev.name.startswith("chip_smoke job ")}
+        launches = [(ev.time_range.start, ev.name,
+                     ev.time_range.elapsed_us()) for ev in events]
+        out = []
+        for i, (_, kernel) in enumerate(jobs):
+            span = ranges.get(f"chip_smoke job {i}")
+            require(span is not None, f"profiler: no device range for job "
+                    f"{i} ({kernel})")
+            us = [t for start, name, t in launches if kernel in name
+                  and span.start <= start <= span.end]
+            require(2 * len(us) >= reps, f"profiler: {len(us)} launches of "
+                    f"{kernel} recorded for job {i}, want {reps}")
+            out.append((statistics.fmean(us) / 1e3, len(us)))
+        return out
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -150,27 +201,36 @@ def entry(name, label, err, ms, plain_ms, library_ms, nbytes, ops):
                 library_ms=library_ms)
 
 
-def print_entry(e, dev_ms: float) -> None:
-    lib = "null" if e["library_ms"] is None else f"{e['library_ms']:.4f}"
-    print(f"  {e['name']}: err {e['max_abs_err']:.3e}  kernel "
-          f"{e['ms']:.4f} ms (device only {dev_ms:.4f} ms)  plain "
-          f"{e['plain_ms']:.4f} ms  library {lib} ms  bound "
-          f"{e['bound_ms']:.4f} ms ({e['bound_by']})  launches "
-          f"{e['launches']}")
+def report(timer, jobs) -> list[dict]:
+    """Print each checked kernel's entry with its device-only time, all
+    from one profiler session; ``jobs`` are (entry, fn, kernel name)."""
+    dev = timer.device_ms([(fn, kernel) for _, fn, kernel in jobs])
+    for (e, _, _), (dev_ms, n) in zip(jobs, dev):
+        lib = "null" if e["library_ms"] is None else f"{e['library_ms']:.4f}"
+        print(f"  {e['name']}: err {e['max_abs_err']:.3e}  kernel "
+              f"{e['ms']:.4f} ms (device only {dev_ms:.4f} ms over {n} "
+              f"launches)  plain "
+              f"{e['plain_ms']:.4f} ms  library {lib} ms  bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']})  launches "
+              f"{e['launches']}")
+    return [e for e, _, _ in jobs]
 
 
 # ---------------------------------------------------------------- phase 2
 class PathRecorder:
-    """Host-side bookkeeping of the main path: the shape of every kernel
-    call, the packed operands (x_t, sign) of each packed shape, and the
-    coordinate block of every step.  It wraps the entry points of
+    """Host-side bookkeeping of one path: the shape of every kernel call,
+    the packed operands (x_t, sign) of each packed shape, the arguments of
+    the first unpacked call at each shape, and the coordinate block of
+    every packed step.  It wraps the entry points of
     ``repro_torch.kernels.ops`` that the solver calls; the wrappers
     underneath still count their own launches."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self.calls = Counter()     # (kernel, shape) -> calls
         self.operands = {}         # (S, d, n_pad, b) -> (x_t, sign)
-        self.blocks = []           # idx (S, b) of every step, in order
+        self.unpacked = {}         # (kernel, shape) -> first call's args
+        self.blocks = []           # idx (S, b) of every packed step
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -193,9 +253,19 @@ class PathRecorder:
             self.calls["mwu_update_packed", (*x_t.shape, idx.shape[1])] += 1
             return self.saved["mwu_update_packed"](x_t, idx, *args)
 
+        def unpacked(name):
+            def call(cols, *args, **kw):
+                key = (name, tuple(cols.shape))
+                self.calls[key] += 1
+                self.unpacked.setdefault(key, (cols, *args))
+                return self.saved[name](cols, *args, **kw)
+            return call
+
         for name, fn in (("fwht", fwht),
                          ("momentum_dot_packed", momentum_dot_packed),
-                         ("mwu_update_packed", mwu_update_packed)):
+                         ("mwu_update_packed", mwu_update_packed),
+                         ("momentum_dot", unpacked("momentum_dot")),
+                         ("mwu_update", unpacked("mwu_update"))):
             setattr(ops, name, fn)
         return self
 
@@ -204,11 +274,24 @@ class PathRecorder:
             setattr(self.ops, name, fn)
 
     def take_schedule(self):
-        """The (steps, b) coordinate schedule of the fit just run."""
+        """The (steps, b) coordinate schedule of the packed fit just run
+        (every client's row is the server's one draw)."""
         import torch
         sched = torch.stack(self.blocks)[:, 0, :].cpu().numpy()
         self.blocks = []
         return sched
+
+    def check_counts(self, counts: dict, kernels) -> None:
+        """Every kernel of the path was launched, and each launch was a
+        call this recorder saw."""
+        for name in kernels:
+            require(counts.get(name, 0) > 0, f"{self.name}: {name} was "
+                    "never launched")
+        for name in KERNELS:
+            seen = sum(c for (k, _), c in self.calls.items() if k == name)
+            require(seen == counts.get(name, 0), f"{self.name}: {name}: "
+                    f"{counts.get(name, 0)} launches counted, {seen} calls "
+                    "recorded")
 
 
 FITS = (
@@ -276,8 +359,9 @@ def run_fit(torch, label, clf, ds, steps_want):
 
 
 def main_path(torch, rec: PathRecorder):
-    """Both fits, with the launch counts reset just before and read just
-    after.  Returns [(spec, fitted estimator, data, schedule)]."""
+    """Path a: both serial fits, with the launch counts reset just before
+    and read just after.  Returns [(spec, fitted estimator, data,
+    schedule)]."""
     from repro_torch.core import saddle
     from repro_torch.kernels import ops
 
@@ -292,18 +376,244 @@ def main_path(torch, rec: PathRecorder):
             run_fit(torch, spec[0], clf, ds, steps)
             done.append((spec, clf, ds, rec.take_schedule()))
     counts = dict(ops.launch_counts)
-    print(f"main path launches {counts}")
-    for name in KERNELS:
-        require(counts.get(name, 0) > 0, f"{name} was never launched on "
-                "the main path")
-        seen = sum(c for (k, _), c in rec.calls.items() if k == name)
-        require(seen == counts[name], f"{name}: {counts[name]} launches "
-                f"counted, {seen} calls recorded")
+    print(f"path a launches {counts}")
+    rec.check_counts(counts, ("fwht",) + PACKED)
     return done
 
 
+DIST_FITS = (
+    # label, data, solver arguments, alpha (nu = 1/(alpha min(n1, n2)))
+    ("Figure 3 hard margin k=20 n=10000 d=256",
+     ("separable", (10_000, 256), dict(seed=0)),
+     dict(k=20, eps=1e-3, beta=0.1, num_iters=6000, record_every=1000),
+     None),
+    ("Figure 4 nu-SVM k=20 n=6000 d=512",
+     ("non_separable", (6000, 512), dict(beta2=0.25, seed=512)),
+     dict(k=20, eps=1e-3, beta=0.1, num_iters=5000, record_every=1000),
+     0.85),
+)
+
+
+def dist_problem(spec):
+    """The two classes and nu of a distributed fit, as
+    benchmarks/fig3_dist_hard_margin.py and fig4_dist_nusvm.py build
+    them."""
+    from repro_torch.core import preprocess as pp
+    from repro_torch.core.svm import split_classes
+    from repro_torch.data import synthetic
+
+    _label, (gen, args, gkw), _kw, alpha = spec
+    ds = getattr(synthetic, gen)(*args, **gkw)
+    xp, xm = split_classes(ds.x, ds.y)
+    nu = 0.0 if alpha is None else 1.0 / (alpha * min(len(xp), len(xm)))
+    return xp, xm, nu
+
+
+def expected_collectives(res, steps: int, d: int):
+    """The client reductions a B = 1 distributed solve must tally: the
+    model's per-iteration multiset for every step, and one (d,) sum per
+    chunk for the objective."""
+    expect = Counter({key: n * steps for key, n in
+                      res.comm.collective_multiset().items()})
+    expect["all-reduce", "add", d] += len(res.history)
+    return expect
+
+
+def run_dist_fit(torch, spec):
+    """One distributed fit through preprocess, solve_distributed and the
+    recovery of w, checked; returns its record."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import engine
+    from repro_torch.core import preprocess as pp
+    from repro_torch.kernels import ops
+
+    label, _data, kw, _alpha = spec
+    xp, xm, nu = dist_problem(spec)
+    launches = Counter(ops.launch_counts)
+    colls = Counter(engine.collective_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = pp.preprocess(xp, xm, generator=torch.Generator().manual_seed(0),
+                        device="cuda")
+    res = dist.solve_distributed(pre.xp, pre.xm, nu=nu, device="cuda", **kw)
+    w = pp.recover_direction(res.state.w[0], pre)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = Counter(ops.launch_counts) - launches
+    colls = Counter(engine.collective_counts) - colls
+    steps = res.history[-1][0]
+    objs = [o for *_, o in res.history]
+    d = pre.xp.shape[1]
+    per_step = res.comm.collectives_per_iteration()
+    client_spread = (res.state.w - res.state.w[0]).abs().max().item()
+    print(f"{label}: {secs:.3f} s fit, {secs / steps * 1e3:.4f} ms/step "
+          f"over {steps} steps, k={kw['k']}, nu={nu:.6g}, "
+          f"{res.scalars_sent:.0f} scalars sent ({per_step} collectives "
+          f"per step)")
+    print(f"  history {[(m, o) for m, _, o in res.history]}")
+    print(f"  launches {dict(launches)}")
+    print(f"  client reductions {dict(colls)}")
+    require(steps == kw["num_iters"], f"{label}: ran {steps} steps")
+    require(all(launches[k] == steps for k in PACKED)
+            and not any(launches[k] for k in UNPACKED),
+            f"{label}: want one launch of each packed kernel per step")
+    require(launches["fwht"] == 3,
+            f"{label}: want 3 fwht launches (2 preprocessing, 1 recovery)")
+    require(per_step == (29 if nu > 0 else 3),
+            f"{label}: the model counts {per_step} collectives per step")
+    require(colls == expected_collectives(res, steps, d),
+            f"{label}: tallied client reductions differ from the model")
+    require(all(math.isfinite(o) for o in objs), f"{label}: non-finite")
+    require(objs[-1] < objs[0], f"{label}: objective does not fall")
+    require(torch.isfinite(w).all().item(), f"{label}: non-finite w")
+    print(f"  every client's w within {client_spread:.3e} of client 0's "
+          f"(tol {CLIENT_ATOL})")
+    require(client_spread <= CLIENT_ATOL, f"{label}: clients' w differ")
+    return dict(spec=spec, pre=pre, nu=nu, res=res, secs=secs)
+
+
+def dist_path(torch, rec: PathRecorder):
+    """Path b: both distributed fits, counts reset just before and read
+    just after.  Returns their records, each with its schedule."""
+    from repro_torch.kernels import ops
+
+    ops.launch_counts.clear()
+    done = []
+    with rec:
+        for spec in DIST_FITS:
+            fit = run_dist_fit(torch, spec)
+            fit["sched"] = rec.take_schedule()
+            done.append(fit)
+    counts = dict(ops.launch_counts)
+    print(f"path b launches {counts}")
+    rec.check_counts(counts, ("fwht",) + PACKED)
+    return done
+
+
+def max_state_diff(a, b) -> dict:
+    """Largest differences of two per-class states: w, u, and the dual
+    weights exp(log)."""
+    import torch
+    return {
+        "w": (a.w - b.w).abs().max().item(),
+        "weights": max((torch.exp(x) - torch.exp(y)).abs().max().item()
+                       for x, y in ((a.log_eta, b.log_eta),
+                                    (a.log_xi, b.log_xi))),
+        "u": max((x - y).abs().max().item()
+                 for x, y in ((a.u_p, b.u_p), (a.u_m, b.u_m))),
+    }
+
+
+def reference_path(torch, rec: PathRecorder, fig3):
+    """Path c: the unpacked reference step against the packed solves on
+    the Figure 3 data and coordinates, k=20 and serially, 80 steps; then
+    4 steps at B=128.  4 unpacked launches per step, 2 packed."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import engine, saddle
+    from repro_torch.kernels import ops
+
+    pre, sched, k = fig3["pre"], fig3["sched"], fig3["spec"][2]["k"]
+    n1, d = pre.xp.shape
+    n2 = pre.xm.shape[0]
+    iters = 80
+    params = saddle.make_params(n1 + n2, d, 1e-3, 0.1)
+    host = [t.cpu().numpy() for t in (pre.xp, pre.xm)]
+    xp_sh, mask_p = dist.shard_points(host[0], k)
+    xm_sh, mask_m = dist.shard_points(host[1], k)
+    xps = torch.as_tensor(xp_sh, device="cuda")
+    xms = torch.as_tensor(xm_sh, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(128)
+    idx128 = engine.draw_blocks(g, d, 128, 4, torch.device("cuda"))
+    params128 = saddle.make_params(n1 + n2, d, 1e-3, 0.1, block_size=128)
+
+    def counted(fn):
+        before = Counter(ops.launch_counts)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, Counter(ops.launch_counts) - before
+
+    def compare(label, got, want, steps, unpacked):
+        diff = max_state_diff(got, want)
+        print(f"  {label}: {diff} (tol {REF_ATOL}); reference launches "
+              f"{dict(unpacked)}")
+        require(max(diff.values()) <= REF_ATOL, f"{label}: differ")
+        require(unpacked == Counter({"momentum_dot": 2 * steps,
+                                     "mwu_update": 2 * steps}),
+                f"{label}: want 4 unpacked launches per step")
+
+    def packed_launches(label, counts, steps):
+        require(counts == Counter({"momentum_dot_packed": steps,
+                                   "mwu_update_packed": steps}),
+                f"{label}: want 2 packed launches per step, got "
+                f"{dict(counts)}")
+
+    ops.launch_counts.clear()
+    t0 = time.perf_counter()
+    with rec:
+        sched_t = torch.as_tensor(sched[:iters], device="cuda")
+        (ref, _), c_ref = counted(lambda: dist.run_chunk_sim(
+            dist.init_sharded_state(n1, n2, d, mask_p, mask_m,
+                                    device="cuda"),
+            xps, xms, iters, params=params, idx=sched_t))
+        pk, c_pk = counted(lambda: dist.solve_distributed(
+            pre.xp, pre.xm, k=k, num_iters=iters,
+            idx_schedule=sched[:iters], device="cuda"))
+        packed_launches("packed k=20", c_pk, iters)
+        compare(f"reference vs packed, k={k}, {iters} steps", ref,
+                pk.state, iters, c_ref)
+
+        (sref, _), c_sref = counted(lambda: engine.run_chunk(
+            saddle.init_state(n1, n2, d, pre.xp), pre.xp, pre.xm,
+            iters, params=params, idx=sched_t))
+        spk, c_spk = counted(lambda: saddle.solve(
+            pre.xp, pre.xm, num_iters=iters, idx_schedule=sched[:iters],
+            device="cuda"))
+        packed_launches("packed serial", c_spk, iters)
+        compare(f"reference vs packed, serial, {iters} steps", sref,
+                spk.state, iters, c_sref)
+
+        (ref128, _), c_ref128 = counted(lambda: dist.run_chunk_sim(
+            dist.init_sharded_state(n1, n2, d, mask_p, mask_m,
+                                    device="cuda"),
+            xps, xms, 4, params=params128, idx=idx128))
+        pk128, c_pk128 = counted(lambda: dist.solve_distributed(
+            pre.xp, pre.xm, k=k, num_iters=4 * 128, block_size=128,
+            idx_schedule=idx128.cpu().numpy(), device="cuda"))
+        packed_launches("packed k=20 B=128", c_pk128, 4)
+        compare(f"reference vs packed, k={k}, B=128, 4 steps", ref128,
+                pk128.state, 4, c_ref128)
+    rec.blocks = []
+    counts = dict(ops.launch_counts)
+    print(f"path c: {time.perf_counter() - t0:.2f} s, launches {counts}")
+    rec.check_counts(counts, UNPACKED + PACKED)
+
+
+def serial_vs_dist(torch, fits):
+    """Each distributed fit refit serially on the coordinates it drew."""
+    from repro_torch.core import saddle
+
+    for fit in fits:
+        label, _data, kw, _alpha = fit["spec"]
+        pre, res = fit["pre"], fit["res"]
+        t0 = time.perf_counter()
+        ser = saddle.solve(pre.xp, pre.xm, nu=fit["nu"], eps=kw["eps"],
+                           beta=kw["beta"], num_iters=kw["num_iters"],
+                           record_every=kw["record_every"],
+                           idx_schedule=fit["sched"], device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        dw = (ser.state.w - res.state.w[0]).abs().max().item()
+        objs = [(m, o) for m, _, o in res.history]
+        print(f"{label}: serial on the same coordinates {secs:.3f} s "
+              f"({secs / kw['num_iters'] * 1e3:.4f} ms/step); max|dw| "
+              f"{dw:.3e} (tol {FIT_ATOL})")
+        print(f"  serial history      {ser.history}")
+        print(f"  distributed history {objs}")
+        require(dw <= FIT_ATOL, f"{label}: serial and distributed differ")
+
+
 # ---------------------------------------------------------------- phase 3
-def check_fwht(torch, timer, g, n, d, launches):
+def check_fwht(torch, timer, g, n, d, launches, path):
     from repro_torch.kernels import ops, ref
 
     x = torch.randn((n, d), generator=g, device="cuda")
@@ -314,12 +624,12 @@ def check_fwht(torch, timer, g, n, d, launches):
             f"version: {err}")
     require(torch.equal(out, ops.fwht(x)), "fwht is not deterministic")
     had = ref.fwht_ref(torch.eye(d, device="cuda"))   # normalized H
-    e = entry("fwht", f"fwht[n={n},d={d}]", err, timer(lambda: ops.fwht(x)),
+    e = entry("fwht", f"fwht[n={n},d={d},path {path}]", err,
+              timer(lambda: ops.fwht(x)),
               timer(lambda: ref.fwht_ref(x)), timer(lambda: x @ had),
               nbytes=2 * 4 * n * d, ops=n * d * (math.log2(d) + 1))
     e["launches"] = launches
-    print_entry(e, timer.device_ms(lambda: ops.fwht(x), "fwht_rows_kernel"))
-    return e
+    return e, lambda: ops.fwht(x), "fwht_rows_kernel"
 
 
 def step_inputs(torch, g, x_t, sign, b, main_path: bool = True):
@@ -330,45 +640,49 @@ def step_inputs(torch, g, x_t, sign, b, main_path: bool = True):
     0.95), which go with their unscaled Gaussian rows."""
     from repro_torch.core import engine, saddle
 
-    _, d, n_pad = x_t.shape
+    rows, d, n_pad = x_t.shape
     dev = x_t.device
     n1, n2 = int((sign > 0).sum()), int((sign < 0).sum())
-    noise = 0.1 * torch.randn((1, n_pad), generator=g, device=dev)
+    noise = 0.1 * torch.randn((rows, n_pad), generator=g, device=dev)
     ll = torch.where(sign > 0, -math.log(n1) + noise,
                      torch.where(sign < 0, -math.log(n2) + noise,
                                  torch.full_like(noise, -1e30)))
-    lp = ll + 0.05 * torch.randn((1, n_pad), generator=g, device=dev) * (
-        sign != 0)
-    u = 0.1 * torch.randn((1, n_pad), generator=g, device=dev)
+    lp = ll + 0.05 * torch.randn((rows, n_pad), generator=g,
+                                 device=dev) * (sign != 0)
+    u = 0.1 * torch.randn((rows, n_pad), generator=g, device=dev)
     if main_path:
         sp = engine.stack_slot_params([engine.slot_params_row(
-            saddle.make_params(n1 + n2, d, 1e-3, 0.1, block_size=b))], dev)
+            saddle.make_params(n1 + n2, d, 1e-3, 0.1, block_size=b))]
+            * rows, dev)
         theta, mwu_c, mwu_dot, d_eff = sp.theta, sp.mwu_c, sp.mwu_dot, d / b
     else:
         gamma, tau, d_eff = 1e-3, 40.0, float(d)
-        theta = torch.tensor([0.95], device=dev)
-        mwu_c = torch.tensor([1.0 / (gamma + d_eff / tau)], device=dev)
-        mwu_dot = torch.tensor([d_eff / tau], device=dev)
+        theta = torch.full((rows,), 0.95, device=dev)
+        mwu_c = torch.full((rows,), 1.0 / (gamma + d_eff / tau), device=dev)
+        mwu_dot = torch.full((rows,), d_eff / tau, device=dev)
+    # one draw for every row, as the server broadcasts it to the clients
     idx = torch.randperm(d, generator=g, device=dev)[:b].to(
-        torch.int32)[None]
-    dw = 0.01 * torch.randn((1, b), generator=g, device=dev)
+        torch.int32)[None].expand(rows, b).contiguous()
+    dw = (0.01 * torch.randn((1, b), generator=g, device=dev)).expand(
+        rows, b).contiguous()
     return dict(ll=ll, lp=lp, u=u, theta=theta, mwu_c=mwu_c,
                 mwu_dot=mwu_dot, d_eff=d_eff, idx=idx, dw=dw)
 
 
 def check_packed(torch, timer, g, x_t, sign, b, launches,
-                 main_path: bool = True):
-    """Both packed kernels on (x_t, sign) with b sampled rows."""
+                 main_path: bool = True, path: str = ""):
+    """Both packed kernels on (x_t, sign) with b sampled rows, every row
+    (slot or client) given the same block; returns their timing jobs."""
     from repro_torch.kernels import ops, ref
 
-    _, d, n_pad = x_t.shape
+    rows, d, n_pad = x_t.shape
     a = step_inputs(torch, g, x_t, sign, b, main_path)
     ll, lp, u, idx, dw, theta, mwu_c, mwu_dot, d_eff = (a[k] for k in (
         "ll", "lp", "u", "idx", "dw", "theta", "mwu_c", "mwu_dot", "d_eff"))
-    tag = ",main-path operands" if main_path else ",synthetic layout"
-    real = sign[0] != 0
-    label = f"[d={d},n_pad={n_pad},b={b}{tag}]"
-    entries = []
+    tag = f",{path} operands" if main_path else ",synthetic layout"
+    real = sign != 0
+    label = f"[S={rows},d={d},n_pad={n_pad},b={b}{tag}]"
+    jobs = []
 
     def dot():
         return ops.momentum_dot_packed(x_t, idx, ll, lp, sign, theta)
@@ -379,18 +693,17 @@ def check_packed(torch, timer, g, x_t, sign, b, launches,
     require(err <= 1e-4, f"momentum_dot_packed{label}: err {err}")
     require(torch.equal(got, dot()), "momentum_dot_packed is not "
             "deterministic")
-    lam = torch.exp(ll[0])
-    mom = sign[0] * (lam + theta[0] * (lam - torch.exp(lp[0])))
+    lam = torch.exp(ll)
+    mom = sign * (lam + theta[:, None] * (lam - torch.exp(lp)))
     idx_l = idx[0].long()
     e = entry("momentum_dot_packed", "momentum_dot_packed" + label, err,
               timer(dot), timer(lambda: ref.momentum_dot_packed_ref(
                   x_t, idx, ll, lp, sign, theta)),
-              timer(lambda: x_t[0][idx_l] @ mom),
-              nbytes=4 * (n_pad * (b + 3) + 2 * b + 1),
-              ops=n_pad * (2 * b + 6))
+              timer(lambda: x_t[:, idx_l] @ mom[..., None]),
+              nbytes=4 * rows * (n_pad * (b + 3) + 2 * b + 1),
+              ops=rows * n_pad * (2 * b + 6))
     e["launches"] = launches
-    print_entry(e, timer.device_ms(dot, "momentum_dot_packed_kernel"))
-    entries.append(e)
+    jobs.append((e, dot, "momentum_dot_packed_kernel"))
 
     def mwu():
         return ops.mwu_update_packed(x_t, idx, ll, u, dw, sign, mwu_c,
@@ -399,8 +712,8 @@ def check_packed(torch, timer, g, x_t, sign, b, launches,
     got = mwu()
     want = ref.mwu_update_packed_ref(x_t, idx, ll, u, dw, sign, mwu_c,
                                      mwu_dot, d_eff)
-    errs = [(got[0][0][real] - want[0][0][real]).abs().max().item()]
-    require((got[0][0][~real] < -1e20).all().item(),
+    errs = [(got[0][real] - want[0][real]).abs().max().item()]
+    require((got[0][~real] < -1e20).all().item(),
             f"mwu_update_packed{label}: padding lanes not below -1e20")
     u_err = (got[1] - want[1]).abs().max().item()
     require(u_err <= 1e-5, f"mwu_update_packed{label}: u err {u_err}")
@@ -415,12 +728,11 @@ def check_packed(torch, timer, g, x_t, sign, b, launches,
               max(errs + [u_err]), timer(mwu),
               timer(lambda: ref.mwu_update_packed_ref(
                   x_t, idx, ll, u, dw, sign, mwu_c, mwu_dot, d_eff)),
-              None, nbytes=4 * (n_pad * (b + 5) + 2 * b + 2),
-              ops=n_pad * (2 * b + 12))
+              None, nbytes=4 * rows * (n_pad * (b + 5) + 2 * b + 2),
+              ops=rows * n_pad * (2 * b + 12))
     e["launches"] = launches
-    print_entry(e, timer.device_ms(mwu, "mwu_update_packed_kernel"))
-    entries.append(e)
-    return entries
+    jobs.append((e, mwu, "mwu_update_packed_kernel"))
+    return jobs
 
 
 def synthetic_layout(torch, g):
@@ -458,52 +770,235 @@ def check_bad_index(torch, g, x_t, sign):
     print("  out-of-range row index: NaN outputs, no CUDA error")
 
 
-def check_kernels(torch, timer, rec: PathRecorder) -> list[dict]:
-    """Every kernel at every shape of the main path (the JSON entries),
-    then at the synthetic layout (printed only)."""
+def unpacked_state(torch, g, name, args):
+    """Fresh state on a recorded unpacked call: its cols, dw and step
+    scalars kept, its duals and u drawn anew.  The call the path made
+    first saw the starting state (log_prev = log_lam, u = 0, uniform
+    weights), on which a kernel that drops the momentum term or u would
+    pass; here every point's log weight is near -log(n) with a spread of
+    0.5, log_prev differs from it by as much, u is 0.1 N(0, 1), and each
+    client's last real point carries the largest weight (of lam for
+    momentum_dot, of the updated weights for mwu_update), so that a kernel
+    that leaves out the tail of its last tile shows.  Padding (log weight
+    -1e30, the round-robin padding of a client shard) stays padding, with
+    u = 0."""
+    from repro_torch.kernels import ref
+
+    cols, ll_rec = args[0], args[1]
+    pad = ll_rec < -1e29
+
+    def noise(scale):
+        return scale * torch.randn(ll_rec.shape, generator=g,
+                                   device=ll_rec.device)
+
+    def lift(ll, new):
+        # raise the last real point's log weight until its ``new`` (affine
+        # in it with slope ``slope``) is e times the largest
+        last = last_real(torch, ll)
+        top = new.amax(-1, keepdim=True) + 1 - new.gather(-1, last)
+        return ll.scatter_add(-1, last, top / slope)
+
+    n_real = (~pad).sum(-1, keepdim=True).float()
+    ll = torch.where(pad, -1e30, -torch.log(n_real) + noise(0.5))
+    if name == "momentum_dot":
+        slope = 1.0
+        ll = lift(ll, ll)
+        lp = torch.where(pad, -1e30, ll + noise(0.5))
+        return (cols, ll, lp, args[3])
+    u = torch.where(pad, 0.0, noise(0.1))
+    _sign, gamma, tau, d_eff = args[4:]
+    slope = (d_eff / tau) / (gamma + d_eff / tau)
+    new = ref.mwu_update_ref(cols, ll, u, *args[3:], normalize=False)[0]
+    return (cols, lift(ll, new), u, *args[3:])
+
+
+def last_real(torch, ll):
+    """Index (..., 1) of each client's last point that is not padding."""
+    real = (ll > -1e29).to(torch.int64)
+    return (real * torch.arange(ll.shape[-1], device=ll.device)).argmax(
+        -1, keepdim=True)
+
+
+def unpacked_errors(torch, name, got, want, real) -> dict:
+    """{output: (error, tolerance)} of an unpacked kernel's result:
+    delta within 1e-4 of its largest value (and 1e-4 at most); log_new on
+    real points and lse = m + log(s) within 1e-4, u within 1e-5
+    (tests/test_kernels.py)."""
+    if name == "momentum_dot":
+        scale = want.abs().max().item()
+        return {"delta": ((got - want).abs().max().item(),
+                          min(1e-4, 1e-4 * scale))}
+    lse = [r[2] + torch.log(r[3]) for r in (got, want)]
+    return {"log_new": ((got[0][real] - want[0][real]).abs().max().item(),
+                        1e-4),
+            "lse": ((lse[0] - lse[1]).abs().max().item(), 1e-4),
+            "u": ((got[1] - want[1]).abs().max().item(), 1e-5)}
+
+
+def planted_faults(torch, name, args, want) -> dict:
+    """What a faulty kernel would return on these operands, from the
+    plain version: momentum_dot with theta taken as 0, or with each
+    client's last real point left out; mwu_update with u left out, or
+    with each client's last real point left out of its tile's (max,
+    sum-exp)."""
+    from repro_torch.kernels import ref
+
+    last = last_real(torch, args[1])
+
+    def drop(t):
+        return t.scatter(-1, last, -1e30)
+
+    if name == "momentum_dot":
+        cols, ll, lp, theta = args
+        return {"theta = 0": ref.momentum_dot_ref(cols, ll, lp, 0.0),
+                "last point left out": ref.momentum_dot_ref(
+                    cols, drop(ll), drop(lp), theta)}
+    cols, ll, u, *rest = args
+    lo = drop(want[0])
+    m = lo.amax(-1)
+    return {"u = 0": ref.mwu_update_ref(cols, ll, torch.zeros_like(u),
+                                        *rest, normalize=False),
+            "last point left out": (want[0], want[1], m,
+                                    torch.exp(lo - m[..., None]).sum(-1))}
+
+
+def check_unpacked(torch, timer, g, name, args, launches, label,
+                   on_path: bool):
+    """One unpacked kernel on cols (K, n, B) or (n, B) against its plain
+    version (``unpacked_errors``), the same bits on a repeat call, and its
+    times.  Points at log weight -1e30 (round-robin padding of a client
+    shard) are held below -1e20 and left out of the log_new error.  On a
+    path's shape (``on_path``) the recorded call's cols, dw and step
+    scalars get fresh state (``unpacked_state``) and each planted fault
+    (``planted_faults``) must break a tolerance."""
+    from repro_torch.kernels import ops, ref
+
+    if on_path:
+        args = unpacked_state(torch, g, name, args)
+    cols, ll = args[:2]
+    k = cols.shape[0] if cols.ndim == 3 else 1
+    n, b = cols.shape[-2:]
+    label = f"{name}[{'K=%d,' % k if cols.ndim == 3 else ''}n={n},b={b}" \
+            f"{label}]"
+    if name == "momentum_dot":
+        def fn():
+            return ops.momentum_dot(*args)
+
+        def plain():
+            return ref.momentum_dot_ref(*args)
+
+        lam = torch.exp(ll)
+        mom = lam + args[3] * (lam - torch.exp(args[2]))
+        library = timer(lambda: cols.transpose(-1, -2) @ mom[..., None])
+        nbytes, ops_ = 4 * k * (n * (b + 2) + b), k * n * (2 * b + 6)
+        kernel = "momentum_dot_kernel"
+    else:
+        def fn():
+            return ops.mwu_update(*args, normalize=False)
+
+        def plain():
+            return ref.mwu_update_ref(*args, normalize=False)
+
+        library = None
+        nbytes, ops_ = 4 * k * (n * (b + 4) + b + 2), k * n * (2 * b + 12)
+        kernel = "mwu_update_kernel"
+    got, want = fn(), plain()
+    real = ll > -1e29
+    if name == "mwu_update":
+        require((got[0][~real] < -1e20).all().item(),
+                f"{label}: padding not below -1e20")
+    errs = unpacked_errors(torch, name, got, want, real)
+    require(all(e <= tol for e, tol in errs.values()), f"{label}: {errs}")
+    same = (torch.equal(got, fn()) if name == "momentum_dot" else
+            all(torch.equal(p, q) for p, q in zip(got, fn())))
+    require(same, f"{label}: not deterministic")
+    if on_path:
+        caught = {}
+        for fault, out in planted_faults(torch, name, args, want).items():
+            ferrs = unpacked_errors(torch, name, out, want, real)
+            caught[fault] = max(e / tol for e, tol in ferrs.values())
+            require(caught[fault] > 1, f"{label}: the check would pass a "
+                    f"kernel with {fault}: {ferrs}")
+        print(f"  {label}: planted faults break the tolerance by "
+              + ", ".join(f"{f} {r:.3g}x" for f, r in caught.items()))
+    e = entry(name, label, max(err for err, _ in errs.values()), timer(fn),
+              timer(plain), library, nbytes=nbytes, ops=ops_)
+    e["launches"] = launches
+    return e, fn, kernel
+
+
+def jax_test_shapes(torch, timer, g):
+    """The unpacked kernels at the JAX kernel tests' shapes and scalars
+    (tests/test_kernels.py), with one client and with 20."""
+    jobs = []
+    for lead in ((), (20,)):
+        for n, b in ((17, 1), (513, 128), (1025, 8), (2048, 128)):
+            def randn(*shape):
+                return torch.randn(lead + shape, generator=g, device="cuda")
+            cols = randn(n, b)
+            ll, lp = randn(n) - 3, randn(n) - 3
+            jobs.append(check_unpacked(torch, timer, g, "momentum_dot",
+                                       (cols, ll, lp, 0.95), None,
+                                       ",JAX test", False))
+            u, dw = 0.1 * randn(n), 0.01 * randn(b)
+            lu = torch.full(lead + (n,), -math.log(n), device="cuda")
+            for sign in (1.0, -1.0):
+                jobs.append(check_unpacked(
+                    torch, timer, g, "mwu_update",
+                    (cols, lu, u, dw, sign, 1e-3, 40.0, 128.0), None,
+                    f",JAX test,sign={sign:+.0f}", False))
+    return jobs
+
+
+def check_kernels(torch, timer, recs) -> list[dict]:
+    """Every kernel at every shape of every path (the JSON entries), then
+    at the JAX tests' shapes and the synthetic layout (printed only); the
+    device-only times of each group from one profiler session."""
     g = torch.Generator(device="cuda").manual_seed(0)
     entries = []
-    for (name, shape), calls in sorted(rec.calls.items()):
-        if name == "fwht":
-            entries.append(check_fwht(torch, timer, g, *shape, calls))
-    for shape, (x_t, sign) in sorted(rec.operands.items()):
-        entries += check_packed(torch, timer, g, x_t, sign, shape[3],
-                                rec.calls["momentum_dot_packed", shape])
-    print("  not on the main path (launches null):")
-    check_fwht(torch, timer, g, 50_000, 512, None)
+    for rec in recs:
+        print(f"  path {rec.name}:")
+        jobs = []
+        for (name, shape), calls in sorted(rec.calls.items()):
+            if name == "fwht":
+                jobs.append(check_fwht(torch, timer, g, *shape, calls,
+                                       rec.name))
+        for shape, (x_t, sign) in sorted(rec.operands.items()):
+            jobs += check_packed(torch, timer, g, x_t, sign, shape[3],
+                                 rec.calls["momentum_dot_packed", shape],
+                                 path=f"path {rec.name}")
+        for (name, shape), args in sorted(rec.unpacked.items(),
+                                          key=lambda kv: str(kv[0])):
+            jobs.append(check_unpacked(
+                torch, timer, g, name, args, rec.calls[name, shape],
+                f",path {rec.name}", on_path=True))
+        entries += report(timer, jobs)
+    print("  not on a path (launches null):")
+    jobs = [check_fwht(torch, timer, g, 50_000, 512, None, "none")]
     x_t, sign = synthetic_layout(torch, g)
     for b in (1, 128):
-        check_packed(torch, timer, g, x_t, sign, b, None, main_path=False)
+        jobs += check_packed(torch, timer, g, x_t, sign, b, None,
+                             main_path=False)
     check_bad_index(torch, g, x_t, sign)
+    report(timer, jobs + jax_test_shapes(torch, timer, g))
     return entries
 
 
 # ---------------------------------------------------------------- phase 4
-def profile_window(torch):
-    """Device busy share and kernel time by name over 300 steps of the
-    nu-SVM solve at the Figure 2 shape."""
+def profile_window(torch, label, steps, fn):
+    """Device busy share and kernel time by name over one call of ``fn``
+    (``steps`` solver steps), warm."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import preprocess as pp
-    from repro_torch.core import saddle
-    from repro_torch.core.svm import split_classes
-    from repro_torch.data import synthetic
-
-    ds = synthetic.non_separable(50_000, 512, beta2=0.2, seed=50_000)
-    xp, xm = split_classes(ds.x, ds.y)
-    pre = pp.preprocess(xp, xm, generator=torch.Generator().manual_seed(0),
-                        device="cuda")
-    nu = 1.0 / (0.85 * min(len(xp), len(xm)))
-    kw = dict(eps=1e-3, beta=0.1, nu=nu, num_iters=300, device="cuda")
-    saddle.solve(pre.xp, pre.xm, **kw)                 # warm
+    fn()                                               # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        saddle.solve(pre.xp, pre.xm, **kw)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
     rows = []                           # device-side rows: kernels, copies
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -516,15 +1011,41 @@ def profile_window(torch):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     if busy == 0:
-        print("profile: the profiler saw no device time (not measured)")
+        print(f"profile {label}: the profiler saw no device time (not "
+              "measured)")
         return
     launches = sum(r[2] for r in rows)
-    print(f"profile (300 nu-SVM steps, n=50000 d=512): wall {wall:.4f} s, "
+    print(f"profile ({steps} steps, {label}): wall {wall:.4f} s, "
           f"device busy {busy:.4f} s, idle share {1 - busy / wall:.4f}, "
-          f"{wall / 300 * 1e3:.4f} ms/step, {launches / 300:.1f} device "
+          f"{wall / steps * 1e3:.4f} ms/step, {launches / steps:.1f} device "
           f"launches/step")
     for dev_us, key, count in rows[:12]:
         print(f"  {dev_us / 1e3:10.3f} ms  {count:7d}x  {key[:90]}")
+
+
+def profiles(torch, dist_fits):
+    """300 steps of the serial nu-SVM solve at the Figure 2 shape, and of
+    each distributed fit on its own data and coordinates."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import preprocess as pp
+    from repro_torch.core import saddle
+    from repro_torch.core.svm import split_classes
+    from repro_torch.data import synthetic
+
+    ds = synthetic.non_separable(50_000, 512, beta2=0.2, seed=50_000)
+    xp, xm = split_classes(ds.x, ds.y)
+    pre = pp.preprocess(xp, xm, generator=torch.Generator().manual_seed(0),
+                        device="cuda")
+    nu = 1.0 / (0.85 * min(len(xp), len(xm)))
+    kw = dict(eps=1e-3, beta=0.1, nu=nu, num_iters=300, device="cuda")
+    profile_window(torch, "serial nu-SVM n=50000 d=512", 300,
+                   lambda: saddle.solve(pre.xp, pre.xm, **kw))
+    for fit in dist_fits:
+        label, _data, fkw, _alpha = fit["spec"]
+        fkw = dict(fkw, num_iters=300, record_every=300)
+        profile_window(torch, label, 300, lambda: dist.solve_distributed(
+            fit["pre"].xp, fit["pre"].xm, nu=fit["nu"], device="cuda",
+            idx_schedule=fit["sched"][:300], **fkw))
 
 
 # ---------------------------------------------------------------- phase 5
@@ -578,6 +1099,38 @@ def card_vs_cpu(torch, fits):
         compare_fits(f"  card vs CPU, {spec[0]}", card, clf, history=True)
 
 
+def dist_card_vs_cpu(torch, fit):
+    """The first 1,000 steps of a distributed fit on the card and on the
+    CPU's plain path, with the coordinates the card drew and the card's
+    preprocessed data: w within 1e-4, histories within 1e-3 relative."""
+    from repro_torch.core import distributed as dist
+
+    label, _data, kw, _alpha = fit["spec"]
+    steps = 1000
+    kw = dict(kw, num_iters=steps, record_every=200)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = dist.solve_distributed(
+            fit["pre"].xp.to(dev), fit["pre"].xm.to(dev), nu=fit["nu"],
+            idx_schedule=fit["sched"][:steps], device=dev, **kw)
+        print(f"{label}, {steps} steps on {dev}: "
+              f"{time.perf_counter() - t0:.2f} s")
+    card, cpu = runs["cuda"], runs["cpu"]
+    dw = (card.state.w.cpu() - cpu.state.w).abs().max().item()
+    marks = [m for m, *_ in card.history]
+    oc = [o for *_, o in card.history]
+    oh = [o for *_, o in cpu.history]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(oc, oh))
+    print(f"  card history {list(zip(marks, oc))}")
+    print(f"  CPU history  {list(zip(marks, oh))}")
+    print(f"  max|dw| {dw:.3e} (tol {FIT_ATOL}), max relative objective "
+          f"difference {rel:.3e} (tol {HIST_RTOL})")
+    require(marks == [m for m, *_ in cpu.history], f"{label}: marks differ")
+    require(dw <= FIT_ATOL, f"{label}: card and CPU w disagree")
+    require(rel <= HIST_RTOL, f"{label}: histories disagree")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -602,11 +1155,15 @@ def main() -> int:
     print(f"card: {card}, torch {torch.__version__}, cuda "
           f"{torch.version.cuda}")
 
-    rec = PathRecorder()
-    fits = main_path(torch, rec)
-    entries = check_kernels(torch, Timer(torch), rec)
-    profile_window(torch)
+    recs = [PathRecorder(name) for name in ("a", "b", "c")]
+    fits = main_path(torch, recs[0])
+    dist_fits = dist_path(torch, recs[1])
+    reference_path(torch, recs[2], dist_fits[0])
+    serial_vs_dist(torch, dist_fits)
+    profiles(torch, dist_fits)
+    entries = check_kernels(torch, Timer(torch), recs)
     card_vs_cpu(torch, fits)
+    dist_card_vs_cpu(torch, dist_fits[1])
 
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -21,6 +21,20 @@ leading dimension of every state field and operand: ``x_t`` (S, d, n_pad),
 ``sign`` and point vectors (S, n_pad), per-slot step scalars (S,).  A
 serial solve is the S = 1 batch.
 
+The client axis of Algorithm 4 (the JAX package's ``vmap`` over
+``axis_name="clients"`` with ``psum`` / ``pmax``) is that same leading
+axis: k clients are S = k slots of one problem, the server's coordinate
+block is one draw expanded to (k, b), and every cross-client reduction is
+a hook (:func:`_all_sum` / :func:`_all_max`, an explicit sum or max over
+the client dimension) that the serial step replaces by the identity.
+Each client hook call is tallied in :data:`collective_counts`, keyed as
+``repro.core.distributed.CommModel.collective_multiset`` keys its
+all-reduces, so the collectives of a run can be counted.
+
+The unpacked reference step (:func:`step`, two kernel calls per class,
+four launches per step) is kept beside the packed one as the oracle the
+packed path is held against, serially and across clients.
+
 Randomness: each slot draws its b coordinates per step, distinct and
 uniform, from its own ``torch.Generator`` on the slot's device
 (:func:`sample_blocks`), a chunk's worth at a time.  The bits differ from
@@ -52,6 +66,10 @@ NEG_INF = -1e30     # log weight of padding points (exp() == 0 exactly)
 # reads 1.  Serving warm-up checks read it the same way in both packages.
 trace_counts: collections.Counter = collections.Counter()
 
+# Client reductions by (op, reduce kind, elements per client): one count
+# per call of _all_sum / _all_max on a client axis.
+collective_counts: collections.Counter = collections.Counter()
+
 # Rows of uniforms drawn at once per slot: bounds the sampler's scratch to
 # 16 MiB whatever the chunk length.
 _SAMPLE_FLOATS = 1 << 22
@@ -73,6 +91,161 @@ def sample_blocks(generators: list[torch.Generator], d: int, b: int,
                  for s0 in range(0, steps, per)]
         out.append(torch.cat(parts) if len(parts) > 1 else parts[0])
     return torch.stack(out, dim=1).to(torch.int32)
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _all_sum(x: torch.Tensor) -> torch.Tensor:
+    """psum over the leading client axis: every client gets the sum of all
+    clients' values (a sum over dimension 0, the same order every call)."""
+    collective_counts["all-reduce", "add", x[0].numel()] += 1
+    return x.sum(dim=0, keepdim=True).expand_as(x)
+
+
+def _all_max(x: torch.Tensor) -> torch.Tensor:
+    """pmax over the leading client axis."""
+    collective_counts["all-reduce", "max", x[0].numel()] += 1
+    return x.amax(dim=0, keepdim=True).expand_as(x)
+
+
+def client_hooks(clients: bool):
+    """(all_sum, all_max): the client reductions, or the identity for a
+    serial step."""
+    return (_all_sum, _all_max) if clients else (_identity, _identity)
+
+
+def draw_blocks(generator: torch.Generator, d: int, b: int, steps: int,
+                device: torch.device) -> torch.Tensor:
+    """(steps, b) int32 coordinate blocks of one problem from one
+    generator: the server's draw, broadcast to every client."""
+    return sample_blocks([generator], d, b, steps, device)[:, 0]
+
+
+# ==========================================================================
+# Reference (unpacked) step: two kernel calls per class, the parity oracle
+# of the packed step.
+# ==========================================================================
+
+def _dual_update(cols, log_lam, u, dw, sign: float, p, all_sum, all_max):
+    """Lines 5-6 of Algorithm 2 and the incremental u for one class,
+    normalized by a logsumexp combined across clients (rounds 2-3 of
+    Algorithm 4).  Returns (log_new, u_new)."""
+    d_eff = p.d / p.block_size
+    log_new, u_new, m_loc, s_loc = ops.mwu_update(
+        cols, log_lam, u, dw, sign, p.gamma, p.tau, d_eff, normalize=False)
+    m = all_max(m_loc)
+    s = all_sum(s_loc * torch.exp(m_loc - m))
+    return log_new - (m + torch.log(s))[..., None], u_new
+
+
+def _capped_project(log_lam: torch.Tensor, nu: float, clients: bool,
+                    all_sum) -> torch.Tensor:
+    """Reference nu-projection: Rule 2 serially (one sort per class), the
+    Rule-3 loop across clients (round 4 of Algorithm 4).  Zero weights map
+    to log(1e-38) serially and to NEG_INF under clients, as in the JAX
+    package.  The loop's stop test reads the client-summed varsigma back
+    to the host once per round, reproducing the JAX ``while_loop`` and its
+    ``> 1e-12`` stop; the packed step replaces both rules by the
+    fixed-round bisection."""
+    if not clients:
+        eta = projections.capped_simplex_project_sorted(torch.exp(log_lam),
+                                                        nu)
+        return torch.log(torch.clamp(eta, min=1e-38))
+    eta = projections.capped_simplex_project_loop(torch.exp(log_lam), nu,
+                                                  all_sum=all_sum)
+    return torch.where(eta > 0, torch.log(torch.clamp(eta, min=1e-38)),
+                       NEG_INF)
+
+
+def step(state, xp: torch.Tensor, xm: torch.Tensor, p, *,
+         idx: torch.Tensor | None = None,
+         generator: torch.Generator | None = None, clients: bool = False):
+    """One REFERENCE Algorithm-2/4 iteration (two kernel calls per class;
+    the production step is :func:`_step_packed_core`).
+
+    ``state`` is any NamedTuple with the eight per-class fields
+    (SaddleState / ShardedState); the same type is returned.  Serially
+    ``xp`` (n1, d) and ``xm`` (n2, d) are the point matrices and the
+    fields unbatched; with ``clients`` every field and matrix carries the
+    leading client axis k (``xp`` (k, m1, d)) and the reductions run
+    across it.  ``idx`` (b,) is the step's coordinate block, the same for
+    every client (the server broadcasts it), drawn from ``generator``
+    when not given."""
+    d, b = p.d, p.block_size
+    if idx is None:
+        idx = draw_blocks(generator, d, b, 1, xp.device)[0]
+    all_sum, all_max = client_hooks(clients)
+    idx_l = idx.long()
+    cols_p = xp[..., idx_l]                     # (..., n1, B)
+    cols_m = xm[..., idx_l]
+
+    # Lines 2-3 (round 1): momentum dots, summed over clients.
+    delta_p = all_sum(ops.momentum_dot(cols_p, state.log_eta,
+                                       state.log_eta_prev, p.theta))
+    delta_m = all_sum(ops.momentum_dot(cols_m, state.log_xi,
+                                       state.log_xi_prev, p.theta))
+
+    # Line 4 (round 2): every client makes the same w update, multiplying
+    # by the reciprocal of sigma + 1 as the JAX package does.
+    w_old = state.w[..., idx_l]
+    w_new = (w_old + p.sigma * (delta_p - delta_m)) * (1.0 / (p.sigma + 1.0))
+    dw = w_new - w_old
+
+    # Lines 5-6 (rounds 2-3): the MWU updates.
+    log_eta, u_p = _dual_update(cols_p, state.log_eta, state.u_p, dw, 1.0,
+                                p, all_sum, all_max)
+    log_xi, u_m = _dual_update(cols_m, state.log_xi, state.u_m, dw, -1.0,
+                               p, all_sum, all_max)
+
+    # Rule 2 / round 4: the nu-Saddle capped-simplex projection.
+    if p.nu > 0.0:
+        log_eta = _capped_project(log_eta, p.nu, clients, all_sum)
+        log_xi = _capped_project(log_xi, p.nu, clients, all_sum)
+
+    w = state.w.clone()
+    w[..., idx_l] = w_new
+    return type(state)(
+        w=w, log_eta=log_eta, log_eta_prev=state.log_eta,
+        log_xi=log_xi, log_xi_prev=state.log_xi, u_p=u_p, u_m=u_m,
+        t=state.t + 1)
+
+
+def objective_from_state(state, xp: torch.Tensor, xm: torch.Tensor,
+                         clients: bool = False) -> torch.Tensor:
+    """0.5 * ||A eta - B xi||^2 of a per-class state, the dual
+    combination summed over clients when ``clients`` (then one value per
+    client, all equal)."""
+    all_sum, _ = client_hooks(clients)
+    diff = ((torch.exp(state.log_eta)[..., None, :] @ xp)
+            - (torch.exp(state.log_xi)[..., None, :] @ xm))[..., 0, :]
+    diff = all_sum(diff)
+    return 0.5 * (diff * diff).sum(dim=-1)
+
+
+def chunk_body(state, xp, xm, params, num_steps: int, *,
+               idx: torch.Tensor | None = None,
+               generator: torch.Generator | None = None,
+               clients: bool = False):
+    """Reference chunk: ``num_steps`` unpacked iterations with the blocks
+    ``idx`` (num_steps, b), drawn from ``generator`` when not given, and
+    the objective at the end.  Returns (state, objective)."""
+    if idx is None:
+        idx = draw_blocks(generator, params.d, params.block_size,
+                          num_steps, xp.device)
+    for i in range(num_steps):
+        state = step(state, xp, xm, params, idx=idx[i], clients=clients)
+    return state, objective_from_state(state, xp, xm, clients)
+
+
+def run_chunk(state, xp, xm, num_steps: int, *, params,
+              idx: torch.Tensor | None = None,
+              generator: torch.Generator | None = None):
+    """Serial reference chunk (the JAX package jits it with the state
+    donated; here it runs as it is)."""
+    return chunk_body(state, xp, xm, params, num_steps, idx=idx,
+                      generator=generator, clients=False)
 
 
 class PackedState(NamedTuple):
@@ -174,27 +347,33 @@ def stack_slot_params(rows: list[SlotParams],
 
 
 def _dual_update_packed(x_t, idx, log_lam, u, dw, sign, sc: SlotParams,
-                        d_eff: float):
+                        d_eff: float, all_sum=_identity, all_max=_identity):
     """Packed lines 5-6 + incremental u for BOTH classes in one kernel
     call, normalized per class by the logsumexp of the kernel's masked
-    partials.  Returns (log_new_normalized, u_new)."""
+    partials, combined across clients as one (2,) max and one (2,) sum
+    (rounds 2-3).  Returns (log_new_normalized, u_new)."""
     log_new, u_new, m_p, s_p, m_m, s_m = ops.mwu_update_packed(
         x_t, idx, log_lam, u, dw, sign, sc.mwu_c, sc.mwu_dot, d_eff)
-    m = torch.stack([m_p, m_m], dim=-1)          # (S, 2)
-    s = torch.stack([s_p, s_m], dim=-1)
+    m_loc = torch.stack([m_p, m_m], dim=-1)      # (S, 2)
+    s_loc = torch.stack([s_p, s_m], dim=-1)
+    m = all_max(m_loc)
+    s = all_sum(s_loc * torch.exp(m_loc - m))
     lse = m + torch.log(s)
     return log_new - torch.where(sign > 0, lse[:, 0:1], lse[:, 1:2]), u_new
 
 
 def _capped_project_packed(log_lam: torch.Tensor, sign: torch.Tensor,
-                           nu: torch.Tensor) -> torch.Tensor:
+                           nu: torch.Tensor, all_sum=_identity,
+                           all_max=_identity) -> torch.Tensor:
     """Sort-free nu-Saddle projection of both classes in one sweep per
-    bisection round.  Padding (sign 0) belongs to neither mask, projects
-    to 0 and so keeps its NEG_INF marker."""
+    bisection round (round 4: across clients, one (2,) max, one (2,) sum
+    per round and one (4,) sum).  Padding (sign 0) belongs to neither
+    mask, projects to 0 and so keeps its NEG_INF marker."""
     masks = torch.stack([sign > 0, sign < 0], dim=-2)   # (S, 2, n_pad)
     eta = projections.capped_bisect_masked(
         torch.exp(log_lam), nu, masks,
-        rounds=projections.BISECT_ROUNDS_SOLVER)
+        rounds=projections.BISECT_ROUNDS_SOLVER, all_sum=all_sum,
+        all_max=all_max)
     return torch.where(eta > 0, torch.log(torch.clamp(eta, min=1e-38)),
                        NEG_INF)
 
@@ -203,18 +382,19 @@ def _step_packed_core(state: PackedState, x_t: torch.Tensor,
                       sign: torch.Tensor, sc: SlotParams, *, d: int,
                       block_size: int, project: bool,
                       idx: torch.Tensor | None = None,
-                      generators: list[torch.Generator] | None = None
-                      ) -> PackedState:
+                      generators: list[torch.Generator] | None = None,
+                      all_sum=_identity, all_max=_identity) -> PackedState:
     """One packed iteration of every slot of the batch.
 
     ``state`` fields carry the slot axis S; ``idx`` (S, b) int32 is the
     step's coordinate block, drawn from ``generators`` (one per slot)
-    when not given."""
+    when not given.  ``all_sum`` / ``all_max`` are the client hooks
+    (identity when the slots are independent problems)."""
     d_eff = d / block_size
     if idx is None:
         idx = sample_blocks(generators, d, block_size, 1, x_t.device)[0]
-    delta = ops.momentum_dot_packed(x_t, idx, state.log_lam,
-                                    state.log_lam_prev, sign, sc.theta)
+    delta = all_sum(ops.momentum_dot_packed(
+        x_t, idx, state.log_lam, state.log_lam_prev, sign, sc.theta))
 
     # Line 4: the w update multiplies by the precomputed 1 / (sigma + 1)
     # (delta already is delta+ - delta-, folded by the sign).
@@ -225,10 +405,12 @@ def _step_packed_core(state: PackedState, x_t: torch.Tensor,
 
     # Lines 5-6: ONE packed MWU pass for both classes.
     log_new, u_new = _dual_update_packed(
-        x_t, idx, state.log_lam, state.u, dw, sign, sc, d_eff)
+        x_t, idx, state.log_lam, state.u, dw, sign, sc, d_eff, all_sum,
+        all_max)
 
     if project:
-        log_new = _capped_project_packed(log_new, sign, sc.nu)
+        log_new = _capped_project_packed(log_new, sign, sc.nu, all_sum,
+                                         all_max)
 
     return PackedState(
         w=state.w.scatter(1, idx_l, w_new),
@@ -238,12 +420,73 @@ def _step_packed_core(state: PackedState, x_t: torch.Tensor,
 
 
 def objective_from_duals(log_lam: torch.Tensor, x_t: torch.Tensor,
-                         sign: torch.Tensor) -> torch.Tensor:
+                         sign: torch.Tensor,
+                         all_sum=_identity) -> torch.Tensor:
     """0.5 * ||A eta - B xi||^2 from packed log duals: the signed dual
-    combination x_t @ (sign * lam) IS A eta - B xi.  Leading slot axes
-    are carried through."""
-    diff = (x_t @ (sign * torch.exp(log_lam))[..., None])[..., 0]
+    combination x_t @ (sign * lam) IS A eta - B xi, summed over clients
+    by ``all_sum``.  Leading slot axes are carried through."""
+    diff = all_sum((x_t @ (sign * torch.exp(log_lam))[..., None])[..., 0])
     return 0.5 * (diff * diff).sum(dim=-1)
+
+
+def chunk_body_packed(state: PackedState, x_t: torch.Tensor,
+                      sign: torch.Tensor, params, num_steps: int, *,
+                      idx: torch.Tensor | None = None,
+                      generator: torch.Generator | None = None,
+                      clients: bool = False):
+    """Packed chunk of ONE problem over the S rows of ``state``, ``x_t``
+    (S, d, n_pad) and ``sign`` (S, n_pad): S = 1 serially, or the k
+    clients of Algorithm 4 with ``clients``.  Every row takes the same
+    step scalars and each step's block ``idx[i]`` (b,) (drawn from
+    ``generator`` when ``idx`` is not given).  Returns (state, objective
+    (S,))."""
+    rows = x_t.shape[0]
+    d, b = params.d, params.block_size
+    sc = stack_slot_params([slot_params_row(params)] * rows, x_t.device)
+    all_sum, all_max = client_hooks(clients)
+    if idx is None:
+        idx = draw_blocks(generator, d, b, num_steps, x_t.device)
+    for i in range(num_steps):
+        state = _step_packed_core(
+            state, x_t, sign, sc, d=d, block_size=b,
+            project=params.nu > 0.0,
+            idx=idx[i][None].expand(rows, b).contiguous(),
+            all_sum=all_sum, all_max=all_max)
+    return state, objective_from_duals(state.log_lam, x_t, sign, all_sum)
+
+
+def run_chunk_packed(state: PackedState, x_t: torch.Tensor,
+                     sign: torch.Tensor, num_steps: int, *, params,
+                     idx: torch.Tensor | None = None,
+                     generator: torch.Generator | None = None):
+    """Serial packed chunk (S = 1)."""
+    return chunk_body_packed(state, x_t, sign, params, num_steps, idx=idx,
+                             generator=generator, clients=False)
+
+
+def drive(state, num_iters: int, chunk: int, run, draw,
+          event=None) -> tuple:
+    """Host loop over chunks: ``draw(done, ns)`` gives the next chunk's
+    (ns, b) coordinate blocks and ``run(state, idx) -> (state, obj)``
+    runs it; each chunk's objective stays on the device until ONE
+    transfer at the end.  ``event = (at, fn)`` ends a chunk at iteration
+    ``at`` (if it falls before ``num_iters``) and there calls ``fn(state)
+    -> (state, row)``; the loop goes on from the returned state, its
+    chunks counted from ``at``.  Returns (state, [(done, obj), ...]), the
+    objective read from client 0, or from ``row`` after the event."""
+    at, fn = event if event is not None else (num_iters, None)
+    objs, marks = [], []
+    done, row = 0, 0
+    while done < num_iters:
+        if fn is not None and done == at:
+            state, row = fn(state)
+            fn = None
+        ns = min(chunk, (at if done < at else num_iters) - done)
+        state, obj = run(state, draw(done, ns))
+        done += ns
+        objs.append(obj.reshape(-1)[row])
+        marks.append(done)
+    return state, list(zip(marks, torch.stack(objs).tolist()))
 
 
 class SlotState(NamedTuple):

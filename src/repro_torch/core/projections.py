@@ -11,6 +11,11 @@ Counterpart of ``repro.core.projections`` for what the solver runs:
   on ``c`` (each round one masked O(n) reduction), followed by one exact
   rescale of the below-cap block.
 * :func:`capped_simplex_project_bisect` -- its single-class view.
+* :func:`capped_simplex_project_sorted` (Rule 2, one sort) and
+  :func:`capped_simplex_project_loop` (Rule 3, the iterative rescale) --
+  the projections of the unpacked reference step, serial and across
+  clients -- and :func:`capped_entropy_prox`, the MWU step followed by
+  Rule 2.
 
 Plain torch, as it is plain jnp in the JAX package; leading batch axes
 (the solver's slot axis) are carried through.
@@ -102,3 +107,67 @@ def capped_simplex_project_bisect(eta: torch.Tensor, nu, *,
     masks = torch.ones(eta.shape[:-1] + (1, eta.shape[-1]), dtype=torch.bool,
                        device=eta.device)
     return capped_bisect_masked(eta, nu, masks, rounds=rounds)
+
+
+def capped_simplex_project_sorted(eta: torch.Tensor, nu: float
+                                  ) -> torch.Tensor:
+    """Rule 2 (Lemma 11): sorted projection of ``eta`` (n,) onto the
+    capped simplex.
+
+    Finds the largest index i* (in ascending sorted order) such that
+      varsigma_{i*} = sum_{j >= i*} (eta_j - nu) >= 0   and
+      eta_{i*-1} (1 + varsigma_{i*} / Omega_{i*}) < nu,
+      Omega_{i*} = sum_{j < i*} eta_j,
+    then clamps the entries from i* on to nu and scales the rest.  One
+    stable sort (``jnp.argsort`` is stable too), prefix sums and a max."""
+    n = eta.shape[-1]
+    order = torch.argsort(eta, dim=-1, stable=True)
+    s = torch.gather(eta, -1, order)                  # ascending
+    total = s.sum(dim=-1, keepdim=True)
+    prefix = torch.cumsum(s, dim=-1)                  # sum_{j <= i}
+    omega = prefix - s                                # sum_{j < i}
+    suffix = total - omega                            # sum_{j >= i}
+    idx = torch.arange(n, device=eta.device)
+    varsig = suffix - nu * (n - idx).to(eta.dtype)    # sum_{j>=i}(s_j - nu)
+    prev = torch.cat([torch.zeros_like(s[..., :1]), s[..., :-1]], dim=-1)
+    scale = 1.0 + varsig / torch.clamp(omega, min=1e-30)
+    ok = (varsig >= 0) & (prev * scale < nu)
+    # the largest index meeting both conditions
+    i_star = torch.where(ok, idx, torch.full_like(idx, -1)).amax(
+        dim=-1, keepdim=True)
+    no_violation = eta.amax(dim=-1, keepdim=True) <= nu
+    sc = torch.where(no_violation, torch.ones_like(total),
+                     torch.gather(scale, -1, torch.clamp(i_star, min=0)))
+    proj_sorted = torch.where(no_violation | (idx < i_star), s * sc,
+                              torch.full_like(s, nu))
+    return torch.zeros_like(eta).scatter(-1, order, proj_sorted)
+
+
+def capped_simplex_project_loop(eta: torch.Tensor, nu: float,
+                                max_iters: int | None = None, *,
+                                all_sum=_identity) -> torch.Tensor:
+    """Rule 3 (eq. 12): iterative projection of ``eta`` (..., n), at most
+    ceil(1/nu) rounds (each round fixes at least one new entry at nu).
+    ``all_sum`` is the cross-client sum of the per-client statistics
+    (identity serially): the distributed Rule-3 loop of round 4.  The stop
+    test reads one scalar back per round, as the JAX package's
+    ``while_loop`` tests it on the device."""
+    if max_iters is None:
+        max_iters = int(1.0 / nu) + 2
+    for _ in range(max_iters):
+        varsig = all_sum(torch.where(eta > nu, eta - nu, 0.0).sum(dim=-1))
+        if not float(varsig.reshape(-1)[0]) > 1e-12:
+            break
+        omega = all_sum(torch.where(eta < nu, eta, 0.0).sum(dim=-1))
+        scale = 1.0 + varsig / torch.clamp(omega, min=1e-30)
+        eta = torch.where(eta >= nu, nu, eta * scale[..., None])
+    return eta
+
+
+def capped_entropy_prox(log_lam: torch.Tensor, v: torch.Tensor, gamma, tau,
+                        d, nu: float) -> torch.Tensor:
+    """nu-Saddle update: the entropy-prox step followed by the Rule-2
+    projection; normalized log weights on the capped simplex D_n."""
+    log_eta = entropy_prox(log_lam, v, gamma, tau, d)
+    eta = capped_simplex_project_sorted(torch.exp(log_eta), nu)
+    return torch.log(torch.clamp(eta, min=1e-38))

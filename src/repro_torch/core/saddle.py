@@ -7,6 +7,13 @@ of :func:`repro_torch.core.preprocess.pack_points` and unpacks its final
 state into the per-class :class:`SaddleState`.  :func:`solve` is the slot
 driver of :mod:`repro_torch.core.engine` at S = 1.
 
+The unpacked reference step -- :func:`init_state`, :func:`saddle_step`,
+:func:`run_chunk` -- runs on the per-class state itself, as the JAX
+package keeps it for the parity tests; there ``device`` takes the place
+of ``use_kernels``: the kernels run on the card, the plain versions on
+the CPU, so :func:`saddle_step` is the port of both the JAX
+``saddle_step`` and ``saddle_step_kernels``.
+
 With ``block_size=1`` this is exactly Algorithm 2; ``block_size=B > 1``
 updates B coordinates per iteration, sampled without replacement so the
 rank-B update of u stays exact.
@@ -89,6 +96,49 @@ def resolve_num_iters(num_iters: int | None, d: int, eps: float,
     if num_iters is None:
         num_iters = default_iterations(d, eps, beta, n)
     return max(1, num_iters // block_size)
+
+
+def init_state(n1: int, n2: int, d: int, xp=None, *,
+               device: str | torch.device | None = None) -> SaddleState:
+    """Line 5 of Algorithm 1: w = 0, eta = 1/n1, xi = 1/n2 (two copies),
+    u = 0 because w = 0.  The state lies on ``xp``'s device when ``xp``
+    is a tensor, else on ``device``."""
+    dev = (xp.device if isinstance(xp, torch.Tensor)
+           else resolve_device(device))
+    log_eta = torch.full((n1,), -math.log(n1), dtype=torch.float32,
+                         device=dev)
+    log_xi = torch.full((n2,), -math.log(n2), dtype=torch.float32,
+                        device=dev)
+    return SaddleState(
+        w=torch.zeros((d,), dtype=torch.float32, device=dev),
+        log_eta=log_eta, log_eta_prev=log_eta.clone(),
+        log_xi=log_xi, log_xi_prev=log_xi.clone(),
+        u_p=torch.zeros((n1,), dtype=torch.float32, device=dev),
+        u_m=torch.zeros((n2,), dtype=torch.float32, device=dev),
+        t=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def saddle_step(state: SaddleState, xp: torch.Tensor, xm: torch.Tensor,
+                p: SaddleParams, *, idx: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> SaddleState:
+    """One iteration of Algorithm 2 (the engine's reference step); the
+    block ``idx`` (b,) is drawn from ``generator`` when not given."""
+    return engine.step(state, xp, xm, p, idx=idx, generator=generator)
+
+
+
+def run_chunk(state: SaddleState, xp: torch.Tensor, xm: torch.Tensor,
+              params: SaddleParams, num_steps: int, *, idx_schedule=None,
+              generator: torch.Generator | None = None) -> SaddleState:
+    """Run exactly ``num_steps`` REFERENCE (unpacked) iterations, with the
+    coordinate blocks ``idx_schedule`` (num_steps, b) or drawn from
+    ``generator``.  Solves should use :func:`solve`, the packed step."""
+    idx = (None if idx_schedule is None else
+           _schedule(idx_schedule, num_steps, params.d, params.block_size,
+                     xp.device)[:, 0])
+    state, _ = engine.chunk_body(state, xp, xm, params, num_steps, idx=idx,
+                                 generator=generator)
+    return state
 
 
 def objective(log_eta: torch.Tensor, log_xi: torch.Tensor, xp: torch.Tensor,

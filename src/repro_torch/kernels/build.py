@@ -40,6 +40,10 @@ SIGNATURES = {
         "mwu_update_packed_f32": [_P, _P, _P, _P, _P, _P, _P, _P,
                                   ctypes.c_float, _P, _P, _P,
                                   _I, _I, _I, _I, _P],
+        "momentum_dot_f32": [_P, _P, _P, ctypes.c_float, _P,
+                             _I, _I, _I, _I, _P],
+        "mwu_update_f32": [_P, _P, _P, _P] + [ctypes.c_float] * 4
+                          + [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 

@@ -1,6 +1,8 @@
-// The two per-iteration kernels of the packed saddle step, with a leading
-// slot axis S: x_t (S, d, n_pad), idx (S, b), point vectors (S, n_pad) and
-// per-slot scalars (S,).  Grid axes are (point tile, ..., slot).
+// The kernels of the saddle step.
+//
+// PACKED (the production step, 2 launches per step): leading slot axis S,
+// x_t (S, d, n_pad), idx (S, b), point vectors (S, n_pad) and per-slot
+// scalars (S,).  Grid axes are (point tile, ..., slot).
 //
 // Replaces: src/repro/kernels/saddle_update.py,
 //   _momentum_dot_packed_kernel (launched by _momentum_dot_packed_jit) and
@@ -41,6 +43,41 @@
 // instead of an illegal memory access that would poison the CUDA context.
 // The load itself stays unconditional, so the unrolled row loop keeps
 // several loads in flight.
+//
+// UNPACKED (the per-class reference step, 4 launches per step): cols
+// (K, n, B) row-major -- the step's B sampled coordinates of each of a
+// client's n points, gathered by the caller -- point vectors (K, n), with
+// K clients (K = 1 serially).  Grid (point tile, client).  The wrapper
+// picks the tile by B (at most TILE = 1024 points, the Pallas tile) so a
+// thread handles ~8 points and a wide B still gives many blocks; any n is
+// taken: the last tile is masked in the kernel (its missing points touch
+// no sum, max or store), where the JAX wrapper pads with a copy at log
+// weight -1e30.
+//
+// Replaces: src/repro/kernels/saddle_update.py,
+//   _momentum_dot_kernel (launched by _momentum_dot_jit) and
+//   _mwu_kernel (launched by _mwu_update_jit).
+//
+// Bound on an H100: bytes again (cols is read once, ~2 flops a float).
+//   * momentum_dot: the block computes its points' momentum once into
+//     shared memory, then reduces cols[i, j] * mom_i over the tile.  Threads
+//     map to (column j, point phase p) so that neighbouring threads read
+//     neighbouring floats of the contiguous (tile, B) block for any B <= 256
+//     (B = 1: 256 phases over the points; B = 128: 2 phases); the phases
+//     are summed by a tree in shared memory into per-tile partials
+//     (K, tiles, B) that the wrapper sums in a fixed order.
+//   * mwu_update: dv_i = cols[i] . dw first, a warp per row when B >= 32
+//     (coalesced row reads, shuffle sum) and a thread per row below; then
+//     v, log_new and u_new per point, and the tile's max and sum of
+//     exp(log_new - max) reduced in the block into partials (K, tiles)
+//     that the wrapper merges into the per-client logsumexp.
+//   * The step scalars arrive as floats; c = 1 / (gamma + d_eff / tau) is
+//     computed in float32 inside, as the Pallas kernel does, and the
+//     elementwise arithmetic is rounded op by op (__fmul_rn / __fadd_rn,
+//     no fused multiply-add) so the plain version repeats it exactly.
+//   * Round-robin padding points of a client shard carry log weight -1e30
+//     and zero rows: exp gives 0 momentum, and c * (d_eff / tau) <= 1 keeps
+//     their log_new finite near -1e30, so they add exactly 0 to the sums.
 
 #include <cuda_runtime.h>
 
@@ -211,6 +248,149 @@ __global__ void mwu_update_packed_kernel(
   }
 }
 
+constexpr int TILE = 1024;          // most points per unpacked-kernel block
+constexpr int THREADS = 256;        // threads per unpacked-kernel block
+constexpr int WARPS = THREADS / WARP;
+
+__device__ __forceinline__ float neg_inf_f32() {
+  return __int_as_float(0xff800000);
+}
+
+// parts[k, tile, j] = sum over the tile's points i of
+//   cols[k, i, j] * (lam_i + theta (lam_i - lam_prev_i))
+__global__ void momentum_dot_kernel(
+    const float* __restrict__ cols, const float* __restrict__ log_lam,
+    const float* __restrict__ log_prev, float theta,
+    float* __restrict__ parts, int n, int b, int tile_n) {
+  __shared__ float mom[TILE];
+  __shared__ float red[THREADS];
+  const int tile = blockIdx.x;
+  const int k = blockIdx.y;
+  const int tiles = gridDim.x;
+  const int t = threadIdx.x;
+  const int i0 = tile * tile_n;
+  const int tn = min(tile_n, n - i0);        // points in this tile
+
+  const float* lg = log_lam + (size_t)k * n + i0;
+  const float* lp = log_prev + (size_t)k * n + i0;
+  for (int i = t; i < tn; i += THREADS) {
+    const float lam = expf(lg[i]);
+    const float lam_prev = expf(lp[i]);
+    mom[i] = __fadd_rn(lam, __fmul_rn(theta, __fsub_rn(lam, lam_prev)));
+  }
+  __syncthreads();
+
+  const float* c = cols + ((size_t)k * n + i0) * b;
+  float* out = parts + ((size_t)k * tiles + tile) * b;
+  for (int j0 = 0; j0 < b; j0 += THREADS) {
+    const int wc = min(THREADS, b - j0);     // columns of this chunk
+    const int phases = THREADS / wc;         // point phases per column
+    const int j = t % wc;
+    const int p = t / wc;
+    float acc = 0.0f;
+    if (p < phases) {
+      for (int i = p; i < tn; i += phases)
+        acc = __fadd_rn(acc, __fmul_rn(c[(size_t)i * b + j0 + j], mom[i]));
+    }
+    red[t] = acc;
+    __syncthreads();
+    // tree over the phases, for any phase count: phase q < live - half
+    // adds phase q + half
+    for (int live = phases; live > 1;) {
+      const int half = (live + 1) / 2;
+      if (p < live - half) red[t] += red[t + half * wc];
+      __syncthreads();
+      live = half;
+    }
+    if (t < wc) out[j0 + t] = red[t];
+    __syncthreads();
+  }
+}
+
+// dv_i = cols[k, i, :] . dw[k, :];  v = sign (u + d_eff dv);
+// log_new = c ((d_eff / tau) log_lam - v), c = 1 / (gamma + d_eff / tau);
+// u_new = u + dv;  pmax[k, tile], psum[k, tile] = the tile's max of log_new
+// and sum of exp(log_new - max).
+__global__ void mwu_update_kernel(
+    const float* __restrict__ cols, const float* __restrict__ log_lam,
+    const float* __restrict__ u, const float* __restrict__ dw, float sign,
+    float gamma, float tau, float d_eff, float* __restrict__ log_new,
+    float* __restrict__ u_new, float* __restrict__ pmax,
+    float* __restrict__ psum, int n, int b, int tile_n) {
+  __shared__ float val[TILE];                // dv, then log_new
+  __shared__ float red[WARPS];
+  __shared__ float bcast;
+  const int tile = blockIdx.x;
+  const int k = blockIdx.y;
+  const int tiles = gridDim.x;
+  const int t = threadIdx.x;
+  const int lane = t % WARP;
+  const int warp = t / WARP;
+  const int i0 = tile * tile_n;
+  const int tn = min(tile_n, n - i0);
+
+  const float* c = cols + ((size_t)k * n + i0) * b;
+  const float* dwk = dw + (size_t)k * b;
+  if (b >= WARP) {
+    for (int i = warp; i < tn; i += WARPS) {
+      const float* row = c + (size_t)i * b;
+      float acc = 0.0f;
+      for (int j = lane; j < b; j += WARP)
+        acc = __fadd_rn(acc, __fmul_rn(row[j], dwk[j]));
+      acc = warp_sum(acc);
+      if (lane == 0) val[i] = acc;
+    }
+  } else {
+    for (int i = t; i < tn; i += THREADS) {
+      const float* row = c + (size_t)i * b;
+      float acc = 0.0f;
+      for (int j = 0; j < b; ++j)
+        acc = __fadd_rn(acc, __fmul_rn(row[j], dwk[j]));
+      val[i] = acc;
+    }
+  }
+  __syncthreads();
+
+  const float ratio = __fdiv_rn(d_eff, tau);
+  const float cc = __fdiv_rn(1.0f, __fadd_rn(gamma, ratio));
+  const size_t base = (size_t)k * n + i0;
+  float mx = neg_inf_f32();
+  for (int i = t; i < tn; i += THREADS) {
+    const float dv = val[i];
+    const float uu = u[base + i];
+    const float v = __fmul_rn(sign, __fadd_rn(uu, __fmul_rn(d_eff, dv)));
+    const float ln = __fmul_rn(cc, __fsub_rn(__fmul_rn(ratio,
+                                                       log_lam[base + i]),
+                                             v));
+    log_new[base + i] = ln;
+    u_new[base + i] = __fadd_rn(uu, dv);
+    val[i] = ln;
+    mx = fmaxf(mx, ln);
+  }
+  mx = warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  if (t == 0) {
+    float m = red[0];
+    for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w]);
+    bcast = m;
+  }
+  __syncthreads();
+  const float m = bcast;
+  float sm = 0.0f;
+  for (int i = t; i < tn; i += THREADS) sm += expf(val[i] - m);
+  sm = warp_sum(sm);
+  __syncthreads();                           // red[] was read by thread 0
+  if (lane == 0) red[warp] = sm;
+  __syncthreads();
+  if (t == 0) {
+    float s = red[0];
+    for (int w = 1; w < WARPS; ++w) s += red[w];
+    pmax[(size_t)k * tiles + tile] = m;
+    psum[(size_t)k * tiles + tile] = s;
+  }
+}
+
 }  // namespace
 
 extern "C" int momentum_dot_packed_f32(
@@ -233,5 +413,29 @@ extern "C" int mwu_update_packed_f32(
   mwu_update_packed_kernel<<<grid, WARP, 0, (cudaStream_t)stream>>>(
       x_t, idx, dw, log_lam, u, sign, mwu_c, mwu_dot, d_eff, log_new, u_new,
       parts, d, n_pad, b);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int momentum_dot_f32(
+    const float* cols, const float* log_lam, const float* log_prev,
+    float theta, float* parts, int num_clients, int n, int b, int tile_n,
+    void* stream) {
+  if (tile_n < 1 || tile_n > TILE) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + tile_n - 1) / tile_n, num_clients);
+  momentum_dot_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      cols, log_lam, log_prev, theta, parts, n, b, tile_n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mwu_update_f32(
+    const float* cols, const float* log_lam, const float* u, const float* dw,
+    float sign, float gamma, float tau, float d_eff, float* log_new,
+    float* u_new, float* pmax, float* psum, int num_clients, int n, int b,
+    int tile_n, void* stream) {
+  if (tile_n < 1 || tile_n > TILE) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + tile_n - 1) / tile_n, num_clients);
+  mwu_update_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      cols, log_lam, u, dw, sign, gamma, tau, d_eff, log_new, u_new, pmax,
+      psum, n, b, tile_n);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@ Each runs the hand-written CUDA kernel on CUDA tensors and the plain
 PyTorch version on CPU tensors (see the wrappers in
 :mod:`repro_torch.kernels.fwht` and :mod:`repro_torch.kernels.saddle_update`).
 ``launch_counts`` tallies CUDA launches by name: the packed solver step
-makes exactly two, ``momentum_dot_packed`` and ``mwu_update_packed``.
+makes exactly two, ``momentum_dot_packed`` and ``mwu_update_packed``; the
+unpacked reference step four, two each of ``momentum_dot`` and
+``mwu_update`` (one per class), for any number of clients.
 
 The packed kernels' ``idx`` must lie in [0, d): out of range it raises on
 the CPU and gives NaN outputs on CUDA (see
@@ -19,7 +21,7 @@ from repro_torch.kernels import launch_counts  # noqa: F401  (re-exported)
 from repro_torch.kernels import ref  # noqa: F401  (re-exported oracle)
 from repro_torch.kernels.fwht import fwht_rows
 from repro_torch.kernels.saddle_update import (  # noqa: F401
-    momentum_dot_packed, mwu_update_packed)
+    momentum_dot, momentum_dot_packed, mwu_update, mwu_update_packed)
 
 
 def fwht(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:

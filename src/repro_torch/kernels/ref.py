@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each computes exactly what ``repro.kernels.ref`` defines for the JAX
-package, with the port's leading slot axis S on the packed kernels.  They
-are what the kernel wrappers run on a CPU tensor, and the oracle every
-kernel is held against on the card.
+package, with the port's leading slot axis S on the packed kernels and an
+optional leading client axis K on the unpacked ones.  They are what the
+kernel wrappers run on a CPU tensor, and the oracle every kernel is held
+against on the card.
 """
 
 from __future__ import annotations
@@ -34,6 +35,51 @@ def fwht_ref(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
     if normalize:
         x = x / torch.tensor(math.sqrt(d), dtype=x.dtype)
     return x.reshape(shape)
+
+
+def _f32(value, like: torch.Tensor) -> torch.Tensor:
+    """A step scalar as a float32 tensor on ``like``'s device: the value
+    the kernels receive as a C float."""
+    return torch.as_tensor(value, dtype=torch.float32, device=like.device)
+
+
+def momentum_dot_ref(cols: torch.Tensor, log_lam: torch.Tensor,
+                     log_prev: torch.Tensor, theta) -> torch.Tensor:
+    """delta = cols^T (lam + theta (lam - lam_prev)), lam = exp(log_lam).
+
+    cols (..., n, B), log vectors (..., n) with the same optional leading
+    client axis; returns (..., B)."""
+    lam = torch.exp(log_lam)
+    lam_prev = torch.exp(log_prev)
+    mom = lam + _f32(theta, cols) * (lam - lam_prev)
+    return (cols * mom[..., None]).sum(dim=-2)
+
+
+def mwu_update_ref(cols: torch.Tensor, log_lam: torch.Tensor,
+                   u: torch.Tensor, dw: torch.Tensor, sign, gamma, tau,
+                   d_eff, *, normalize: bool = True):
+    """Fused per-class dual update (lines 5-6 of Algorithm 2) and the
+    incremental u, over cols (..., n, B), dw (..., B) and point vectors
+    (..., n).  The step scalars are taken as float32 and
+    c = 1 / (gamma + d_eff / tau) is computed in float32, as the kernel
+    does.
+
+    Returns (log_new normalized, u_new), or with ``normalize=False``
+    (log_new UNNORMALIZED, u_new, m, s) where lse = m + log(s) per
+    client."""
+    sign, gamma, tau, d_eff = (_f32(v, cols) for v in (sign, gamma, tau,
+                                                        d_eff))
+    dv = (cols * dw[..., None, :]).sum(dim=-1)
+    v = sign * (u + d_eff * dv)
+    ratio = d_eff / tau
+    c = 1.0 / (gamma + ratio)
+    log_new = c * (ratio * log_lam - v)
+    u_new = u + dv
+    m = log_new.amax(dim=-1)
+    s = torch.exp(log_new - m[..., None]).sum(dim=-1)
+    if not normalize:
+        return log_new, u_new, m, s
+    return log_new - (m + torch.log(s))[..., None], u_new
 
 
 def _gather_rows(x_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,15 @@
-"""Wrappers of the packed saddle-step CUDA kernels
-(``csrc/saddle_update.cu``).
+"""Wrappers of the saddle-step CUDA kernels (``csrc/saddle_update.cu``).
 
-Both take a leading slot axis S: ``x_t`` (S, d, n_pad), ``idx`` (S, b)
-int32, point vectors (S, n_pad) and per-slot scalars (S,), all float32
-except ``idx``.  On CUDA tensors a wrapper launches its kernel or raises;
-on CPU tensors it runs the plain version in
+The unpacked per-class kernels (:func:`momentum_dot`, :func:`mwu_update`,
+the reference step's four launches) take ``cols`` (n, B), the step's B
+sampled coordinates of n points, and point vectors (n,), or the same with
+a leading client axis K: cols (K, n, B), vectors (K, n), ``dw`` (K, B).
+Any n is taken; the step scalars are python floats.
+
+The packed kernels take a leading slot axis S: ``x_t`` (S, d, n_pad),
+``idx`` (S, b) int32, point vectors (S, n_pad) and per-slot scalars (S,),
+all float32 except ``idx``.  On CUDA tensors a wrapper launches its
+kernel or raises; on CPU tensors it runs the plain version in
 :mod:`repro_torch.kernels.ref`.  The kernels write per-tile partials,
 which the wrappers combine here in a fixed order, as the JAX wrappers do
 outside their ``pallas_call``.
@@ -24,6 +29,8 @@ from repro_torch.kernels import launch_counts
 from repro_torch.kernels import ref
 
 LANE = 128   # points per kernel tile; packed lengths are multiples of it
+TILE = 1024  # most points per block of the unpacked kernels (Pallas's tile)
+THREADS = 256  # threads per block of the unpacked kernels
 
 
 def _check_f32(name: str, t: torch.Tensor, shape: tuple,
@@ -147,3 +154,104 @@ def mwu_update_packed(x_t: torch.Tensor, idx: torch.Tensor,
             s, d, n_pad, b, stream), "mwu_update_packed")
     launch_counts["mwu_update_packed"] += 1
     return (log_new, u_new) + combine_class_partials(parts)
+
+
+def unpacked_tile(kernel: str, b: int) -> int:
+    """Points per block of an unpacked kernel for B = ``b`` columns: about
+    8 points a thread, so a wide B still spreads over many blocks.  The
+    momentum dot's threads cover min(b, 256) columns and 256 / that many
+    points at once; the MWU's row dot is a warp per row (8 warps, 4 rows
+    each) from b = 32 and a thread per row below."""
+    if kernel == "momentum_dot":
+        return min(TILE, 8 * (THREADS // min(THREADS, b)))
+    return 32 if b >= 32 else TILE
+
+
+def check_unpacked(cols: torch.Tensor, vectors: dict[str, torch.Tensor],
+                   dw: torch.Tensor | None = None):
+    """Validate the unpacked operands: cols (n, B) or (K, n, B), every
+    point vector (n,) or (K, n) and ``dw`` (B,) or (K, B) with the same
+    leading client axis, all float32 and contiguous on one device.
+    Returns (lead, n, b) with ``lead`` () or (K,)."""
+    if cols.ndim not in (2, 3):
+        raise ValueError(f"cols must be (n, B) or (K, n, B), got shape "
+                         f"{tuple(cols.shape)}")
+    lead = tuple(cols.shape[:-2])
+    n, b = cols.shape[-2:]
+    if n < 1 or b < 1 or (lead and lead[0] < 1):
+        raise ValueError(f"cols has an empty axis: {tuple(cols.shape)}")
+    _check_f32("cols", cols, tuple(cols.shape), cols.device)
+    for name, t in vectors.items():
+        _check_f32(name, t, lead + (n,), cols.device)
+    if dw is not None:
+        _check_f32("dw", dw, lead + (b,), cols.device)
+    if cols.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unpacked kernels run on cuda or cpu, not "
+                         f"{cols.device}")
+    return lead, n, b
+
+
+def momentum_dot(cols: torch.Tensor, log_lam: torch.Tensor,
+                 log_prev: torch.Tensor, theta: float) -> torch.Tensor:
+    """delta (B,) = cols^T (lam + theta (lam - lam_prev)), lam =
+    exp(log_lam): lines 2-3 of Algorithm 2 for one class; (K, B) with a
+    leading client axis (no sum over clients)."""
+    lead, n, b = check_unpacked(cols, dict(log_lam=log_lam,
+                                           log_prev=log_prev))
+    if cols.device.type == "cpu":
+        return ref.momentum_dot_ref(cols, log_lam, log_prev, float(theta))
+    from repro_torch.kernels import build
+    lib = build.library("saddle_update")
+    k = lead[0] if lead else 1
+    tile = unpacked_tile("momentum_dot", b)
+    parts = torch.empty((k, -(-n // tile), b), dtype=torch.float32,
+                        device=cols.device)
+    with torch.cuda.device(cols.device):
+        stream = torch.cuda.current_stream(cols.device).cuda_stream
+        build.check(lib.momentum_dot_f32(
+            cols.data_ptr(), log_lam.data_ptr(), log_prev.data_ptr(),
+            float(theta), parts.data_ptr(), k, n, b, tile, stream),
+            "momentum_dot")
+    launch_counts["momentum_dot"] += 1
+    out = parts.sum(dim=1)
+    return out if lead else out[0]
+
+
+def mwu_update(cols: torch.Tensor, log_lam: torch.Tensor, u: torch.Tensor,
+               dw: torch.Tensor, sign: float, gamma: float, tau: float,
+               d_eff: float, *, normalize: bool = True):
+    """Fused per-class dual update (lines 5-6 of Algorithm 2) and the
+    incremental u.  Returns (log_new normalized, u_new), or with
+    ``normalize=False`` (log_new UNNORMALIZED, u_new, m, s), lse = m +
+    log(s) per client, so a caller can combine the partials across
+    clients before applying them."""
+    lead, n, b = check_unpacked(cols, dict(log_lam=log_lam, u=u), dw)
+    scalars = [float(v) for v in (sign, gamma, tau, d_eff)]
+    if cols.device.type == "cpu":
+        return ref.mwu_update_ref(cols, log_lam, u, dw, *scalars,
+                                  normalize=normalize)
+    from repro_torch.kernels import build
+    lib = build.library("saddle_update")
+    k = lead[0] if lead else 1
+    tile = unpacked_tile("mwu_update", b)
+    tiles = -(-n // tile)
+    log_new = torch.empty_like(log_lam)
+    u_new = torch.empty_like(u)
+    pmax = torch.empty((k, tiles), dtype=torch.float32, device=cols.device)
+    psum = torch.empty_like(pmax)
+    with torch.cuda.device(cols.device):
+        stream = torch.cuda.current_stream(cols.device).cuda_stream
+        build.check(lib.mwu_update_f32(
+            cols.data_ptr(), log_lam.data_ptr(), u.data_ptr(),
+            dw.data_ptr(), *scalars, log_new.data_ptr(), u_new.data_ptr(),
+            pmax.data_ptr(), psum.data_ptr(), k, n, b, tile, stream),
+            "mwu_update")
+    launch_counts["mwu_update"] += 1
+    # merge the per-tile (max, sum-exp) partials in a fixed order
+    m = pmax.amax(dim=1)
+    s = (psum * torch.exp(pmax - m[:, None])).sum(dim=1)
+    if not lead:
+        m, s = m[0], s[0]
+    if not normalize:
+        return log_new, u_new, m, s
+    return log_new - (m + torch.log(s))[..., None], u_new

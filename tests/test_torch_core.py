@@ -451,3 +451,264 @@ def test_per_class_objective_and_gap_match_jax(problem, nu_frac):
         float(saddle.saddle_gap(st, txp, txm, nu)),
         float(jsaddle.saddle_gap(res.state, jnp.asarray(xp),
                                  jnp.asarray(xm), nu)), atol=1e-6)
+
+
+# ------------------------------------------------ reference projections
+def _dirichlet_like(seed, n, power=3):
+    rng = np.random.default_rng(seed)
+    eta = rng.exponential(size=n).astype(np.float32) ** power
+    return eta / eta.sum()
+
+
+@pytest.mark.parametrize("n,nu_frac", [(50, 0.3), (200, 0.05), (64, 0.5),
+                                       (37, 0.8), (5, 1.0)])
+def test_capped_simplex_project_sorted_matches_jax(n, nu_frac):
+    """Rule 2 (one stable sort) against the JAX package's."""
+    eta = _dirichlet_like(n, n)
+    nu = float(np.float32(1.0 / (nu_frac * n)))
+    got = projections.capped_simplex_project_sorted(torch.from_numpy(eta),
+                                                    nu)
+    want = jproj.capped_simplex_project_sorted(jnp.asarray(eta), nu)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    assert abs(float(got.sum()) - 1.0) < 1e-5
+    assert float(got.max()) <= nu + 1e-6
+
+
+def test_capped_simplex_project_sorted_keeps_feasible_and_ties():
+    """A feasible eta is returned as it is; equal entries (ties) project
+    as the JAX package's stable argsort projects them."""
+    eta = np.full(10, 0.1, np.float32)
+    got = projections.capped_simplex_project_sorted(torch.from_numpy(eta),
+                                                    0.2)
+    np.testing.assert_array_equal(got.numpy(), eta)
+    tied = np.array([0.3, 0.3, 0.1, 0.1, 0.1, 0.1], np.float32)
+    got = projections.capped_simplex_project_sorted(torch.from_numpy(tied),
+                                                    0.25)
+    want = jproj.capped_simplex_project_sorted(jnp.asarray(tied), 0.25)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-7)
+
+
+@pytest.mark.parametrize("n,nu_frac", [(50, 0.3), (200, 0.05), (64, 0.5)])
+def test_capped_simplex_project_loop_matches_jax(n, nu_frac):
+    """Rule 3 (the iterative rescale) against the JAX package's, and
+    against Rule 2 on the same input."""
+    eta = _dirichlet_like(n + 1, n)
+    nu = float(np.float32(1.0 / (nu_frac * n)))
+    got = projections.capped_simplex_project_loop(torch.from_numpy(eta), nu)
+    want = jproj.capped_simplex_project_loop(jnp.asarray(eta), nu)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    sorted_ = projections.capped_simplex_project_sorted(
+        torch.from_numpy(eta), nu)
+    np.testing.assert_allclose(got.numpy(), sorted_.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("nu_frac", [0.1, 0.5])
+def test_capped_entropy_prox_matches_jax(nu_frac):
+    rng = np.random.default_rng(int(nu_frac * 10))
+    n = 60
+    ll = np.log(rng.dirichlet(np.ones(n))).astype(np.float32)
+    v = rng.normal(size=n).astype(np.float32)
+    nu = 1.0 / (nu_frac * n)
+    got = projections.capped_entropy_prox(torch.from_numpy(ll),
+                                          torch.from_numpy(v), 1e-3, 40.0,
+                                          16, nu)
+    want = jproj.capped_entropy_prox(jnp.asarray(ll), jnp.asarray(v), 1e-3,
+                                     40.0, 16, nu)
+    np.testing.assert_allclose(np.exp(got.numpy()), np.exp(np.asarray(want)),
+                               atol=1e-6)
+
+
+# ------------------------------------------------ reference step
+def test_init_state_matches_jax(problem):
+    xp, xm = problem
+    got = saddle.init_state(37, 53, 16, torch.from_numpy(xp))
+    want = jsaddle.init_state(37, 53, 16, xp, xm)
+    for name, value in convert.to_numpy(got).items():
+        np.testing.assert_array_equal(value, np.asarray(getattr(want, name)))
+    assert saddle.init_state(2, 3, 4, device=CPU).w.device.type == "cpu"
+
+
+def _ref_replay(problem, nu_frac, block_size, iters=80, seed=0):
+    """JAX's reference chunk and the blocks it draws for ``iters`` steps
+    from the key solve() would split off at ``seed``."""
+    xp, xm = problem
+    n1, n2, d = xp.shape[0], xm.shape[0], xp.shape[1]
+    nu = nu_frac and 1.0 / (nu_frac * n1)
+    params = jsaddle.make_params(n1 + n2, d, 1e-3, 0.1, nu=nu,
+                                 block_size=block_size)
+    key = jax.random.split(jax.random.key(seed))[1]
+    idx = np.array(jax.vmap(lambda k: jengine.sample_block(
+        k, d, block_size))(jax.random.split(key, iters)), np.int32)
+    return params, key, idx
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("nu_frac", [0.0, 0.8])
+def test_reference_run_chunk_replays_jax(problem, backend, nu_frac):
+    """The port's engine.run_chunk and saddle.run_chunk (the unpacked
+    reference, Rule 2 for nu > 0) replay JAX's engine.run_chunk for
+    either JAX backend, at the 1e-5 of
+    test_packed_matches_reference_serial."""
+    xp, xm = problem
+    n1, n2, d = xp.shape[0], xm.shape[0], xp.shape[1]
+    iters = 80
+    params, key, idx = _ref_replay(problem, nu_frac, 1, iters)
+    want = jsaddle.init_state(n1, n2, d, xp, xm)
+    want, want_obj = jengine.run_chunk(
+        want, key, jnp.asarray(xp), jnp.asarray(xm), iters, params=params,
+        chunk_steps=iters, backend=backend)
+    txp, txm = torch.from_numpy(xp), torch.from_numpy(xm)
+    p = saddle.SaddleParams(*params)
+    got, obj = engine.run_chunk(saddle.init_state(n1, n2, d, txp), txp,
+                                txm, iters, params=p,
+                                idx=torch.from_numpy(idx))
+    got2 = saddle.run_chunk(saddle.init_state(n1, n2, d, txp), txp,
+                            txm, p, iters, idx_schedule=idx)
+    for st in (got, got2):
+        np.testing.assert_allclose(st.w.numpy(), np.asarray(want.w),
+                                   atol=1e-5)
+        for a, b in [(st.log_eta, want.log_eta), (st.log_xi, want.log_xi)]:
+            np.testing.assert_allclose(np.exp(a.numpy()),
+                                       np.exp(np.asarray(b)), atol=1e-5)
+        np.testing.assert_allclose(st.u_p.numpy(), np.asarray(want.u_p),
+                                   atol=1e-5)
+        np.testing.assert_allclose(st.u_m.numpy(), np.asarray(want.u_m),
+                                   atol=1e-5)
+        assert int(st.t) == iters
+    np.testing.assert_allclose(float(obj), float(want_obj), rtol=1e-5)
+
+
+@pytest.mark.parametrize("block_size", [1, 4])
+def test_saddle_step_matches_jax(problem, block_size):
+    """Single reference steps (saddle_step: the port of both JAX names)
+    against JAX's saddle_step_kernels (Pallas in interpret mode)."""
+    xp, xm = problem
+    params, _key, _ = _ref_replay(problem, 0.0, block_size, 1)
+    p = saddle.SaddleParams(*params)
+    txp, txm = torch.from_numpy(xp), torch.from_numpy(xm)
+    st = saddle.init_state(37, 53, 16, txp)
+    jst = jsaddle.init_state(37, 53, 16, xp, xm)
+    for i, key in enumerate(jax.random.split(jax.random.key(3), 6)):
+        idx = torch.from_numpy(np.array(
+            jengine.sample_block(key, 16, block_size), np.int32))
+        jst = jsaddle.saddle_step_kernels(jst, key, jnp.asarray(xp),
+                                          jnp.asarray(xm), params)
+        st = saddle.saddle_step(st, txp, txm, p, idx=idx)
+    np.testing.assert_allclose(st.w.numpy(), np.asarray(jst.w), atol=1e-6)
+    np.testing.assert_allclose(np.exp(st.log_eta.numpy()),
+                               np.exp(np.asarray(jst.log_eta)), atol=1e-6)
+
+
+def test_reference_step_draws_from_generator(problem):
+    """Without a schedule the reference step draws its block from the
+    given generator: the same seed gives the same state."""
+    xp, xm = problem
+    txp, txm = torch.from_numpy(xp), torch.from_numpy(xm)
+    params = saddle.make_params(90, 16, 1e-3, 0.1, block_size=4)
+    runs = [saddle.run_chunk(saddle.init_state(37, 53, 16, txp), txp,
+                             txm, params, 20,
+                             generator=torch.Generator().manual_seed(9))
+            for _ in range(2)]
+    assert torch.equal(runs[0].w, runs[1].w)
+    assert int((runs[0].w != 0).sum()) > 4
+    with pytest.raises(ValueError, match="idx_schedule"):
+        saddle.run_chunk(saddle.init_state(37, 53, 16, txp), txp, txm,
+                         params, 3, idx_schedule=np.zeros((3, 4)))
+
+
+@pytest.mark.parametrize("nu_frac", [0.0, 0.8])
+def test_packed_matches_reference_serial(problem, nu_frac):
+    """The packed solve against the port's unpacked reference on the same
+    blocks, 80 steps, 1e-5 (the JAX test of the same name)."""
+    xp, xm = problem
+    iters = 80
+    params, _key, idx = _ref_replay(problem, nu_frac, 1, iters)
+    txp, txm = torch.from_numpy(xp), torch.from_numpy(xm)
+    ref, _ = engine.run_chunk(saddle.init_state(37, 53, 16, txp), txp,
+                              txm, iters, params=saddle.SaddleParams(*params),
+                              idx=torch.from_numpy(idx))
+    got = saddle.solve(xp, xm, nu=params.nu, num_iters=iters,
+                       idx_schedule=idx, device=CPU).state
+    np.testing.assert_allclose(got.w.numpy(), ref.w.numpy(), atol=1e-5)
+    for a, b in [(got.log_eta, ref.log_eta), (got.log_xi, ref.log_xi)]:
+        np.testing.assert_allclose(np.exp(a.numpy()), np.exp(b.numpy()),
+                                   atol=1e-5)
+    np.testing.assert_allclose(got.u_p.numpy(), ref.u_p.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got.u_m.numpy(), ref.u_m.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("nu_frac", [0.0, 0.8])
+def test_serial_dist_kernel_parity(problem, nu_frac):
+    """Serial, distributed (k = 5, round-robin padding active) and the
+    JAX package's Pallas-backed serial solve, all on JAX's schedule:
+    one iterate within 1e-5."""
+    from repro_torch.core import distributed as dist
+    xp, xm = problem
+    nu = nu_frac and 1.0 / (nu_frac * xp.shape[0])
+    sched = _jax_schedule(0, 16, 1, 200, 200)
+    ker = jsaddle.solve(xp, xm, nu=nu, num_iters=200, use_kernels=True)
+    ser = saddle.solve(xp, xm, nu=nu, num_iters=200, idx_schedule=sched,
+                       device=CPU)
+    d5 = dist.solve_distributed(xp, xm, k=5, nu=nu, num_iters=200,
+                                idx_schedule=sched, device=CPU)
+    w = ser.state.w.numpy()
+    np.testing.assert_allclose(w, np.asarray(ker.state.w), atol=1e-5)
+    np.testing.assert_allclose(w, d5.state.w[0].numpy(), atol=1e-5)
+    eta, xi = dist.gather_duals(d5.state, 37, 53, 5)
+    np.testing.assert_allclose(np.exp(ser.state.log_eta.numpy()), eta,
+                               atol=1e-5)
+    np.testing.assert_allclose(np.exp(ser.state.log_xi.numpy()), xi,
+                               atol=1e-5)
+    np.testing.assert_allclose(np.exp(ser.state.log_xi.numpy()),
+                               np.exp(np.asarray(ker.state.log_xi)),
+                               atol=1e-5)
+
+
+def test_run_chunk_packed_keeps_lane_padding_and_matches_jax(problem):
+    """The serial packed chunk with nu > 0: lane padding stays NEG_INF,
+    each class sums to 1 under the cap, and the state replays JAX's
+    run_chunk_packed on its blocks."""
+    xp, xm = problem
+    n1, n2 = 37, 53
+    nu = 1.0 / (0.6 * n1)
+    params = jsaddle.make_params(n1 + n2, 16, 1e-3, 0.1, nu=nu)
+    jpts = jpp.pack_points(xp, xm)
+    key = jax.random.key(3)
+    want, want_obj = jengine.run_chunk_packed(
+        jengine.init_packed_state(jpts.sign, n1, n2, 16), key, jpts.x_t,
+        jpts.sign, 150, params=params, chunk_steps=150)
+    idx = np.array(jax.vmap(lambda k: jengine.sample_block(k, 16, 1))(
+        jax.random.split(key, 150)), np.int32)
+    pts = pp.pack_points(torch.from_numpy(xp), torch.from_numpy(xm))
+    st = engine.init_packed_state(pts.sign[None], n1, n2, 16)
+    st, obj = engine.run_chunk_packed(st, pts.x_t[None], pts.sign[None],
+                                      150, params=params,
+                                      idx=torch.from_numpy(idx))
+    lam = st.log_lam[0]
+    assert (lam[n1 + n2:] == engine.NEG_INF).all()
+    eta, xi = torch.exp(lam[:n1]), torch.exp(lam[n1:n1 + n2])
+    assert abs(float(eta.sum()) - 1) < 1e-4 and abs(float(xi.sum()) - 1) < 1e-4
+    assert float(eta.max()) <= nu + 1e-5 and float(xi.max()) <= nu + 1e-5
+    np.testing.assert_allclose(torch.exp(lam).numpy(),
+                               np.exp(np.asarray(want.log_lam)), atol=1e-5)
+    np.testing.assert_allclose(st.w[0].numpy(), np.asarray(want.w),
+                               atol=1e-5)
+    np.testing.assert_allclose(float(obj[0]), float(want_obj), rtol=1e-5)
+
+
+def test_drive_marks_and_one_transfer(problem):
+    """engine.drive: chunk marks with a partial final chunk, each chunk
+    given its slice of the blocks."""
+    xp, xm = problem
+    seen = []
+
+    def run(st, idx):
+        seen.append(idx.shape[0])
+        return st + idx.shape[0], torch.tensor([float(st), -1.0])
+
+    def draw(done, ns):
+        return torch.zeros((ns, 1), dtype=torch.int32)
+
+    st, hist = engine.drive(0, 250, 97, run, draw)
+    assert st == 250 and seen == [97, 97, 56]
+    assert hist == [(97, 0.0), (194, 97.0), (250, 194.0)]

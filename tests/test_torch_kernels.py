@@ -203,3 +203,166 @@ def test_ref_fwht_is_orthonormal():
         size=(3, 64)).astype(np.float32))
     np.testing.assert_allclose(ref.fwht_ref(ref.fwht_ref(x)).numpy(),
                                x.numpy(), atol=1e-5)
+
+
+# ------------------------------------------------ unpacked per-class kernels
+@pytest.mark.parametrize("n,b", [(17, 1), (256, 1), (1000, 4), (513, 128)])
+def test_momentum_dot_matches_jax(n, b):
+    """ops.momentum_dot on CPU tensors (the plain version) against the
+    JAX package's Pallas kernel in interpret mode and its jnp oracle."""
+    rng = np.random.default_rng(n + b)
+    cols = rng.normal(size=(n, b)).astype(np.float32)
+    ll = (rng.normal(size=n) - 3).astype(np.float32)
+    lp = (rng.normal(size=n) - 3).astype(np.float32)
+    got = ops.momentum_dot(torch.from_numpy(cols), torch.from_numpy(ll),
+                           torch.from_numpy(lp), 0.95)
+    assert got.shape == (b,)
+    want = jops.momentum_dot(jnp.asarray(cols), jnp.asarray(ll),
+                             jnp.asarray(lp), 0.95)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    oracle = jref.momentum_dot_ref(jnp.asarray(cols), jnp.exp(ll),
+                                   jnp.exp(lp), 0.95)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=1e-4)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("n,b", [(17, 1), (512, 1), (1025, 8), (2048, 128)])
+def test_mwu_update_matches_jax(n, b, sign, normalize):
+    """ops.mwu_update (plain version) against the JAX Pallas kernel
+    (interpret mode) at the shapes and scalars of tests/test_kernels.py;
+    unnormalized, the (m, s) partials give the same logsumexp."""
+    rng = np.random.default_rng(n * 7 + b)
+    cols = rng.normal(size=(n, b)).astype(np.float32)
+    ll = np.log(np.ones(n) / n).astype(np.float32)
+    u = (rng.normal(size=n) * 0.1).astype(np.float32)
+    dw = (rng.normal(size=b) * 0.01).astype(np.float32)
+    scal = dict(sign=sign, gamma=1e-3, tau=40.0, d_eff=128.0)
+    got = ops.mwu_update(*(torch.from_numpy(a) for a in (cols, ll, u, dw)),
+                         **scal, normalize=normalize)
+    want = jops.mwu_update(*(jnp.asarray(a) for a in (cols, ll, u, dw)),
+                           **scal, normalize=normalize)
+    assert len(got) == len(want)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               atol=1e-4)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               atol=1e-5)
+    if not normalize:
+        np.testing.assert_allclose(
+            float(got[2] + torch.log(got[3])),
+            float(want[2] + jnp.log(want[3])), atol=1e-4)
+        oracle, _ = jref.mwu_update_ref(*(jnp.asarray(a) for a in
+                                          (cols, ll, u, dw)), **scal)
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(oracle),
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("k,n,b", [(5, 37, 1), (3, 513, 8), (2, 1025, 128)])
+def test_unpacked_client_axis_is_per_client(k, n, b):
+    """With a leading client axis each client's row is the single-client
+    call on that row (no sum over clients), and matches JAX's kernel on
+    it; round-robin padding rows (zero points, log weight -1e30) add
+    exactly 0."""
+    rng = np.random.default_rng(k * n + b)
+    cols = rng.normal(size=(k, n, b)).astype(np.float32)
+    ll = (rng.normal(size=(k, n)) * 0.1 - np.log(k * n)).astype(np.float32)
+    lp = (ll + 0.05 * rng.normal(size=(k, n))).astype(np.float32)
+    cols[:, -1] = 0.0
+    ll[:, -1] = lp[:, -1] = NEG
+    u = (rng.normal(size=(k, n)) * 0.1).astype(np.float32)
+    u[:, -1] = 0.0
+    dw = (rng.normal(size=(k, b)) * 0.01).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (cols, ll, lp, u, dw)]
+    delta = ops.momentum_dot(t[0], t[1], t[2], 0.9)
+    out = ops.mwu_update(t[0], t[1], t[3], t[4], -1.0, 1e-3, 40.0, 16.0,
+                         normalize=False)
+    assert delta.shape == (k, b) and out[2].shape == out[3].shape == (k,)
+    for c in range(k):
+        one = ops.momentum_dot(t[0][c], t[1][c], t[2][c], 0.9)
+        np.testing.assert_array_equal(delta[c].numpy(), one.numpy())
+        want = jops.momentum_dot(jnp.asarray(cols[c]), jnp.asarray(ll[c]),
+                                 jnp.asarray(lp[c]), 0.9)
+        np.testing.assert_allclose(delta[c].numpy(), np.asarray(want),
+                                   atol=1e-4)
+        jw = jops.mwu_update(jnp.asarray(cols[c]), jnp.asarray(ll[c]),
+                             jnp.asarray(u[c]), jnp.asarray(dw[c]),
+                             sign=-1.0, gamma=1e-3, tau=40.0, d_eff=16.0,
+                             normalize=False)
+        real = slice(0, n - 1)
+        np.testing.assert_allclose(out[0][c, real].numpy(),
+                                   np.asarray(jw[0])[real], atol=1e-4)
+        np.testing.assert_allclose(out[1][c].numpy(), np.asarray(jw[1]),
+                                   atol=1e-5)
+        np.testing.assert_allclose(float(out[2][c] + torch.log(out[3][c])),
+                                   float(jw[2] + jnp.log(jw[3])), atol=1e-4)
+    # the padding point's log weight stays finite near -1e30
+    assert torch.isfinite(out[0][:, -1]).all()
+    assert (out[0][:, -1] < -1e29).all()
+
+
+def _good_unpacked(k=None, n=40, b=4):
+    lead = () if k is None else (k,)
+    return (torch.zeros(lead + (n, b)), torch.zeros(lead + (n,)),
+            torch.zeros(lead + (b,)))
+
+
+@pytest.mark.parametrize("bad", ["cols_dtype", "vec_dtype", "dw_dtype",
+                                 "dw_length", "client_axis_vec",
+                                 "client_axis_dw", "cols_ndim", "empty",
+                                 "contiguous"])
+def test_unpacked_wrappers_reject_bad_inputs(bad):
+    cols, vec, dw = _good_unpacked(k=3)
+    log_lam, log_prev, u = vec, vec.clone(), vec.clone()
+    err = ValueError
+    if bad == "cols_dtype":
+        cols, err = cols.double(), TypeError
+    elif bad == "vec_dtype":
+        log_lam, err = log_lam.to(torch.bfloat16), TypeError
+        u = u.double()
+    elif bad == "dw_dtype":
+        dw, err = dw.double(), TypeError
+    elif bad == "dw_length":
+        dw = torch.zeros((3, 5))
+    elif bad == "client_axis_vec":
+        log_lam, u = torch.zeros(40), torch.zeros((2, 40))
+    elif bad == "client_axis_dw":
+        dw = torch.zeros(4)
+    elif bad == "cols_ndim":
+        cols = torch.zeros((1, 3, 40, 4))
+    elif bad == "empty":
+        cols, log_lam = torch.zeros((3, 0, 4)), torch.zeros((3, 0))
+        log_prev, u = log_lam.clone(), log_lam.clone()
+    elif bad == "contiguous":
+        cols = torch.zeros((3, 4, 40)).transpose(1, 2)
+    if bad not in ("dw_dtype", "dw_length", "client_axis_dw"):
+        with pytest.raises(err):
+            ops.momentum_dot(cols, log_lam, log_prev, 0.9)
+    with pytest.raises(err):
+        ops.mwu_update(cols, log_lam, u, dw, 1.0, 1e-3, 40.0, 4.0)
+
+
+def test_unpacked_cpu_calls_are_not_counted_as_launches():
+    before = dict(ops.launch_counts)
+    cols, vec, dw = _good_unpacked()
+    ops.momentum_dot(cols, vec, vec, 0.5)
+    ops.mwu_update(cols, vec, vec, dw, 1.0, 1e-3, 40.0, 4.0)
+    ops.mwu_update(cols, vec, vec, dw, -1.0, 1e-3, 40.0, 4.0,
+                   normalize=False)
+    assert dict(ops.launch_counts) == before
+    assert "momentum_dot" not in ops.launch_counts
+    assert "mwu_update" not in ops.launch_counts
+
+
+def test_unpacked_plain_versions_compute_step_scalars_in_f32():
+    """c = 1 / (gamma + d_eff / tau) is taken in float32 from float32
+    scalars, as the Pallas kernel and the CUDA kernel take it."""
+    cols, vec, dw = _good_unpacked(n=3, b=1)
+    ll = torch.tensor([-1.0, -2.0, -3.0])
+    got, _, m, s = ref.mwu_update_ref(cols, ll, vec, dw, 1.0, 0.1, 3.0,
+                                      7.0, normalize=False)
+    f = np.float32
+    ratio = f(7.0) / f(3.0)
+    c = f(1.0) / (f(0.1) + ratio)
+    want = c * (ratio * ll.numpy())
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+    assert float(m) == float(got.max())
