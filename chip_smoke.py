@@ -39,11 +39,22 @@ no CPU fallback):
                    at the JAX kernel tests' shapes and a synthetic packed
                    layout; its time, its device-only time (one profiler
                    session per group), the plain version's, a one-call
-                   PyTorch yardstick and its bound.  At the path shapes
-                   the unpacked checks must also fail planted faults
-                   (momentum or u dropped, a client's last point left
-                   out).  An out-of-range row index gives NaN, not a
-                   fault.
+                   PyTorch yardstick and its bound, and the device
+                   launches of one call (exactly 1 for a packed wrapper).
+                   Planted faults must break the tolerance: at the path
+                   shapes for the unpacked kernels (momentum or u
+                   dropped, a client's last point left out), and at every
+                   shape for the packed ones (theta = 0, the last row
+                   group left out of delta, u = 0, the last tile with a
+                   real point left out of the merged (m, s)), whose (m, s)
+                   must also match the plain merge of the per-tile
+                   partials of their own log_new.  Each packed wrapper's
+                   host time is split into validation, allocation, the
+                   ctypes call and the rest (1,000 calls each).  The
+                   packed kernels alternate between the path shapes for
+                   three rounds: the same bits each round and every
+                   ticket counter back at 0.  An out-of-range row index
+                   gives NaN, not a fault.
   6. card vs CPU -- a serial fit (n=4,000, d=128, 2,000 iterations) on the
                    card and on the CPU with the same signs and schedule;
                    both serial fits of path a and 1,000 steps of the Figure
@@ -136,7 +147,7 @@ class Timer:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def device_ms(self, jobs, reps: int = 20) -> list[tuple[float, int]]:
+    def device_ms(self, jobs, reps: int = 20) -> list[tuple]:
         """Mean device time of one launch of each job's CUDA kernel, from
         ONE torch.profiler session over ``reps`` calls of every job
         ``(fn, kernel)`` in turn: the kernel alone, without the host's
@@ -149,7 +160,9 @@ class Timer:
         its first milliseconds: so ranges are read on the device side, and
         the session first spends ~25 ms zeroing the flush buffer.)  The
         mean is over the launches recorded, returned with their count; a
-        job with fewer than half of ``reps`` fails."""
+        job with fewer than half of ``reps`` fails.  Third in each tuple:
+        the device launches of one call of the job's function (kernels,
+        copies, fills), read from the same session."""
         torch = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile, record_function
@@ -173,17 +186,21 @@ class Timer:
         ranges = {ev.name: ev.time_range for ev in events
                   if ev.name.startswith("chip_smoke job ")}
         launches = [(ev.time_range.start, ev.name,
-                     ev.time_range.elapsed_us()) for ev in events]
+                     ev.time_range.elapsed_us()) for ev in events
+                    if not ev.name.startswith("chip_smoke job ")]
         out = []
         for i, (_, kernel) in enumerate(jobs):
             span = ranges.get(f"chip_smoke job {i}")
             require(span is not None, f"profiler: no device range for job "
                     f"{i} ({kernel})")
-            us = [t for start, name, t in launches if kernel in name
-                  and span.start <= start <= span.end]
+            inside = [(name, t) for start, name, t in launches
+                      if span.start <= start <= span.end]
+            us = [t for name, t in inside if kernel in name]
             require(2 * len(us) >= reps, f"profiler: {len(us)} launches of "
                     f"{kernel} recorded for job {i}, want {reps}")
-            out.append((statistics.fmean(us) / 1e3, len(us)))
+            # every device launch of a call but the flush's one fill
+            per_call = (len(inside) - reps) / reps
+            out.append((statistics.fmean(us) / 1e3, len(us), per_call))
         return out
 
 
@@ -205,14 +222,17 @@ def report(timer, jobs) -> list[dict]:
     """Print each checked kernel's entry with its device-only time, all
     from one profiler session; ``jobs`` are (entry, fn, kernel name)."""
     dev = timer.device_ms([(fn, kernel) for _, fn, kernel in jobs])
-    for (e, _, _), (dev_ms, n) in zip(jobs, dev):
+    for (e, _, kernel), (dev_ms, n, per_call) in zip(jobs, dev):
         lib = "null" if e["library_ms"] is None else f"{e['library_ms']:.4f}"
         print(f"  {e['name']}: err {e['max_abs_err']:.3e}  kernel "
               f"{e['ms']:.4f} ms (device only {dev_ms:.4f} ms over {n} "
-              f"launches)  plain "
+              f"launches, {per_call:.2f} device launches a call)  plain "
               f"{e['plain_ms']:.4f} ms  library {lib} ms  bound "
               f"{e['bound_ms']:.4f} ms ({e['bound_by']})  launches "
               f"{e['launches']}")
+        if kernel.removesuffix("_kernel") in PACKED:
+            require(per_call == 1, f"{e['name']}: {per_call} device "
+                    "launches a call, want 1")
     return [e for e, _, _ in jobs]
 
 
@@ -669,10 +689,158 @@ def step_inputs(torch, g, x_t, sign, b, main_path: bool = True):
                 mwu_dot=mwu_dot, d_eff=d_eff, idx=idx, dw=dw)
 
 
+def packed_errors(torch, name, got, want, real) -> dict:
+    """{output: (error, tolerance)} of a packed kernel's result: delta
+    within 1e-4 of its largest value (and 1e-4 at most); log_new on real
+    points and each class's lse = m + log(s) within 1e-4, u within 1e-5
+    (tests/test_kernels.py)."""
+    if name == "momentum_dot_packed":
+        scale = want.abs().max().item()
+        return {"delta": ((got - want).abs().max().item(),
+                          min(1e-4, 1e-4 * scale))}
+    lse = [r[2] + torch.log(r[3]) for r in (got, want)]
+    return {"log_new": ((got[0][real] - want[0][real]).abs().max().item(),
+                        1e-4),
+            "lse": ((lse[0] - lse[1]).abs().max().item(), 1e-4),
+            "u": ((got[1] - want[1]).abs().max().item(), 1e-5)}
+
+
+def merged_partials(torch, log_new, sign, leave_out_last: bool = False):
+    """(m, s) (S, 2) of packed log weights by the plain per-tile partials
+    merged in tile order (``ref.merge_class_partials``): the oracle of the
+    kernel's in-kernel merge.  With ``leave_out_last`` each slot's last
+    tile that holds a real point is left out (given (NEG, 0))."""
+    from repro_torch.kernels import ref
+
+    parts = ref.class_partials(log_new, sign)
+    if leave_out_last:
+        real = (sign != 0).reshape(parts.shape[0], parts.shape[1], -1)
+        tiles = torch.arange(parts.shape[1], device=parts.device)
+        last = (real.any(-1) * tiles).argmax(-1)
+        gone = torch.tensor([-1e30, 0.0, -1e30, 0.0], device=parts.device)
+        parts = parts.clone()
+        parts[torch.arange(parts.shape[0]), last] = gone
+    return ref.merge_class_partials(parts)
+
+
+def packed_faults(torch, name, b, args, got, sign) -> dict:
+    """What a faulty packed kernel would return on these operands:
+    momentum_dot_packed with theta taken as 0, or with the kernel's last
+    row group (rows j = G - 1 mod G, G = 8 / tiles per block) left out of
+    delta; mwu_update_packed with u left out, or with each slot's last
+    tile that holds a real point left out of the merged (m, s)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.saddle_update import packed_tiles_per_block
+
+    if name == "momentum_dot_packed":
+        x_t, idx, ll, lp, sign, theta = args
+        groups = 8 // packed_tiles_per_block(b)
+        gone = got.clone()
+        gone[:, groups - 1::groups] = 0.0
+        return {"theta = 0": ref.momentum_dot_packed_ref(
+                    x_t, idx, ll, lp, sign, torch.zeros_like(theta)),
+                "last row group left out": gone}
+    x_t, idx, ll, u, *rest = args
+    return {"u = 0": ref.mwu_update_packed_ref(
+                x_t, idx, ll, torch.zeros_like(u), *rest),
+            "last tile left out": (got[0], got[1]) + merged_partials(
+                torch, got[0], sign, leave_out_last=True)}
+
+
+def host_split(torch, name, args, calls: int = 1000) -> dict:
+    """The packed wrapper's host time per call, split: its validation
+    (``check_packed``), its allocations (the same ``torch.empty`` calls
+    and workspace look-up), the ctypes call of the C launcher with the
+    pointers ready, and the rest (pointers, stream, device check, launch
+    count, views), the whole wrapper's time less the three.  Each is the
+    mean over ``calls`` calls between two synchronisations, by
+    time.perf_counter, in ms."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import saddle_update as su
+
+    x_t, idx = args[:2]
+    s, d, n_pad = x_t.shape
+    b = idx.shape[1]
+    tiles = n_pad // su.LANE
+    dev = x_t.device
+    lib = build.library("saddle_update")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tpb = su.packed_tiles_per_block(b)
+    if name == "momentum_dot_packed":
+        _, _, ll, lp, sign, theta = args
+
+        def validate():
+            su.check_packed(x_t, idx, dict(log_lam=ll, log_prev=lp,
+                                           sign=sign), dict(theta=theta))
+
+        def allocate():
+            torch.empty((s, b), dtype=torch.float32, device=dev)
+            su.workspace(dev, s, s * tiles * (-(-b // 4) * 4))
+
+        out = torch.empty((s, b), dtype=torch.float32, device=dev)
+        counters, parts = su.workspace(dev, s, s * tiles * (-(-b // 4) * 4))
+        ptrs = [t.data_ptr() for t in (x_t, idx, ll, lp, sign, theta, out,
+                                       parts, counters)]
+
+        def call():
+            lib.momentum_dot_packed_f32(*ptrs, s, d, n_pad, b, tpb, stream)
+
+        def whole():
+            ops.momentum_dot_packed(*args)
+    else:
+        _, _, ll, u, dw, sign, mwu_c, mwu_dot, d_eff = args
+
+        def validate():
+            su.check_packed(x_t, idx, dict(log_lam=ll, u=u, sign=sign),
+                            dict(mwu_c=mwu_c, mwu_dot=mwu_dot),
+                            rows=dict(dw=dw))
+
+        def allocate():
+            torch.empty_like(ll)
+            torch.empty_like(u)
+            torch.empty((2, s, 2), dtype=torch.float32, device=dev)
+            su.workspace(dev, s, s * tiles * 4)
+
+        outs = [torch.empty_like(ll), torch.empty_like(u),
+                torch.empty((2, s, 2), dtype=torch.float32, device=dev)]
+        counters, parts = su.workspace(dev, s, s * tiles * 4)
+        ptrs = [t.data_ptr() for t in (x_t, idx, dw, ll, u, sign, mwu_c,
+                                       mwu_dot)]
+        ptrs2 = [t.data_ptr() for t in (*outs, parts, counters)]
+
+        def call():
+            lib.mwu_update_packed_f32(*ptrs, float(d_eff), *ptrs2, s, d,
+                                      n_pad, b, tpb, stream)
+
+        def whole():
+            ops.mwu_update_packed(*args)
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e3
+
+    split = {part: per_call(fn) for part, fn in (
+        ("validation", validate), ("allocation", allocate),
+        ("ctypes call", call), ("wrapper", whole))}
+    split["rest"] = split["wrapper"] - sum(
+        split[k] for k in ("validation", "allocation", "ctypes call"))
+    return split
+
+
 def check_packed(torch, timer, g, x_t, sign, b, launches,
                  main_path: bool = True, path: str = ""):
     """Both packed kernels on (x_t, sign) with b sampled rows, every row
-    (slot or client) given the same block; returns their timing jobs."""
+    (slot or client) given the same block: each against its plain
+    version (``packed_errors``), the MWU's (m, s) also against the plain
+    merge of the per-tile partials of its own log_new, the same bits on a
+    repeat call, every planted fault (``packed_faults``) breaking a
+    tolerance, the wrapper's host time split (``host_split``); returns
+    their timing jobs."""
     from repro_torch.kernels import ops, ref
 
     rows, d, n_pad = x_t.shape
@@ -682,57 +850,116 @@ def check_packed(torch, timer, g, x_t, sign, b, launches,
     tag = f",{path} operands" if main_path else ",synthetic layout"
     real = sign != 0
     label = f"[S={rows},d={d},n_pad={n_pad},b={b}{tag}]"
-    jobs = []
-
-    def dot():
-        return ops.momentum_dot_packed(x_t, idx, ll, lp, sign, theta)
-
-    got = dot()
-    want = ref.momentum_dot_packed_ref(x_t, idx, ll, lp, sign, theta)
-    err = (got - want).abs().max().item()
-    require(err <= 1e-4, f"momentum_dot_packed{label}: err {err}")
-    require(torch.equal(got, dot()), "momentum_dot_packed is not "
-            "deterministic")
+    dot_args = (x_t, idx, ll, lp, sign, theta)
+    # The MWU's log_new spreads over hundreds at b = 128, so that one
+    # point carries a class: each slot's last real point is raised to 1
+    # above the largest log_new of its class (log_new is affine in its
+    # log weight with slope mwu_c * mwu_dot), so a merge that leaves out
+    # the last tile shows.
+    log0 = ref.mwu_update_packed_ref(x_t, idx, ll, u, dw, sign, mwu_c,
+                                     mwu_dot, d_eff)[0]
+    last = last_real(torch, ll)
+    same = sign == sign.gather(-1, last)
+    top = torch.where(same, log0, -math.inf).amax(-1, keepdim=True)
+    ll_m = ll.scatter_add(-1, last, (top + 1 - log0.gather(-1, last))
+                          / (mwu_c * mwu_dot)[:, None])
+    mwu_args = (x_t, idx, ll_m, u, dw, sign, mwu_c, mwu_dot, d_eff)
     lam = torch.exp(ll)
     mom = sign * (lam + theta[:, None] * (lam - torch.exp(lp)))
     idx_l = idx[0].long()
-    e = entry("momentum_dot_packed", "momentum_dot_packed" + label, err,
-              timer(dot), timer(lambda: ref.momentum_dot_packed_ref(
-                  x_t, idx, ll, lp, sign, theta)),
-              timer(lambda: x_t[:, idx_l] @ mom[..., None]),
-              nbytes=4 * rows * (n_pad * (b + 3) + 2 * b + 1),
-              ops=rows * n_pad * (2 * b + 6))
-    e["launches"] = launches
-    jobs.append((e, dot, "momentum_dot_packed_kernel"))
+    # a practical floor beside the bound: one contiguous read of as many
+    # bytes as the sampled rows (b rows of every slot), by torch.sum
+    stream_ms = timer(lambda: x_t[:, :b].sum())
+    jobs = []
+    for name, args, plain, library, nbytes, ops_ in (
+            ("momentum_dot_packed", dot_args, ref.momentum_dot_packed_ref,
+             lambda: x_t[:, idx_l] @ mom[..., None],
+             4 * rows * (n_pad * (b + 3) + 2 * b + 1),
+             rows * n_pad * (2 * b + 6)),
+            ("mwu_update_packed", mwu_args, ref.mwu_update_packed_ref, None,
+             4 * rows * (n_pad * (b + 5) + 2 * b + 6),
+             rows * n_pad * (2 * b + 12))):
+        kernel = getattr(ops, name)
 
-    def mwu():
-        return ops.mwu_update_packed(x_t, idx, ll, u, dw, sign, mwu_c,
-                                     mwu_dot, d_eff)
+        def fn(kernel=kernel, args=args):
+            return kernel(*args)
 
-    got = mwu()
-    want = ref.mwu_update_packed_ref(x_t, idx, ll, u, dw, sign, mwu_c,
-                                     mwu_dot, d_eff)
-    errs = [(got[0][real] - want[0][real]).abs().max().item()]
-    require((got[0][~real] < -1e20).all().item(),
-            f"mwu_update_packed{label}: padding lanes not below -1e20")
-    u_err = (got[1] - want[1]).abs().max().item()
-    require(u_err <= 1e-5, f"mwu_update_packed{label}: u err {u_err}")
-    for m_i, s_i in ((2, 3), (4, 5)):
-        lse_g = got[m_i] + torch.log(got[s_i])
-        lse_w = want[m_i] + torch.log(want[s_i])
-        errs.append((lse_g - lse_w).abs().max().item())
-    require(max(errs) <= 1e-4, f"mwu_update_packed{label}: err {errs}")
-    require(all(torch.equal(p, q) for p, q in zip(got, mwu())),
-            "mwu_update_packed is not deterministic")
-    e = entry("mwu_update_packed", "mwu_update_packed" + label,
-              max(errs + [u_err]), timer(mwu),
-              timer(lambda: ref.mwu_update_packed_ref(
-                  x_t, idx, ll, u, dw, sign, mwu_c, mwu_dot, d_eff)),
-              None, nbytes=4 * rows * (n_pad * (b + 5) + 2 * b + 2),
-              ops=rows * n_pad * (2 * b + 12))
-    e["launches"] = launches
-    jobs.append((e, mwu, "mwu_update_packed_kernel"))
+        got, want = fn(), plain(*args)
+        errs = packed_errors(torch, name, got, want, real)
+        if name == "mwu_update_packed":
+            require((got[0][~real] < -1e20).all().item(),
+                    f"{name}{label}: padding lanes not below -1e20")
+            merged = merged_partials(torch, got[0], sign)
+            merge_err = (got[2] + torch.log(got[3]) - merged[0]
+                         - torch.log(merged[1])).abs().max().item()
+            errs["merge"] = (merge_err, 1e-4)
+        require(all(e <= tol for e, tol in errs.values()),
+                f"{name}{label}: {errs}")
+        again = fn()
+        same = (torch.equal(got, again) if name == "momentum_dot_packed"
+                else all(torch.equal(p, q) for p, q in zip(got, again)))
+        require(same, f"{name}{label}: not deterministic")
+        caught = {}
+        for fault, out in packed_faults(torch, name, b, args, got,
+                                        sign).items():
+            ferrs = packed_errors(torch, name, out, want, real)
+            caught[fault] = max(e / tol for e, tol in ferrs.values())
+            require(caught[fault] > 1, f"{name}{label}: the check would "
+                    f"pass a kernel with {fault}: {ferrs}")
+        split = host_split(torch, name, args)
+        print(f"  {name}{label}: errors " + ", ".join(
+            f"{k} {e:.3e} (tol {tol:.1e})" for k, (e, tol) in errs.items())
+            + "; planted faults break the tolerance by " + ", ".join(
+                f"{f} {r:.3g}x" for f, r in caught.items())
+            + "; host ms per call " + ", ".join(
+                f"{k} {v:.4f}" for k, v in split.items())
+            + f"; a contiguous read of the rows' bytes {stream_ms:.4f} ms")
+        e = entry(name, name + label, max(err for err, _ in errs.values()),
+                  timer(fn), timer(lambda: plain(*args)),
+                  None if library is None else timer(library),
+                  nbytes=nbytes, ops=ops_)
+        e["launches"] = launches
+        jobs.append((e, fn, name + "_kernel"))
     return jobs
+
+
+def ticket_rounds(torch, g, recs, rounds: int = 3):
+    """The packed kernels at the path shapes S = 1, b = 1; S = 1, b = 128
+    and S = 20, b = 1, alternating, for ``rounds`` rounds: the same bits
+    in every round and every ticket counter back at 0 after each round,
+    so a launch leaves the counters as it found them."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import saddle_update as su
+
+    operands = {shape: xs for rec in recs for shape, xs in
+                rec.operands.items()}
+    shapes = [min(k for k in operands if k[0] == 1 and k[3] == b)
+              for b in (1, 128)]
+    shapes.append(min(k for k in operands if k[0] == 20 and k[3] == 1))
+    calls = []
+    for shape in shapes:
+        x_t, sign = operands[shape]
+        a = step_inputs(torch, g, x_t, sign, shape[3])
+        calls.append(lambda x_t=x_t, sign=sign, a=a: (
+            ops.momentum_dot_packed(x_t, a["idx"], a["ll"], a["lp"], sign,
+                                    a["theta"]),
+            *ops.mwu_update_packed(x_t, a["idx"], a["ll"], a["u"], a["dw"],
+                                   sign, a["mwu_c"], a["mwu_dot"],
+                                   a["d_eff"])))
+    first = None
+    dev = operands[shapes[0]][0].device
+    for r in range(rounds):
+        outs = [call() for call in calls]
+        counters = su.workspace(dev, 1, 1)[0]
+        require(not counters.any().item(), f"round {r}: a ticket counter "
+                "was not reset")
+        if first is None:
+            first = outs
+        require(all(torch.equal(p, q) for o, f in zip(outs, first)
+                    for p, q in zip(o, f)),
+                f"round {r}: the packed kernels gave other bits")
+    print(f"  ticket counters: {rounds} rounds alternating shapes "
+          f"{shapes}: same bits every round, every counter 0 after each")
 
 
 def synthetic_layout(torch, g):
@@ -973,10 +1200,13 @@ def check_kernels(torch, timer, recs) -> list[dict]:
                 torch, timer, g, name, args, rec.calls[name, shape],
                 f",path {rec.name}", on_path=True))
         entries += report(timer, jobs)
+    ticket_rounds(torch, g, recs)
     print("  not on a path (launches null):")
     jobs = [check_fwht(torch, timer, g, 50_000, 512, None, "none")]
     x_t, sign = synthetic_layout(torch, g)
-    for b in (1, 128):
+    # b = 3 and 300: a ragged last block of 4 tiles, and a row ring that
+    # is refilled (10 stages of 32 rows through 4 buffers)
+    for b in (1, 3, 128, 300):
         jobs += check_packed(torch, timer, g, x_t, sign, b, None,
                              main_path=False)
     check_bad_index(torch, g, x_t, sign)

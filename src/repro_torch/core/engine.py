@@ -350,12 +350,10 @@ def _dual_update_packed(x_t, idx, log_lam, u, dw, sign, sc: SlotParams,
                         d_eff: float, all_sum=_identity, all_max=_identity):
     """Packed lines 5-6 + incremental u for BOTH classes in one kernel
     call, normalized per class by the logsumexp of the kernel's masked
-    partials, combined across clients as one (2,) max and one (2,) sum
-    (rounds 2-3).  Returns (log_new_normalized, u_new)."""
-    log_new, u_new, m_p, s_p, m_m, s_m = ops.mwu_update_packed(
+    (m, s) (S, 2), combined across clients as one (2,) max and one (2,)
+    sum (rounds 2-3).  Returns (log_new_normalized, u_new)."""
+    log_new, u_new, m_loc, s_loc = ops.mwu_update_packed(
         x_t, idx, log_lam, u, dw, sign, sc.mwu_c, sc.mwu_dot, d_eff)
-    m_loc = torch.stack([m_p, m_m], dim=-1)      # (S, 2)
-    s_loc = torch.stack([s_p, s_m], dim=-1)
     m = all_max(m_loc)
     s = all_sum(s_loc * torch.exp(m_loc - m))
     lse = m + torch.log(s)

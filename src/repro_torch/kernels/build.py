@@ -35,11 +35,9 @@ SIGNATURES = {
         "fwht_rows_f32": [_P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P],
     },
     "saddle_update": {
-        "momentum_dot_packed_f32": [_P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _P],
-        "mwu_update_packed_f32": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                  ctypes.c_float, _P, _P, _P,
-                                  _I, _I, _I, _I, _P],
+        "momentum_dot_packed_f32": [_P] * 9 + [_I] * 5 + [_P],
+        "mwu_update_packed_f32": [_P] * 8 + [ctypes.c_float] + [_P] * 5
+                                 + [_I] * 5 + [_P],
         "momentum_dot_f32": [_P, _P, _P, ctypes.c_float, _P,
                              _I, _I, _I, _I, _P],
         "mwu_update_f32": [_P, _P, _P, _P] + [ctypes.c_float] * 4

@@ -2,47 +2,72 @@
 //
 // PACKED (the production step, 2 launches per step): leading slot axis S,
 // x_t (S, d, n_pad), idx (S, b), point vectors (S, n_pad) and per-slot
-// scalars (S,).  Grid axes are (point tile, ..., slot).
+// scalars (S,).  Each wrapper call is ONE launch, grid (point block,
+// slot), and its outputs are final: no torch op runs after it.
 //
 // Replaces: src/repro/kernels/saddle_update.py,
 //   _momentum_dot_packed_kernel (launched by _momentum_dot_packed_jit) and
-//   _mwu_packed_kernel (launched by _mwu_update_packed_jit).
+//   _mwu_packed_kernel (launched by _mwu_update_packed_jit), together with
+//   the merges of per-tile partials that the JAX wrappers run outside
+//   their pallas_call.
 //
-// What bounds them on an H100: bytes.  Each step reads b sampled rows of
-// x_t (b * n_pad floats, gathered by index) plus a few point-length vectors,
-// and does ~2 floating-point operations per byte-pair -- far below the
-// card's compute rate.  The design therefore reads every byte once, in
-// 16-byte coalesced loads:
+// What bounds them on an H100: bytes.  A step reads the b sampled rows of
+// x_t (b * n_pad floats, gathered by index) and a few point-length
+// vectors, about one multiply-add per float read: at b = 128 and
+// n_pad = 20,096 that is 10.3 MB, 3.1 us at 3.35 TB/s.  Nearing it takes
+// the whole gather in flight at once, which the float4 loads of a
+// one-warp block cannot keep, and one launch, since a launch costs
+// microseconds of device time and more of the host's.  At b = 1 the bytes
+// are nothing and the launch and its chain of dependent reads are all.
+// So:
 //
-//   * A point tile is LANE = 128 points, owned by one warp: each of the 32
-//     threads holds 4 consecutive points as one float4.  n_pad is a
-//     multiple of 128 (the wrapper checks), so tiles never straddle the
-//     edge and no lane is masked.
-//   * The Pallas kernels walk the b sampled rows as a sequential grid axis
-//     and carry the signed momentum / dv in VMEM scratch.  Blocks here run
-//     in no order, so the walk over rows is a loop inside the block and the
-//     carried values live in registers.  The block reads idx itself (the
-//     Pallas kernels scalar-prefetch it).
-//   * Reductions across tiles are written as per-tile partials --
-//     (S, tiles, b) for the dot, (S, tiles, 4) for the MWU normalizers --
-//     and combined by the caller in a fixed order, as the JAX wrapper does
-//     outside its pallas_call.  No float atomics: the result is the same
-//     bits on every run.
-//   * momentum_dot_packed additionally splits the b rows over grid axis 1
-//     (ROWS_PER_BLOCK rows a block) so b = 128 puts ~8x more loads in
-//     flight; each block recomputes its tile's momentum (3 short reads,
-//     mostly from L2).
+//   * A point tile is LANE = 128 points: a warp holds it as one float4 a
+//     lane.  n_pad is a multiple of 128 (the wrapper checks), so no lane
+//     is masked.  A block has 8 warps over T tiles (T = 8 / G, chosen by b
+//     in the wrapper: T = 8 at b = 1, T = 1 from b = 8): warp w takes tile
+//     w % T of the block and the ROW GROUP w / T, the rows j = g mod G.
+//   * Staging: the block's segment of every sampled row (T * 512 bytes,
+//     16-byte aligned) is copied into shared memory by the Tensor Memory
+//     Accelerator (cp.async.bulk, one per row, issued by warp 0), into a
+//     ring of up to 4 stages of 16 KB (32 / T rows a stage), each stage
+//     completing on an mbarrier that expects its bytes.  At b <= 128 every
+//     row of the block is in flight at once (64 KB); a larger b refills a
+//     stage once all warps are done with it.  The warps read rows from
+//     shared memory while later stages are still arriving.
+//   * Reductions across blocks happen inside the kernel, in a fixed
+//     order: each block writes per-tile partials to scratch, fences, and
+//     takes an integer ticket from its slot's counter (atomicAdd); the
+//     block that draws the last ticket merges the slot's partials in tile
+//     order and resets the counter to 0 for the next launch.  Only the
+//     ticket is atomic, so the merged floats do not depend on which block
+//     finishes last: a repeat call gives the same bits.  (A thread block
+//     cluster holds at most 16 blocks; the paths have 3 to 391 tiles.)
+//     A slot of one block (3 or 4 tiles at b = 1) takes no ticket.  The
+//     counters and scratch belong to the wrapper, one set per device, so
+//     the packed kernels assume one stream at a time.
+//   * momentum_dot_packed computes the block's momentum once into shared
+//     memory; each warp dots its rows with its tile's momentum (warp
+//     shuffle sum) into per-tile partials (S, tiles, b rounded up to 4);
+//     the last block copies them into its ring by bulk copies, a piece at
+//     a time, and sums them over tiles, float4 columns by a fixed striping
+//     and a fixed tree, into delta (S, b).
+//   * mwu_update_packed: each warp sums dw_j x_t[idx_j] over its row group
+//     in registers; the row groups' dv are added in shared memory in warp
+//     order; one warp a tile then writes log_new and u_new and the tile's
+//     per-class (max, sum exp(log_new - max)); the last block merges the
+//     tiles' partials (one warp: lane l takes tiles l, l + 32, ..., then a
+//     shuffle tree; the max first, then the sum of s exp(m_tile - max))
+//     into m (S, 2) and s (S, 2), lse = m + log(s).
 //
 // Padding lanes carry sign 0 and log weight -1e30, whose expf is exactly 0.
 // Per-class max / sum-exp partials are masked by sign, so a tile with no
 // point of a class gives (NEG, 0) for it -- never (NEG, inf).
 //
-// A sampled row index outside [0, d) is never read: the load goes to row 0
-// instead and the dot of that row, or the whole dv, becomes NaN, so the
-// caller's outputs are NaN (the solver's health flags then stop the slot)
-// instead of an illegal memory access that would poison the CUDA context.
-// The load itself stays unconditional, so the unrolled row loop keeps
-// several loads in flight.
+// A sampled row index outside [0, d) is never read, not even by a bulk
+// copy: the copy takes row 0 instead, and the dot of that row, or the
+// slot's whole dv, becomes NaN, so the caller's outputs are NaN (the
+// solver's health flags then stop the slot) instead of an illegal memory
+// access that would poison the CUDA context.
 //
 // UNPACKED (the per-class reference step, 4 launches per step): cols
 // (K, n, B) row-major -- the step's B sampled coordinates of each of a
@@ -79,13 +104,18 @@
 //     and zero rows: exp gives 0 momentum, and c * (d_eff / tau) <= 1 keeps
 //     their log_new finite near -1e30, so they add exactly 0 to the sums.
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int LANE = 128;           // points per tile (one warp x float4)
 constexpr int WARP = 32;
-constexpr int ROWS_PER_BLOCK = 16;  // sampled rows per momentum-dot block
+constexpr int THREADS = 256;        // threads per block, every kernel here
+constexpr int WARPS = THREADS / WARP;
+constexpr int STAGE_FLOATS = 4096;  // one 16 KB stage of the row ring
+constexpr int MAX_STAGES = 4;       // ring depth: 64 KB
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -110,6 +140,190 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// ------------------------------------------------ mbarrier and bulk copy
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// global -> shared, ``bytes`` a multiple of 16, both ends 16-byte aligned;
+// completes ``bytes`` of the mbarrier's expected transaction count
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The ring of row stages of one packed block (see the header).  Stage k
+// holds rows [k * rows, (k + 1) * rows) of the slot's b sampled rows, in
+// buffer k % nbuf, completing on full[k % nbuf] in phase k / nbuf.
+struct RowRing {
+  float* buf;            // nbuf * STAGE_FLOATS floats of dynamic smem
+  uint64_t* full;        // nbuf mbarriers, then the merge's
+  const float* xs;       // x_t[s, 0, first point of the block]
+  const int* ids;        // idx[s, :]
+  int d, n_pad, b;
+  int tpb;               // tiles per block, T
+  int rows;              // rows per stage, 32 / T
+  int stages, nbuf;
+  unsigned row_bytes;    // tiles_here * 512: one row's copy
+
+  // by warp 0: arm stage k's barrier, then one bulk copy a row, lane r
+  // copying the stage's row r, whose index is ``row``; an index outside
+  // [0, d) copies row 0
+  __device__ void issue(int k, int lane, int row) const {
+    const int n = min(rows, b - k * rows);
+    uint64_t* bar = &full[k % nbuf];
+    if (lane == 0) mbar_expect_tx(bar, n * row_bytes);
+    __syncwarp();
+    if (lane < n) {
+      const int safe = (unsigned)row < (unsigned)d ? row : 0;
+      bulk_copy(buf + (k % nbuf) * STAGE_FLOATS + lane * tpb * LANE,
+                xs + (size_t)safe * n_pad, row_bytes, bar);
+    }
+  }
+
+  // the index of stage k's row ``lane`` (0 past the last row)
+  __device__ int row_of(int k, int lane) const {
+    const int j = k * rows + lane;
+    return lane < rows && j < b ? ids[j] : 0;
+  }
+
+  // by warp 0, first thing in the block: init the barriers (the ring's
+  // and the merge's, full[nbuf]), read the
+  // indices of the first nbuf stages at once, start their copies (the
+  // caller syncs the block before any wait)
+  __device__ void start(int lane) const {
+    if (lane == 0) {
+      for (int i = 0; i <= nbuf; ++i) mbar_init(&full[i], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    int row[MAX_STAGES];
+#pragma unroll
+    for (int k = 0; k < MAX_STAGES; ++k)
+      row[k] = k < nbuf ? row_of(k, lane) : 0;
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < MAX_STAGES; ++k)
+      if (k < nbuf) issue(k, lane, row[k]);
+  }
+
+  // every thread: for each stage, wait for it, call fn(j, x) for the rows
+  // j of row group g, x the float4 of the lane's points of its tile in
+  // row j, then refill the stage once every warp is done with it
+  template <class Fn>
+  __device__ void walk(int g, int groups, int tile, bool active,
+                       Fn fn) const {
+    const int lane = threadIdx.x % WARP;
+    for (int k = 0; k < stages; ++k) {
+      mbar_wait(&full[k % nbuf], (k / nbuf) & 1);
+      const int j0 = k * rows;
+      const int n = min(rows, b - j0);
+      const float* st = buf + (k % nbuf) * STAGE_FLOATS + tile * LANE +
+                        lane * 4;
+      if (active) {
+#pragma unroll 4
+        for (int r = g; r < n; r += groups)
+          fn(j0 + r, load4(st + r * tpb * LANE));
+      }
+      if (k + nbuf < stages) {
+        __syncthreads();
+        if (threadIdx.x < WARP) {
+          const int row = row_of(k + nbuf, lane);
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          issue(k + nbuf, lane, row);
+        }
+      }
+    }
+  }
+
+  // by warp 0, once the walk is over and the block synced: copy rows
+  // [p0, p0 + n) x floats [c0, c0 + w) of the row-major (rows, width)
+  // matrix at src, written by other blocks, into the ring as (n, w),
+  // completing on the merge's barrier: one bulk copy when the rows are
+  // whole, else one a row
+  __device__ void fetch(const float* src, int width, int p0, int n, int c0,
+                        int w, int lane) const {
+    uint64_t* bar = &full[nbuf];
+    asm volatile("fence.proxy.async;" ::: "memory");
+    if (lane == 0) mbar_expect_tx(bar, n * w * sizeof(float));
+    __syncwarp();
+    if (w == width) {
+      if (lane == 0)
+        bulk_copy(buf, src + (size_t)p0 * width, n * w * sizeof(float), bar);
+    } else {
+      for (int r = lane; r < n; r += WARP)
+        bulk_copy(buf + r * w, src + (size_t)(p0 + r) * width + c0,
+                  w * sizeof(float), bar);
+    }
+  }
+};
+
+__device__ __forceinline__ RowRing make_ring(
+    float* buf, uint64_t* full, const float* x_t, const int* idx, int s,
+    int tile0, int tiles_here, int d, int n_pad, int b, int tpb, int nbuf) {
+  RowRing R;
+  R.buf = buf;
+  R.full = full;
+  R.xs = x_t + (size_t)s * d * n_pad + (size_t)tile0 * LANE;
+  R.ids = idx + (size_t)s * b;
+  R.d = d;
+  R.n_pad = n_pad;
+  R.b = b;
+  R.tpb = tpb;
+  R.rows = STAGE_FLOATS / (tpb * LANE);
+  R.stages = (b + R.rows - 1) / R.rows;
+  R.nbuf = nbuf;
+  R.row_bytes = (unsigned)tiles_here * LANE * sizeof(float);
+  return R;
+}
+
+// The block's ticket on its slot's counter: true in the block that
+// finishes last.  The block's partials are written before the call; the
+// barrier and thread 0's fence order them before the ticket.  A slot of
+// one block takes no ticket: the barrier alone makes its partials
+// visible to it.
+__device__ __forceinline__ bool last_block(int* counter, int* flag) {
+  __syncthreads();
+  if (gridDim.x == 1) return true;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *flag = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();      // see the other blocks' partials
+  return true;
+}
+
 __device__ __forceinline__ float momentum(float lg, float lg_prev, float sg,
                                           float theta) {
   const float lam = expf(lg);
@@ -117,44 +331,123 @@ __device__ __forceinline__ float momentum(float lg, float lg_prev, float sg,
   return sg * (lam + theta * (lam - lam_prev));
 }
 
-// parts[s, tile, j] = sum over the tile's points i of
-//   sign_i (lam_i + theta (lam_i - lam_prev_i)) x_t[s, idx[s, j], i]
-__global__ void momentum_dot_packed_kernel(
+// delta[s, j] = sum over points i of
+//   sign_i (lam_i + theta (lam_i - lam_prev_i)) x_t[s, idx[s, j], i].
+// parts (S, tiles, bp) is scratch, bp = b rounded up to 4; counters (S,)
+// are 0 before and after the launch.
+__global__ void __launch_bounds__(THREADS) momentum_dot_packed_kernel(
     const float* __restrict__ x_t, const int* __restrict__ idx,
     const float* __restrict__ log_lam, const float* __restrict__ log_prev,
     const float* __restrict__ sign, const float* __restrict__ theta,
-    float* __restrict__ parts, int d, int n_pad, int b) {
-  const int tile = blockIdx.x;
-  const int j0 = blockIdx.y * ROWS_PER_BLOCK;
-  const int s = blockIdx.z;
-  const int tiles = gridDim.x;
-  const int lane = threadIdx.x;
-
-  const size_t pt = (size_t)s * n_pad + (size_t)tile * LANE + lane * 4;
-  const float th = theta[s];
-  const float4 lg = load4(log_lam + pt);
-  const float4 lp = load4(log_prev + pt);
-  const float4 sg = load4(sign + pt);
-  float4 mom;
-  mom.x = momentum(lg.x, lp.x, sg.x, th);
-  mom.y = momentum(lg.y, lp.y, sg.y, th);
-  mom.z = momentum(lg.z, lp.z, sg.z, th);
-  mom.w = momentum(lg.w, lp.w, sg.w, th);
-
-  const float* xs = x_t + (size_t)s * d * n_pad + (size_t)tile * LANE +
-                    lane * 4;
-  const int* ids = idx + (size_t)s * b;
-  float* out = parts + ((size_t)s * tiles + tile) * b;
-  const int j1 = min(b, j0 + ROWS_PER_BLOCK);
-#pragma unroll 4
-  for (int j = j0; j < j1; ++j) {
-    const int row = ids[j];
-    const bool ok = (unsigned)row < (unsigned)d;
-    const float4 xv = load4(xs + (size_t)(ok ? row : 0) * n_pad);
-    float acc = xv.x * mom.x + xv.y * mom.y + xv.z * mom.z + xv.w * mom.w;
-    acc = warp_sum(ok ? acc : nan_f32());
-    if (lane == 0) out[j] = acc;
+    float* __restrict__ out, float* __restrict__ parts,
+    int* __restrict__ counters, int d, int n_pad, int b, int tpb,
+    int nbuf) {
+  extern __shared__ __align__(128) float ring[];
+  __shared__ uint64_t full[MAX_STAGES + 1];
+  __shared__ float4 vec[THREADS];           // momentum, then merge sums
+  __shared__ int is_last;
+  const int t = threadIdx.x;
+  const int lane = t % WARP;
+  const int warp = t / WARP;
+  const int s = blockIdx.y;
+  const int tiles = n_pad / LANE;
+  const int tile0 = blockIdx.x * tpb;
+  const int tiles_here = min(tpb, tiles - tile0);
+  const RowRing R = make_ring(ring, full, x_t, idx, s, tile0, tiles_here,
+                              d, n_pad, b, tpb, nbuf);
+  // the block's point operands are read first, so that their loads
+  // overlap warp 0's start of the ring; float4 t of the block's points
+  const bool mine = t < tiles_here * WARP;
+  const size_t pt = (size_t)s * n_pad + (size_t)tile0 * LANE + t * 4;
+  float4 lg, lp, sg;
+  if (mine) {
+    lg = load4(log_lam + pt);
+    lp = load4(log_prev + pt);
+    sg = load4(sign + pt);
   }
+  if (warp == 0) R.start(lane);
+
+  // the rows' indices, after the ring, for the range check of each dot
+  // (by warps 1-7, while warp 0 starts the ring)
+  int* ids_s = reinterpret_cast<int*>(ring + nbuf * STAGE_FLOATS);
+  if (warp > 0) {
+    for (int j = t - WARP; j < b; j += THREADS - WARP)
+      ids_s[j] = idx[(size_t)s * b + j];
+  }
+  // the block's momentum, once
+  if (mine) {
+    const float th = theta[s];
+    vec[t] = make_float4(momentum(lg.x, lp.x, sg.x, th),
+                         momentum(lg.y, lp.y, sg.y, th),
+                         momentum(lg.z, lp.z, sg.z, th),
+                         momentum(lg.w, lp.w, sg.w, th));
+  }
+  __syncthreads();                          // also publishes the barriers
+
+  const int tile = warp % tpb;
+  const int groups = WARPS / tpb;
+  const bool active = tile < tiles_here;
+  const float4 mom = active ? vec[tile * WARP + lane]
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int bp = (b + 3) & ~3;
+  float* part = parts + ((size_t)s * tiles + tile0 + tile) * bp;
+  R.walk(warp / tpb, groups, tile, active, [&](int j, float4 xv) {
+    float acc = xv.x * mom.x + xv.y * mom.y + xv.z * mom.z + xv.w * mom.w;
+    acc = warp_sum(acc);
+    if (lane == 0)
+      part[j] = (unsigned)ids_s[j] < (unsigned)d ? acc : nan_f32();
+  });
+  // the partials are read back by bulk copies (the async proxy)
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+  if (!last_block(counters + s, &is_last)) return;
+
+  // delta[s, :] = the sum over tiles: thread t takes float4 column c of a
+  // chunk of up to 256 and the tile rows q, q + Q, ... of each piece of
+  // the partials staged in the ring; the Q stripes are then added by a
+  // fixed tree
+  const float* ps = parts + (size_t)s * tiles * bp;
+  const int groups4 = bp / 4;
+  unsigned phase = 0;
+  for (int c0 = 0; c0 < groups4; c0 += THREADS) {
+    const int cg = min(THREADS, groups4 - c0);
+    const int w = cg * 4;
+    const int per = nbuf * STAGE_FLOATS / w;  // tile rows a piece
+    const int stripes = min(THREADS / cg, tiles);
+    const int c = t % cg;
+    const int q = t / cg;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int p0 = 0; p0 < tiles; p0 += per) {
+      const int n = min(per, tiles - p0);
+      if (warp == 0) R.fetch(ps, bp, p0, n, c0 * 4, w, lane);
+      mbar_wait(&full[nbuf], phase);
+      phase ^= 1;
+      if (q < stripes) {
+#pragma unroll 4
+        for (int r = q; r < n; r += stripes)
+          acc = add4(acc, load4(ring + r * w + c * 4));
+      }
+      __syncthreads();                      // the ring is free again
+    }
+    vec[t] = acc;
+    __syncthreads();
+    for (int live = stripes; live > 1;) {
+      const int half = (live + 1) / 2;
+      if (q < live - half) vec[t] = add4(vec[t], vec[t + half * cg]);
+      __syncthreads();
+      live = half;
+    }
+    if (q == 0) {
+      const float4 v = vec[t];
+      const float vals[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = (c0 + c) * 4 + e;
+        if (j < b) out[(size_t)s * b + j] = vals[e];
+      }
+    }
+    __syncthreads();
+  }
+  if (t == 0) counters[s] = 0;
 }
 
 __device__ __forceinline__ void class_partials(float ln, float sg, float& mp,
@@ -171,86 +464,145 @@ __device__ __forceinline__ void class_sums(float ln, float sg, float mp,
 
 // dv_i = sum_j dw[s, j] x_t[s, idx[s, j], i];  v = sign (u + d_eff dv);
 // log_new = mwu_c (mwu_dot log_lam - v);  u_new = u + dv;
-// parts[s, tile] = (m_p, s_p, m_m, s_m), the tile's per-class normalizers.
-__global__ void mwu_update_packed_kernel(
+// ms = (m (S, 2), s (S, 2)), the per-class (+, -) max and sum of
+// exp(log_new - max) over the slot.  parts (S, tiles, 4) is scratch;
+// counters (S,) are 0 before and after the launch.
+__global__ void __launch_bounds__(THREADS) mwu_update_packed_kernel(
     const float* __restrict__ x_t, const int* __restrict__ idx,
     const float* __restrict__ dw, const float* __restrict__ log_lam,
     const float* __restrict__ u, const float* __restrict__ sign,
     const float* __restrict__ mwu_c, const float* __restrict__ mwu_dot,
     float d_eff, float* __restrict__ log_new, float* __restrict__ u_new,
-    float* __restrict__ parts, int d, int n_pad, int b) {
-  const int tile = blockIdx.x;
+    float* __restrict__ ms, float* __restrict__ parts,
+    int* __restrict__ counters, int d, int n_pad, int b, int tpb,
+    int nbuf) {
+  extern __shared__ __align__(128) float ring[];
+  __shared__ uint64_t full[MAX_STAGES + 1];
+  __shared__ float4 red[THREADS];           // dv of each warp
+  __shared__ int is_last;
+  const int t = threadIdx.x;
+  const int lane = t % WARP;
+  const int warp = t / WARP;
   const int s = blockIdx.y;
-  const int tiles = gridDim.x;
-  const int lane = threadIdx.x;
-
-  const float* xs = x_t + (size_t)s * d * n_pad + (size_t)tile * LANE +
+  const int tiles = n_pad / LANE;
+  const int tile0 = blockIdx.x * tpb;
+  const int tiles_here = min(tpb, tiles - tile0);
+  const RowRing R = make_ring(ring, full, x_t, idx, s, tile0, tiles_here,
+                              d, n_pad, b, tpb, nbuf);
+  // warp w < tiles_here writes tile w of the block: its operands are
+  // read first, so that their loads overlap warp 0's start of the ring
+  const bool writer = warp < tiles_here;
+  const size_t pt = (size_t)s * n_pad + (size_t)(tile0 + warp) * LANE +
                     lane * 4;
-  const int* ids = idx + (size_t)s * b;
-  const float* dws = dw + (size_t)s * b;
+  float4 sg, uu, lg;
+  if (writer) {
+    sg = load4(sign + pt);
+    uu = load4(u + pt);
+    lg = load4(log_lam + pt);
+  }
+  if (warp == 0) R.start(lane);
+
+  // dw after the ring, and whether any row index is out of range (by
+  // warps 1-7, while warp 0 starts the ring)
+  float* dw_s = ring + nbuf * STAGE_FLOATS;
+  bool bad = false;
+  if (warp > 0) {
+    for (int j = t - WARP; j < b; j += THREADS - WARP) {
+      dw_s[j] = dw[(size_t)s * b + j];
+      bad = bad || (unsigned)idx[(size_t)s * b + j] >= (unsigned)d;
+    }
+  }
+  bad = __syncthreads_or(bad);              // also publishes the barriers
+
+  const int tile = warp % tpb;
+  const int groups = WARPS / tpb;
   float4 dv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  bool ok = true;
-#pragma unroll 4
-  for (int j = 0; j < b; ++j) {
-    const int row = ids[j];
-    const bool in_range = (unsigned)row < (unsigned)d;
-    ok = ok && in_range;
-    const float4 xv = load4(xs + (size_t)(in_range ? row : 0) * n_pad);
-    const float w = dws[j];
-    dv.x += xv.x * w;
-    dv.y += xv.y * w;
-    dv.z += xv.z * w;
-    dv.w += xv.w * w;
-  }
-  if (!ok) {
-    const float nan = nan_f32();
-    dv = make_float4(nan, nan, nan, nan);
-  }
+  R.walk(warp / tpb, groups, tile, tile < tiles_here,
+         [&](int j, float4 xv) {
+           const float w = dw_s[j];
+           dv.x += xv.x * w;
+           dv.y += xv.y * w;
+           dv.z += xv.z * w;
+           dv.w += xv.w * w;
+         });
+  red[t] = dv;
+  __syncthreads();
 
-  const size_t pt = (size_t)s * n_pad + (size_t)tile * LANE + lane * 4;
-  const float c = mwu_c[s];
-  const float dot = mwu_dot[s];
-  const float4 sg = load4(sign + pt);
-  const float4 uu = load4(u + pt);
-  const float4 lg = load4(log_lam + pt);
-  float4 ln, un;
-  ln.x = c * (dot * lg.x - sg.x * (uu.x + d_eff * dv.x));
-  ln.y = c * (dot * lg.y - sg.y * (uu.y + d_eff * dv.y));
-  ln.z = c * (dot * lg.z - sg.z * (uu.z + d_eff * dv.z));
-  ln.w = c * (dot * lg.w - sg.w * (uu.w + d_eff * dv.w));
-  un.x = uu.x + dv.x;
-  un.y = uu.y + dv.y;
-  un.z = uu.z + dv.z;
-  un.w = uu.w + dv.w;
-  store4(log_new + pt, ln);
-  store4(u_new + pt, un);
+  if (writer) {
+    // row groups in order: warp g * tpb + w holds group g of tile w
+    dv = red[warp * WARP + lane];
+    for (int g = 1; g < groups; ++g)
+      dv = add4(dv, red[(g * tpb + warp) * WARP + lane]);
+    if (bad) {
+      const float nan = nan_f32();
+      dv = make_float4(nan, nan, nan, nan);
+    }
+    const float c = mwu_c[s];
+    const float dot = mwu_dot[s];
+    float4 ln, un;
+    ln.x = c * (dot * lg.x - sg.x * (uu.x + d_eff * dv.x));
+    ln.y = c * (dot * lg.y - sg.y * (uu.y + d_eff * dv.y));
+    ln.z = c * (dot * lg.z - sg.z * (uu.z + d_eff * dv.z));
+    ln.w = c * (dot * lg.w - sg.w * (uu.w + d_eff * dv.w));
+    un.x = uu.x + dv.x;
+    un.y = uu.y + dv.y;
+    un.z = uu.z + dv.z;
+    un.w = uu.w + dv.w;
+    store4(log_new + pt, ln);
+    store4(u_new + pt, un);
 
+    float mp = NEG, mm = NEG;
+    class_partials(ln.x, sg.x, mp, mm);
+    class_partials(ln.y, sg.y, mp, mm);
+    class_partials(ln.z, sg.z, mp, mm);
+    class_partials(ln.w, sg.w, mp, mm);
+    mp = warp_max(mp);
+    mm = warp_max(mm);
+    float sp = 0.0f, sm = 0.0f;
+    class_sums(ln.x, sg.x, mp, mm, sp, sm);
+    class_sums(ln.y, sg.y, mp, mm, sp, sm);
+    class_sums(ln.z, sg.z, mp, mm, sp, sm);
+    class_sums(ln.w, sg.w, mp, mm, sp, sm);
+    sp = warp_sum(sp);
+    sm = warp_sum(sm);
+    if (lane == 0)
+      store4(parts + ((size_t)s * tiles + tile0 + warp) * 4,
+             make_float4(mp, sp, mm, sm));
+  }
+  if (!last_block(counters + s, &is_last) || warp != 0) return;
+
+  // the slot's tiles, lane l taking tiles l, l + 32, ... and a shuffle
+  // tree: first each class's max m over the tiles, then the sum of the
+  // tiles' s exp(m_tile - m) (as the plain merge_class_partials)
+  const float4* ps = reinterpret_cast<const float4*>(parts) +
+                     (size_t)s * tiles;
   float mp = NEG, mm = NEG;
-  class_partials(ln.x, sg.x, mp, mm);
-  class_partials(ln.y, sg.y, mp, mm);
-  class_partials(ln.z, sg.z, mp, mm);
-  class_partials(ln.w, sg.w, mp, mm);
+  for (int p = lane; p < tiles; p += WARP) {
+    const float4 q = __ldcg(ps + p);
+    mp = fmaxf(mp, q.x);
+    mm = fmaxf(mm, q.z);
+  }
   mp = warp_max(mp);
   mm = warp_max(mm);
   float sp = 0.0f, sm = 0.0f;
-  class_sums(ln.x, sg.x, mp, mm, sp, sm);
-  class_sums(ln.y, sg.y, mp, mm, sp, sm);
-  class_sums(ln.z, sg.z, mp, mm, sp, sm);
-  class_sums(ln.w, sg.w, mp, mm, sp, sm);
+  for (int p = lane; p < tiles; p += WARP) {
+    const float4 q = __ldcg(ps + p);
+    sp += q.y * expf(q.x - mp);
+    sm += q.w * expf(q.z - mm);
+  }
   sp = warp_sum(sp);
   sm = warp_sum(sm);
   if (lane == 0) {
-    float* out = parts + ((size_t)s * tiles + tile) * 4;
-    out[0] = mp;
-    out[1] = sp;
-    out[2] = mm;
-    out[3] = sm;
+    const int slots = gridDim.y;
+    ms[2 * s] = mp;
+    ms[2 * s + 1] = mm;
+    ms[2 * (slots + s)] = sp;
+    ms[2 * (slots + s) + 1] = sm;
+    counters[s] = 0;
   }
 }
 
 constexpr int TILE = 1024;          // most points per unpacked-kernel block
-constexpr int THREADS = 256;        // threads per unpacked-kernel block
-constexpr int WARPS = THREADS / WARP;
 
 __device__ __forceinline__ float neg_inf_f32() {
   return __int_as_float(0xff800000);
@@ -391,28 +743,82 @@ __global__ void mwu_update_kernel(
   }
 }
 
+constexpr int MAX_DEVICES = 64;
+
+// Dynamic shared memory of a packed block: its row ring (one stage per
+// 32 / T rows, at most MAX_STAGES) and the b row indices or dw after it.
+int ring_stages(int b, int tpb) {
+  const int rows = STAGE_FLOATS / (tpb * LANE);
+  const int stages = (b + rows - 1) / rows;
+  return stages < MAX_STAGES ? stages : MAX_STAGES;
+}
+
+size_t packed_smem(int b, int nbuf) {
+  return (size_t)nbuf * STAGE_FLOATS * sizeof(float) +
+         ((size_t)b * sizeof(float) + 15) / 16 * 16;
+}
+
+// Dynamic shared memory above 48 KB must be allowed per kernel and
+// device; ``allowed`` keeps what each device allows so far.
+int allow_smem(const void* kernel, size_t* allowed, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < MAX_DEVICES && allowed[dev] >= smem) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess && dev < MAX_DEVICES) allowed[dev] = smem;
+  return (int)err;
+}
+
+bool valid_tpb(int tpb) {
+  return tpb == 1 || tpb == 2 || tpb == 4 || tpb == 8;
+}
+
 }  // namespace
 
+// delta (S, b); parts (S, n_pad / 128, b rounded up to 4) scratch,
+// counters (S,) zero; tpb tiles per block (1, 2, 4 or 8).
 extern "C" int momentum_dot_packed_f32(
     const float* x_t, const int* idx, const float* log_lam,
     const float* log_prev, const float* sign, const float* theta,
-    float* parts, int num_slots, int d, int n_pad, int b, void* stream) {
-  const dim3 grid(n_pad / LANE, (b + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
-                  num_slots);
-  momentum_dot_packed_kernel<<<grid, WARP, 0, (cudaStream_t)stream>>>(
-      x_t, idx, log_lam, log_prev, sign, theta, parts, d, n_pad, b);
+    float* out, float* parts, int* counters, int num_slots, int d,
+    int n_pad, int b, int tpb, void* stream) {
+  static size_t allowed[MAX_DEVICES];
+  if (!valid_tpb(tpb)) return (int)cudaErrorInvalidValue;
+  const int nbuf = ring_stages(b, tpb);
+  const size_t smem = packed_smem(b, nbuf);
+  const int err = allow_smem((const void*)momentum_dot_packed_kernel,
+                             allowed, smem);
+  if (err) return err;
+  const dim3 grid((n_pad / LANE + tpb - 1) / tpb, num_slots);
+  momentum_dot_packed_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      x_t, idx, log_lam, log_prev, sign, theta, out, parts, counters, d,
+      n_pad, b, tpb, nbuf);
   return (int)cudaGetLastError();
 }
 
+// log_new, u_new (S, n_pad); ms (2, S, 2) = (m, s); parts
+// (S, n_pad / 128, 4) scratch, counters (S,) zero; tpb as above.
 extern "C" int mwu_update_packed_f32(
     const float* x_t, const int* idx, const float* dw, const float* log_lam,
     const float* u, const float* sign, const float* mwu_c,
     const float* mwu_dot, float d_eff, float* log_new, float* u_new,
-    float* parts, int num_slots, int d, int n_pad, int b, void* stream) {
-  const dim3 grid(n_pad / LANE, num_slots);
-  mwu_update_packed_kernel<<<grid, WARP, 0, (cudaStream_t)stream>>>(
+    float* ms, float* parts, int* counters, int num_slots, int d,
+    int n_pad, int b, int tpb, void* stream) {
+  static size_t allowed[MAX_DEVICES];
+  if (!valid_tpb(tpb)) return (int)cudaErrorInvalidValue;
+  const int nbuf = ring_stages(b, tpb);
+  const size_t smem = packed_smem(b, nbuf);
+  const int err = allow_smem((const void*)mwu_update_packed_kernel,
+                             allowed, smem);
+  if (err) return err;
+  const dim3 grid((n_pad / LANE + tpb - 1) / tpb, num_slots);
+  mwu_update_packed_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       x_t, idx, dw, log_lam, u, sign, mwu_c, mwu_dot, d_eff, log_new, u_new,
-      parts, d, n_pad, b);
+      ms, parts, counters, d, n_pad, b, tpb, nbuf);
   return (int)cudaGetLastError();
 }
 

@@ -110,18 +110,42 @@ def mwu_update_packed_ref(x_t: torch.Tensor, idx: torch.Tensor,
     the incremental u).  ``mwu_c`` = 1 / (gamma + d_eff / tau) and
     ``mwu_dot`` = d_eff / tau are the per-slot (S,) step scalars.
 
-    Returns (log_new UNNORMALIZED, u_new, m_p, s_p, m_m, s_m), each
-    scalar (S,): the per-class logsumexp is m + log(s), masked by the
-    sign vector (padding, sign 0, belongs to neither class)."""
+    Returns (log_new UNNORMALIZED, u_new, m, s), m and s (S, 2) with
+    column 0 the class of sign +1 and column 1 that of sign -1: the
+    per-class logsumexp is m + log(s), masked by the sign vector (padding,
+    sign 0, belongs to neither class)."""
     dv = torch.bmm(dw[:, None, :], _gather_rows(x_t, idx))[:, 0, :]
     v = sign * (u + d_eff * dv)
     log_new = mwu_c[:, None] * (mwu_dot[:, None] * log_lam - v)
-    is_p = sign > 0
-    is_m = sign < 0
-    neg = torch.tensor(NEG, dtype=log_new.dtype, device=log_new.device)
-    m_p = torch.where(is_p, log_new, neg).amax(dim=-1)
-    m_m = torch.where(is_m, log_new, neg).amax(dim=-1)
-    zero = torch.zeros((), dtype=log_new.dtype, device=log_new.device)
-    s_p = torch.where(is_p, torch.exp(log_new - m_p[:, None]), zero).sum(-1)
-    s_m = torch.where(is_m, torch.exp(log_new - m_m[:, None]), zero).sum(-1)
-    return log_new, u + dv, m_p, s_p, m_m, s_m
+    masks = torch.stack([sign > 0, sign < 0], dim=1)        # (S, 2, n_pad)
+    masked = torch.where(masks, log_new[:, None, :], NEG)
+    m = masked.amax(dim=-1)
+    s = torch.where(masks, torch.exp(masked - m[..., None]), 0.0).sum(-1)
+    return log_new, u + dv, m, s
+
+
+def class_partials(log_new: torch.Tensor, sign: torch.Tensor,
+                   lane: int = 128) -> torch.Tensor:
+    """Per-tile (m_p, s_p, m_m, s_m) (S, tiles, 4) of packed log weights
+    (S, n_pad): each ``lane``-point tile's per-class max and sum of
+    exp(log_new - max), masked by sign; a tile without a point of a class
+    gives (NEG, 0) for it.  These are the partials the packed MWU kernel
+    writes before its last block merges them."""
+    rows, n_pad = log_new.shape
+    ln = log_new.reshape(rows, n_pad // lane, 1, lane)
+    sg = sign.reshape(rows, n_pad // lane, 1, lane)
+    masks = torch.cat([sg > 0, sg < 0], dim=2)          # (S, tiles, 2, lane)
+    masked = torch.where(masks, ln, NEG)
+    m = masked.amax(dim=-1)
+    s = torch.where(masks, torch.exp(masked - m[..., None]), 0.0).sum(-1)
+    return torch.stack([m, s], dim=-1).reshape(rows, n_pad // lane, 4)
+
+
+def merge_class_partials(parts: torch.Tensor):
+    """Merge per-tile (m_p, s_p, m_m, s_m) partials (S, tiles, 4), in
+    tile order, into the per-class (m, s) of the whole point axis, each
+    (S, 2) as :func:`mwu_update_packed_ref` returns them: m the max of
+    the tiles' m, s the sum of their s exp(m_tile - m)."""
+    m_t, s_t = parts[..., 0::2], parts[..., 1::2]         # (S, tiles, 2)
+    m = m_t.amax(dim=1)
+    return m, (s_t * torch.exp(m_t - m[:, None, :])).sum(dim=1)

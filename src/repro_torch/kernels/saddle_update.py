@@ -4,15 +4,20 @@ The unpacked per-class kernels (:func:`momentum_dot`, :func:`mwu_update`,
 the reference step's four launches) take ``cols`` (n, B), the step's B
 sampled coordinates of n points, and point vectors (n,), or the same with
 a leading client axis K: cols (K, n, B), vectors (K, n), ``dw`` (K, B).
-Any n is taken; the step scalars are python floats.
+Any n is taken; the step scalars are python floats.  Their kernels write
+per-tile partials, which the wrappers combine here in a fixed order, as
+the JAX wrappers do outside their ``pallas_call``.
 
 The packed kernels take a leading slot axis S: ``x_t`` (S, d, n_pad),
 ``idx`` (S, b) int32, point vectors (S, n_pad) and per-slot scalars (S,),
-all float32 except ``idx``.  On CUDA tensors a wrapper launches its
-kernel or raises; on CPU tensors it runs the plain version in
-:mod:`repro_torch.kernels.ref`.  The kernels write per-tile partials,
-which the wrappers combine here in a fixed order, as the JAX wrappers do
-outside their ``pallas_call``.
+all float32 except ``idx``.  Each call is one kernel launch whose outputs
+are final: the kernels merge their per-tile partials themselves, the last
+block of a slot taking a ticket from the slot's counter.  The counters and
+the partials' scratch are a workspace per device that the packed wrappers
+share, so the packed kernels assume one stream at a time.
+
+On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
+runs the plain version in :mod:`repro_torch.kernels.ref`.
 
 ``idx`` must hold distinct coordinates in [0, d) (the solver's sampler
 and ``saddle.solve``'s injected schedules are validated where they are
@@ -25,26 +30,30 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import launch_counts
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, launch_counts, ref
 
 LANE = 128   # points per kernel tile; packed lengths are multiples of it
 TILE = 1024  # most points per block of the unpacked kernels (Pallas's tile)
-THREADS = 256  # threads per block of the unpacked kernels
+THREADS = 256  # threads per block of every kernel in the source
+MAX_PACKED_ROWS = 32_768  # b of a packed kernel: its b floats of shared
+                          # memory beside a 64 KB ring stay within 227 KB
 
 
 def _check_f32(name: str, t: torch.Tensor, shape: tuple,
-               device: torch.device, vector_loads: bool = False) -> None:
+               device: torch.device, aligned: bool = False) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+    ``device``, and with ``aligned`` 16-byte aligned (the CUDA kernels
+    read it in float4s)."""
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
+    if t.shape != shape:
         raise ValueError(f"{name} must have shape {shape}, got "
                          f"{tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x_t on {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if vector_loads and device.type == "cuda" and t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
 
 
@@ -71,19 +80,64 @@ def check_packed(x_t: torch.Tensor, idx: torch.Tensor,
     b = idx.shape[1]
     if b > d:
         raise ValueError(f"b={b} sampled rows exceed d={d}")
-    _check_f32("x_t", x_t, (s, d, n_pad), x_t.device, vector_loads=True)
+    dev = x_t.device
+    kind = dev.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"packed kernels run on cuda or cpu, not {dev}")
+    cuda = kind == "cuda"
+    if cuda and b > MAX_PACKED_ROWS:
+        raise ValueError(f"the packed CUDA kernels take at most "
+                         f"{MAX_PACKED_ROWS} sampled rows, got b={b}")
+    _check_f32("x_t", x_t, (s, d, n_pad), dev, aligned=cuda)
     for name, t in vectors.items():
-        _check_f32(name, t, (s, n_pad), x_t.device, vector_loads=True)
+        _check_f32(name, t, (s, n_pad), dev, aligned=cuda)
     for name, t in (rows or {}).items():
-        _check_f32(name, t, (s, b), x_t.device)
+        _check_f32(name, t, (s, b), dev)
     for name, t in scalars.items():
-        _check_f32(name, t, (s,), x_t.device)
-    if x_t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"packed kernels run on cuda or cpu, not "
-                         f"{x_t.device}")
-    if x_t.device.type == "cpu" and (idx.min() < 0 or idx.max() >= d):
+        _check_f32(name, t, (s,), dev)
+    if not cuda and (idx.min() < 0 or idx.max() >= d):
         raise IndexError(f"idx entries must lie in [0, {d})")
     return s, d, n_pad, b
+
+
+def packed_tiles_per_block(b: int) -> int:
+    """128-point tiles per block of a packed kernel for b sampled rows: a
+    block's 8 warps cover T tiles in 8 / T row groups (never more groups
+    than rows), so b = 1 spreads a block over 8 tiles and b >= 8 puts all
+    8 warps on one tile."""
+    return 1 if b >= 8 else 2 if b >= 4 else 4 if b >= 2 else 8
+
+
+# device index -> (counters (S,) int32, zero between launches; scratch)
+_workspace: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def workspace(device: torch.device, slots: int, floats: int):
+    """The packed kernels' (counters, scratch) on a CUDA ``device``: at
+    least ``slots`` per-slot ticket counters and ``floats`` floats of
+    per-tile partials.  Zeroed once and grown when needed; the kernels
+    leave every counter at 0, so calls on one stream can share them."""
+    ws = _workspace.get(device.index)
+    if ws is None or ws[0].numel() < slots or ws[1].numel() < floats:
+        if ws is not None:
+            slots = max(slots, ws[0].numel())
+            floats = max(floats, ws[1].numel())
+        ws = (torch.zeros(slots, dtype=torch.int32, device=device),
+              torch.empty(floats, dtype=torch.float32, device=device))
+        _workspace[device.index] = ws
+    return ws
+
+
+def _launch(name: str, fn, device: torch.device, *args) -> None:
+    """Call a kernel's C launcher on ``device``'s current stream (making
+    ``device`` current only when it is not), raise on a launch error and
+    count the launch."""
+    if torch.cuda.current_device() != device.index:
+        with torch.cuda.device(device):
+            return _launch(name, fn, device, *args)
+    build.check(fn(*args, torch.cuda.current_stream(device).cuda_stream),
+                name)
+    launch_counts[name] += 1
 
 
 def momentum_dot_packed(x_t: torch.Tensor, idx: torch.Tensor,
@@ -99,28 +153,16 @@ def momentum_dot_packed(x_t: torch.Tensor, idx: torch.Tensor,
     if x_t.device.type == "cpu":
         return ref.momentum_dot_packed_ref(x_t, idx, log_lam, log_prev,
                                            sign, theta)
-    from repro_torch.kernels import build
-    lib = build.library("saddle_update")
-    parts = torch.empty((s, n_pad // LANE, b), dtype=torch.float32,
-                        device=x_t.device)
-    with torch.cuda.device(x_t.device):
-        stream = torch.cuda.current_stream(x_t.device).cuda_stream
-        build.check(lib.momentum_dot_packed_f32(
-            x_t.data_ptr(), idx.data_ptr(), log_lam.data_ptr(),
+    out = torch.empty((s, b), dtype=torch.float32, device=x_t.device)
+    counters, parts = workspace(x_t.device, s,
+                                s * (n_pad // LANE) * (-(-b // 4) * 4))
+    _launch("momentum_dot_packed",
+            build.library("saddle_update").momentum_dot_packed_f32,
+            x_t.device, x_t.data_ptr(), idx.data_ptr(), log_lam.data_ptr(),
             log_prev.data_ptr(), sign.data_ptr(), theta.data_ptr(),
-            parts.data_ptr(), s, d, n_pad, b, stream), "momentum_dot_packed")
-    launch_counts["momentum_dot_packed"] += 1
-    return parts.sum(dim=1)
-
-
-def combine_class_partials(parts: torch.Tensor):
-    """Merge per-tile (m_p, s_p, m_m, s_m) partials (S, tiles, 4) into the
-    per-class (m, s) of the whole point axis, with lse = m + log(s)."""
-    m_p = parts[..., 0].amax(dim=1)
-    s_p = (parts[..., 1] * torch.exp(parts[..., 0] - m_p[:, None])).sum(1)
-    m_m = parts[..., 2].amax(dim=1)
-    s_m = (parts[..., 3] * torch.exp(parts[..., 2] - m_m[:, None])).sum(1)
-    return m_p, s_p, m_m, s_m
+            out.data_ptr(), parts.data_ptr(), counters.data_ptr(), s, d,
+            n_pad, b, packed_tiles_per_block(b))
+    return out
 
 
 def mwu_update_packed(x_t: torch.Tensor, idx: torch.Tensor,
@@ -130,30 +172,27 @@ def mwu_update_packed(x_t: torch.Tensor, idx: torch.Tensor,
                       d_eff: float):
     """Packed dual update (lines 5-6 of Algorithm 2 and the incremental
     u) for both classes in one sweep.  Returns (log_new UNNORMALIZED,
-    u_new, m_p, s_p, m_m, s_m), the scalars (S,) with per-class
-    lse = m + log(s)."""
+    u_new, m, s) with m and s (S, 2), column 0 the class of sign +1 and
+    column 1 that of sign -1: per-class lse = m + log(s)."""
     s, d, n_pad, b = check_packed(
         x_t, idx, dict(log_lam=log_lam, u=u, sign=sign),
         dict(mwu_c=mwu_c, mwu_dot=mwu_dot), rows=dict(dw=dw))
     if x_t.device.type == "cpu":
         return ref.mwu_update_packed_ref(x_t, idx, log_lam, u, dw, sign,
                                          mwu_c, mwu_dot, d_eff)
-    from repro_torch.kernels import build
-    lib = build.library("saddle_update")
     log_new = torch.empty_like(log_lam)
     u_new = torch.empty_like(u)
-    parts = torch.empty((s, n_pad // LANE, 4), dtype=torch.float32,
-                        device=x_t.device)
-    with torch.cuda.device(x_t.device):
-        stream = torch.cuda.current_stream(x_t.device).cuda_stream
-        build.check(lib.mwu_update_packed_f32(
-            x_t.data_ptr(), idx.data_ptr(), dw.data_ptr(),
+    ms = torch.empty((2, s, 2), dtype=torch.float32, device=x_t.device)
+    counters, parts = workspace(x_t.device, s, s * (n_pad // LANE) * 4)
+    _launch("mwu_update_packed",
+            build.library("saddle_update").mwu_update_packed_f32,
+            x_t.device, x_t.data_ptr(), idx.data_ptr(), dw.data_ptr(),
             log_lam.data_ptr(), u.data_ptr(), sign.data_ptr(),
             mwu_c.data_ptr(), mwu_dot.data_ptr(), float(d_eff),
-            log_new.data_ptr(), u_new.data_ptr(), parts.data_ptr(),
-            s, d, n_pad, b, stream), "mwu_update_packed")
-    launch_counts["mwu_update_packed"] += 1
-    return (log_new, u_new) + combine_class_partials(parts)
+            log_new.data_ptr(), u_new.data_ptr(), ms.data_ptr(),
+            parts.data_ptr(), counters.data_ptr(), s, d, n_pad, b,
+            packed_tiles_per_block(b))
+    return log_new, u_new, ms[0], ms[1]
 
 
 def unpacked_tile(kernel: str, b: int) -> int:
@@ -200,19 +239,14 @@ def momentum_dot(cols: torch.Tensor, log_lam: torch.Tensor,
                                            log_prev=log_prev))
     if cols.device.type == "cpu":
         return ref.momentum_dot_ref(cols, log_lam, log_prev, float(theta))
-    from repro_torch.kernels import build
-    lib = build.library("saddle_update")
     k = lead[0] if lead else 1
     tile = unpacked_tile("momentum_dot", b)
     parts = torch.empty((k, -(-n // tile), b), dtype=torch.float32,
                         device=cols.device)
-    with torch.cuda.device(cols.device):
-        stream = torch.cuda.current_stream(cols.device).cuda_stream
-        build.check(lib.momentum_dot_f32(
-            cols.data_ptr(), log_lam.data_ptr(), log_prev.data_ptr(),
-            float(theta), parts.data_ptr(), k, n, b, tile, stream),
-            "momentum_dot")
-    launch_counts["momentum_dot"] += 1
+    _launch("momentum_dot", build.library("saddle_update").momentum_dot_f32,
+            cols.device, cols.data_ptr(), log_lam.data_ptr(),
+            log_prev.data_ptr(), float(theta), parts.data_ptr(), k, n, b,
+            tile)
     out = parts.sum(dim=1)
     return out if lead else out[0]
 
@@ -230,8 +264,6 @@ def mwu_update(cols: torch.Tensor, log_lam: torch.Tensor, u: torch.Tensor,
     if cols.device.type == "cpu":
         return ref.mwu_update_ref(cols, log_lam, u, dw, *scalars,
                                   normalize=normalize)
-    from repro_torch.kernels import build
-    lib = build.library("saddle_update")
     k = lead[0] if lead else 1
     tile = unpacked_tile("mwu_update", b)
     tiles = -(-n // tile)
@@ -239,14 +271,10 @@ def mwu_update(cols: torch.Tensor, log_lam: torch.Tensor, u: torch.Tensor,
     u_new = torch.empty_like(u)
     pmax = torch.empty((k, tiles), dtype=torch.float32, device=cols.device)
     psum = torch.empty_like(pmax)
-    with torch.cuda.device(cols.device):
-        stream = torch.cuda.current_stream(cols.device).cuda_stream
-        build.check(lib.mwu_update_f32(
-            cols.data_ptr(), log_lam.data_ptr(), u.data_ptr(),
+    _launch("mwu_update", build.library("saddle_update").mwu_update_f32,
+            cols.device, cols.data_ptr(), log_lam.data_ptr(), u.data_ptr(),
             dw.data_ptr(), *scalars, log_new.data_ptr(), u_new.data_ptr(),
-            pmax.data_ptr(), psum.data_ptr(), k, n, b, tile, stream),
-            "mwu_update")
-    launch_counts["mwu_update"] += 1
+            pmax.data_ptr(), psum.data_ptr(), k, n, b, tile)
     # merge the per-tile (max, sum-exp) partials in a fixed order
     m = pmax.amax(dim=1)
     s = (psum * torch.exp(pmax - m[:, None])).sum(dim=1)

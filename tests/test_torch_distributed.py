@@ -6,6 +6,8 @@ points, d = 16).  The port replays JAX's coordinate blocks as a schedule:
 ``engine.drive`` splits one key per chunk and the chunk key into one key
 per step, each drawn by ``engine.sample_block``."""
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -208,6 +210,57 @@ def test_packed_matches_reference_distributed(problem, nu_frac):
                                    atol=1e-5)
     np.testing.assert_allclose(res.state.u_p.numpy(), ref.u_p.numpy(),
                                atol=1e-5)
+
+
+def test_dual_update_packed_clients_match_jax():
+    """engine._dual_update_packed takes the packed MWU's (m, s) as (S, 2)
+    and combines them across k = 3 clients with the client hooks (one
+    (2,) max, one (2,) sum): against the JAX package's
+    _dual_update_packed (its Pallas kernel in interpret mode) under vmap
+    over the client axis.  Client 1 holds no point of class -, client 2
+    none of class +: their (NEG, 0) must drop out of the merge."""
+    rng = np.random.default_rng(5)
+    k, n_pad, d, b = 3, 256, 16, 4
+    sign = np.zeros((k, n_pad), np.float32)
+    for c, (n1, n2) in enumerate([(40, 50), (128, 0), (0, 90)]):
+        sign[c, :n1], sign[c, n1:n1 + n2] = 1.0, -1.0
+    x_t = (rng.normal(size=(k, d, n_pad)) * (sign != 0)[:, None, :]).astype(
+        np.float32)
+    ll = np.where(sign != 0, rng.normal(size=(k, n_pad)) * 0.1 - 5.0,
+                  engine.NEG_INF).astype(np.float32)
+    u = (rng.normal(size=(k, n_pad)) * 0.1).astype(np.float32)
+    idx = rng.choice(d, b, replace=False).astype(np.int32)
+    dw = (rng.normal(size=b) * 0.01).astype(np.float32)
+    params = jsaddle.make_params(300, d, 1e-3, 0.1, block_size=b)
+    jsc = jengine.scalarize_params(params)
+
+    def client(xt, lg, uu, sg):
+        return jengine._dual_update_packed(
+            xt, jnp.asarray(idx), xt[idx], lg, uu, jnp.asarray(dw), sg, jsc,
+            d / b, jengine.CLIENT_AXIS, "pallas")
+
+    want = jax.vmap(client, axis_name=jengine.CLIENT_AXIS)(
+        x_t, ll, u, sign)
+    sc = engine.stack_slot_params(
+        [engine.slot_params_row(saddle.SaddleParams(*params))] * k, CPU)
+    before = dict(engine.collective_counts)
+    got = engine._dual_update_packed(
+        torch.from_numpy(x_t), torch.from_numpy(np.tile(idx, (k, 1))),
+        torch.from_numpy(ll), torch.from_numpy(u),
+        torch.from_numpy(np.tile(dw, (k, 1))), torch.from_numpy(sign), sc,
+        d / b, *engine.client_hooks(True))
+    real = sign != 0
+    np.testing.assert_allclose(got[0].numpy()[real],
+                               np.asarray(want[0])[real], atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               atol=1e-6)
+    # the weights of each class sum to 1 over all clients
+    for cls in (1.0, -1.0):
+        mass = np.exp(got[0].numpy().astype(np.float64))[sign == cls].sum()
+        np.testing.assert_allclose(mass, 1.0, atol=1e-5)
+    tally = collections.Counter(engine.collective_counts)
+    tally.subtract(before)
+    assert +tally == {("all-reduce", "max", 2): 1, ("all-reduce", "add", 2): 1}
 
 
 def test_dsvc_step_matches_jax(problem):

@@ -104,28 +104,67 @@ def test_mwu_update_packed_matches_jax(n_pad, n1, n2, d, b):
     got = ops.mwu_update_packed(
         _t(x_t), _t(idx), _t(ll), _t(u), _t(dw), _t(sign),
         torch.tensor([mwu_c]), torch.tensor([mwu_dot]), d_eff)
-    got = [g[0].numpy() for g in got]
+    assert got[2].shape == got[3].shape == (1, 2)
+    _assert_mwu_packed_like_jax([g[0].numpy() for g in got], x_t, idx, ll,
+                                u, dw, sign, gamma, tau, d_eff, n1 + n2)
+
+
+def _assert_mwu_packed_like_jax(got, x_t, idx, ll, u, dw, sign, gamma, tau,
+                                d_eff, n):
+    """One slot of the port's packed MWU, (log_new, u_new, m (2,), s (2,)),
+    against the JAX package's Pallas kernel (interpret mode) and its jnp
+    oracle, which return (log_new, u_new, m_p, s_p, m_m, s_m); n real
+    points."""
     args = [jnp.asarray(a) for a in (x_t, idx, ll, u, dw, sign)]
+    lse = got[2] + np.log(got[3])
     for want in (jops.mwu_update_packed(*args, gamma=gamma, tau=tau,
                                         d_eff=d_eff),
                  jref.mwu_update_packed_ref(*args, gamma, tau, d_eff)):
         want = [np.asarray(w) for w in want]
-        n = n1 + n2
         np.testing.assert_allclose(got[0][:n], want[0][:n], atol=1e-4)
         np.testing.assert_allclose(got[1], want[1], atol=1e-5)
         assert (got[0][n:] < -1e20).all()
-        for (m_g, s_g), (m_w, s_w) in [((got[2], got[3]), (want[2], want[3])),
-                                       ((got[4], got[5]), (want[4], want[5]))]:
-            np.testing.assert_allclose(float(m_g) + np.log(float(s_g)),
-                                       float(m_w) + np.log(float(s_w)),
-                                       atol=1e-4)
+        np.testing.assert_allclose(
+            lse, [float(want[2]) + np.log(float(want[3])),
+                  float(want[4]) + np.log(float(want[5]))], atol=1e-4)
+
+
+def test_mwu_update_packed_slots_match_jax():
+    """S = 3 slots of different layouts in one call, each held against
+    the JAX kernel on its own: slot 0 ends in an all-padding tile, slot 1
+    has single-class tiles only (class + fills tiles 0-1, class - tiles
+    2-3), slot 2 has a class of one point.  The (m, s) equal the plain
+    merge, in tile order, of the per-tile partials of log_new."""
+    rng = np.random.default_rng(21)
+    n_pad, d, b = 512, 32, 8
+    layouts = [(150, 200), (256, 256), (1, 300)]
+    probs = [_packed_problem(rng, n_pad, n1, n2, d, b) for n1, n2 in layouts]
+    x_t, sign, ll, idx = (torch.from_numpy(np.stack([p[i] for p in probs]))
+                          for i in range(4))
+    u = (rng.normal(size=(3, n_pad)) * 0.1).astype(np.float32)
+    dw = (rng.normal(size=(3, b)) * 0.01).astype(np.float32)
+    gamma, tau, d_eff = 1e-3, 40.0, float(d)
+    got = ops.mwu_update_packed(
+        x_t, idx, ll, torch.from_numpy(u), torch.from_numpy(dw), sign,
+        torch.full((3,), 1.0 / (gamma + d_eff / tau)),
+        torch.full((3,), d_eff / tau), d_eff)
+    assert got[2].shape == got[3].shape == (3, 2)
+    m, s = ref.merge_class_partials(ref.class_partials(got[0], sign))
+    np.testing.assert_allclose((m + torch.log(s)).numpy(),
+                               (got[2] + torch.log(got[3])).numpy(),
+                               atol=1e-5)
+    for k, (n1, n2) in enumerate(layouts):
+        _assert_mwu_packed_like_jax(
+            [g[k].numpy() for g in got], x_t[k].numpy(), idx[k].numpy(),
+            ll[k].numpy(), u[k], dw[k], sign[k].numpy(), gamma, tau, d_eff,
+            n1 + n2)
 
 
 def test_class_partials_combine_like_jax():
-    """The CUDA wrapper's fixed-order merge of per-tile (m, s) partials,
-    run on the CPU: padding-only and single-class tiles give (NEG, 0) and
-    must not disturb the merged logsumexp."""
-    from repro_torch.kernels.saddle_update import combine_class_partials
+    """The kernels' fixed-order merge of per-tile (m, s) partials, as its
+    plain version ``ref.merge_class_partials``: padding-only and
+    single-class tiles give (NEG, 0) and must not disturb the merged
+    logsumexp; ``ref.class_partials`` gives the same partials."""
     rng = np.random.default_rng(3)
     log_new = rng.normal(size=512).astype(np.float32)
     sign = np.zeros(512, np.float32)
@@ -140,12 +179,17 @@ def test_class_partials_combine_like_jax():
             s = np.exp(ln[sg == cls] - m).sum() if (sg == cls).any() else 0.0
             row += [m, s]
         parts.append(row)
-    m_p, s_p, m_m, s_m = combine_class_partials(
-        torch.tensor([parts], dtype=torch.float32))
-    for m, s, cls in ((m_p, s_p, 1.0), (m_m, s_m, -1.0)):
+    parts = torch.tensor([parts], dtype=torch.float32)
+    np.testing.assert_allclose(
+        ref.class_partials(torch.from_numpy(log_new)[None],
+                           torch.from_numpy(sign)[None]).numpy(),
+        parts.numpy(), rtol=1e-6)
+    m, s = ref.merge_class_partials(parts)
+    assert m.shape == s.shape == (1, 2)
+    for c, cls in enumerate((1.0, -1.0)):
         want = np.log(np.exp(log_new[sign == cls].astype(np.float64)).sum())
-        np.testing.assert_allclose(float(m[0] + torch.log(s[0])), want,
-                                   atol=1e-5)
+        np.testing.assert_allclose(float(m[0, c] + torch.log(s[0, c])),
+                                   want, atol=1e-5)
 
 
 def _good_packed(n_pad=256, d=16, b=4):
@@ -186,6 +230,37 @@ def test_packed_wrappers_reject_bad_inputs(bad):
         b = idx.shape[1]
         ops.mwu_update_packed(x_t, idx, log_lam, log_prev, torch.zeros((1, b)),
                               sign, theta, theta, 4.0)
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 7, 8, 128, 512])
+def test_packed_block_geometry(b):
+    """A packed block's 8 warps cover T tiles in 8 / T row groups: never
+    more row groups than rows, and all 8 warps on one tile from b = 8."""
+    from repro_torch.kernels.saddle_update import packed_tiles_per_block
+    tiles = packed_tiles_per_block(b)
+    assert tiles in (1, 2, 4, 8)
+    assert 8 // tiles <= b
+    assert (tiles == 1) == (b >= 8)
+
+
+def test_packed_workspace_grows_and_keeps_counters_zero():
+    """The packed kernels' per-device workspace: zeroed counters, grown
+    (never shrunk) when a call needs more slots or scratch."""
+    from repro_torch.kernels import saddle_update as su
+    dev = torch.device("cpu")
+    su._workspace.pop(dev.index, None)
+    try:
+        counters, scratch = su.workspace(dev, 3, 10)
+        assert counters.dtype == torch.int32 and not counters.any()
+        assert counters.numel() == 3 and scratch.numel() == 10
+        assert su.workspace(dev, 2, 8)[0] is counters      # big enough
+        counters, scratch = su.workspace(dev, 2, 20)
+        assert counters.numel() == 3 and scratch.numel() == 20
+        counters, scratch = su.workspace(dev, 5, 4)
+        assert counters.numel() == 5 and scratch.numel() == 20
+        assert not counters.any()
+    finally:
+        su._workspace.pop(dev.index, None)
 
 
 def test_cpu_calls_are_not_counted_as_launches():
