@@ -8,7 +8,7 @@ no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- three paths, each driven with the launch counts reset
+  2. paths      -- four paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -28,6 +28,10 @@ no CPU fallback):
           k=20 and serially) against the packed solves on the same
           coordinates, 80 steps on the Figure 3 data, 1e-5 on w, the dual
           weights and u; and one block of 4 steps at B=128.
+       d. above 32,768 features: a hard-margin fit on separable(1500,
+          40000), padded to d_pad = 65,536, through ``SaddleSVC.fit``
+          (300 steps): its 3 FWHTs take two device passes each (a row
+          no longer fits one block's shared memory).
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve and of both
@@ -36,11 +40,17 @@ no CPU fallback):
   5. kernels    -- each kernel against its plain PyTorch version on the
                    card, at every shape the paths gave it (on the paths'
                    own data and step scalars, with fresh duals and u), and
-                   at the JAX kernel tests' shapes and a synthetic packed
-                   layout; its time, its device-only time (one profiler
-                   session per group), the plain version's, a one-call
-                   PyTorch yardstick and its bound, and the device
-                   launches of one call (exactly 1 for a packed wrapper).
+                   at the JAX kernel tests' shapes (ragged B = 3 and 130
+                   too), a synthetic packed layout and FWHT rows of d =
+                   1,024 to 131,072; its time, its device-only time (one
+                   profiler session per group), the plain version's, a
+                   one-call PyTorch yardstick and its bound, and the
+                   device launches of one call (exactly 1 for a packed
+                   wrapper and the unpacked dot, 1 or 2 passes for the
+                   FWHT as its plan says).  The FWHT also prints its
+                   variant, whether it equals the plain version bit for
+                   bit, and a copy of the same bytes (``out.copy_(x)``)
+                   under the same events.
                    Planted faults must break the tolerance: at the path
                    shapes for the unpacked kernels (momentum or u
                    dropped, a client's last point left out), and at every
@@ -49,16 +59,17 @@ no CPU fallback):
                    real point left out of the merged (m, s)), whose (m, s)
                    must also match the plain merge of the per-tile
                    partials of their own log_new.  Each packed wrapper's
-                   host time is split into validation, allocation, the
-                   ctypes call and the rest (1,000 calls each).  The
+                   host time, and the unpacked dot's, is split into
+                   validation, allocation, the ctypes call and the rest
+                   (1,000 calls each).  The
                    packed kernels alternate between the path shapes for
                    three rounds: the same bits each round and every
                    ticket counter back at 0.  An out-of-range row index
                    gives NaN, not a fault.
   6. card vs CPU -- a serial fit (n=4,000, d=128, 2,000 iterations) on the
                    card and on the CPU with the same signs and schedule;
-                   both serial fits of path a and 1,000 steps of the Figure
-                   4 distributed fit replayed on the CPU with the
+                   the serial fits of paths a and d and 1,000 steps of the
+                   Figure 4 distributed fit replayed on the CPU with the
                    coordinates the card sampled.
 
 The next-to-last line of standard output is a JSON object listing every
@@ -124,12 +135,15 @@ def card_line() -> str:
 class Timer:
     """Median time of a call on the card with CUDA events, warm, with the
     50 MB L2 flushed before every repeat (the solver's x_t is larger than
-    L2, so a step finds its rows cold)."""
+    L2, so a step finds its rows cold).  The flush is queued before the
+    first event, so the events hide the wrapper's host time as long as it
+    is shorter than the flush: 512 MiB, ~0.17 ms on an H100, above every
+    wrapper's host time (0.03-0.08 ms, ``host_split``)."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(64 << 20, dtype=torch.float32,
-                                 device="cuda")   # 256 MiB
+        self.flush = torch.empty(128 << 20, dtype=torch.float32,
+                                 device="cuda")   # 512 MiB
 
     def __call__(self, fn, reps: int = 15, warm: int = 3) -> float:
         torch = self.torch
@@ -158,7 +172,7 @@ class Timer:
         session in one process has been seen to offset the device clock
         from the host's by milliseconds, and to lose the device events of
         its first milliseconds: so ranges are read on the device side, and
-        the session first spends ~25 ms zeroing the flush buffer.)  The
+        the session first spends ~50 ms zeroing the flush buffer.)  The
         mean is over the launches recorded, returned with their count; a
         job with fewer than half of ``reps`` fails.  Third in each tuple:
         the device launches of one call of the job's function (kernels,
@@ -219,21 +233,23 @@ def entry(name, label, err, ms, plain_ms, library_ms, nbytes, ops):
 
 
 def report(timer, jobs) -> list[dict]:
-    """Print each checked kernel's entry with its device-only time, all
-    from one profiler session; ``jobs`` are (entry, fn, kernel name)."""
-    dev = timer.device_ms([(fn, kernel) for _, fn, kernel in jobs])
-    for (e, _, kernel), (dev_ms, n, per_call) in zip(jobs, dev):
+    """Print each checked kernel's entry with its device-only time per
+    call, all from one profiler session; ``jobs`` are (entry, fn, kernel
+    name, device launches one call must make, or None where the wrapper
+    runs torch ops beside its kernel)."""
+    dev = timer.device_ms([(fn, kernel) for _, fn, kernel, _ in jobs])
+    for (e, _, _, want), (dev_ms, n, per_call) in zip(jobs, dev):
         lib = "null" if e["library_ms"] is None else f"{e['library_ms']:.4f}"
         print(f"  {e['name']}: err {e['max_abs_err']:.3e}  kernel "
-              f"{e['ms']:.4f} ms (device only {dev_ms:.4f} ms over {n} "
-              f"launches, {per_call:.2f} device launches a call)  plain "
-              f"{e['plain_ms']:.4f} ms  library {lib} ms  bound "
-              f"{e['bound_ms']:.4f} ms ({e['bound_by']})  launches "
+              f"{e['ms']:.4f} ms (device only {dev_ms * (want or 1):.4f} ms "
+              f"a call, over {n} launches, {per_call:.2f} device launches "
+              f"a call)  plain {e['plain_ms']:.4f} ms  library {lib} ms  "
+              f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})  launches "
               f"{e['launches']}")
-        if kernel.removesuffix("_kernel") in PACKED:
-            require(per_call == 1, f"{e['name']}: {per_call} device "
-                    "launches a call, want 1")
-    return [e for e, _, _ in jobs]
+        if want is not None:
+            require(per_call == want, f"{e['name']}: {per_call} device "
+                    f"launches a call, want {want}")
+    return [e for e, _, _, _ in jobs]
 
 
 # ---------------------------------------------------------------- phase 2
@@ -608,6 +624,39 @@ def reference_path(torch, rec: PathRecorder, fig3):
     rec.check_counts(counts, UNPACKED + PACKED)
 
 
+# above 32,768 features: d = 40,000 pads to d_pad = 65,536, where a row
+# no longer fits one block's shared memory and the FWHT takes two passes;
+# n = 1,500 keeps x_t (65,536 x 1,536 floats) at 403 MB
+WIDE_FIT = ("hard-margin n=1500 d=40000 (d_pad=65536) B=1", "SaddleSVC",
+            dict(eps=1e-3, beta=0.1, num_iters=300, record_every=100),
+            ("separable", (1500, 40_000), dict(seed=40_000)))
+
+
+def wide_path(torch, rec: PathRecorder):
+    """Path d: the fit above 32,768 features, counts reset just before and
+    read just after; every FWHT of it takes two passes.  Returns [(spec,
+    fitted estimator, data, schedule)]."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fwht import fwht_plan
+
+    clf, ds = make_fit(WIDE_FIT, "cuda")
+    ops.launch_counts.clear()
+    t0 = time.perf_counter()
+    with rec:
+        run_fit(torch, WIDE_FIT[0], clf, ds, WIDE_FIT[2]["num_iters"])
+        done = [(WIDE_FIT, clf, ds, rec.take_schedule())]
+    counts = dict(ops.launch_counts)
+    print(f"path d: {time.perf_counter() - t0:.2f} s, launches {counts}")
+    rec.check_counts(counts, ("fwht",) + PACKED)
+    shapes = [shape for (name, shape) in rec.calls if name == "fwht"]
+    print(f"  fwht shapes {shapes}: device passes "
+          f"{[fwht_plan(d).device_launches for _, d in shapes]}")
+    require(shapes and all(fwht_plan(d).device_launches == 2
+                           for _, d in shapes),
+            "path d: want every FWHT in two passes")
+    return done
+
+
 def serial_vs_dist(torch, fits):
     """Each distributed fit refit serially on the coordinates it drew."""
     from repro_torch.core import saddle
@@ -634,7 +683,13 @@ def serial_vs_dist(torch, fits):
 
 # ---------------------------------------------------------------- phase 3
 def check_fwht(torch, timer, g, n, d, launches, path):
+    """The FWHT at (n, d) against its plain version (1e-4; bit-equality
+    printed), with its times beside ``x @ H`` (H the normalized Hadamard
+    matrix, where it fits: d < 32,768) and a copy of the same bytes under
+    the same events; one call must be as many device launches as its plan
+    has passes."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fwht import fwht_plan
 
     x = torch.randn((n, d), generator=g, device="cuda")
     out = ops.fwht(x)
@@ -643,13 +698,25 @@ def check_fwht(torch, timer, g, n, d, launches, path):
     require(err <= 1e-4, f"fwht n={n} d={d} disagrees with its plain "
             f"version: {err}")
     require(torch.equal(out, ops.fwht(x)), "fwht is not deterministic")
-    had = ref.fwht_ref(torch.eye(d, device="cuda"))   # normalized H
+    plan = fwht_plan(d)
+    library = None
+    if d < 32_768:
+        had = ref.fwht_ref(torch.eye(d, device="cuda"))   # normalized H
+        library = timer(lambda: x @ had)
+        del had
+    copy = torch.empty_like(x)
+    copy_ms = timer(lambda: copy.copy_(x))
     e = entry("fwht", f"fwht[n={n},d={d},path {path}]", err,
-              timer(lambda: ops.fwht(x)),
-              timer(lambda: ref.fwht_ref(x)), timer(lambda: x @ had),
-              nbytes=2 * 4 * n * d, ops=n * d * (math.log2(d) + 1))
+              timer(lambda: ops.fwht(x)), timer(lambda: ref.fwht_ref(x)),
+              library, nbytes=2 * 4 * n * d, ops=n * d * (math.log2(d) + 1))
     e["launches"] = launches
-    return e, lambda: ops.fwht(x), "fwht_rows_kernel"
+    print(f"  fwht[n={n},d={d}]: variant {plan.variant} ({plan.d1} x "
+          f"{plan.d2}, {plan.device_launches} pass(es)), max error "
+          f"{err:.3e}, bit-equal to the plain version "
+          f"{torch.equal(out, want)}; wrapper {e['ms']:.4f} ms, copy of the "
+          f"same bytes {copy_ms:.4f} ms, bound {e['bound_ms']:.4f} ms, "
+          f"x @ H {'null' if library is None else f'{library:.4f}'} ms")
+    return e, lambda: ops.fwht(x), "fwht_", plan.device_launches
 
 
 def step_inputs(torch, g, x_t, sign, b, main_path: bool = True):
@@ -748,22 +815,54 @@ def packed_faults(torch, name, b, args, got, sign) -> dict:
 
 
 def host_split(torch, name, args, calls: int = 1000) -> dict:
-    """The packed wrapper's host time per call, split: its validation
-    (``check_packed``), its allocations (the same ``torch.empty`` calls
-    and workspace look-up), the ctypes call of the C launcher with the
-    pointers ready, and the rest (pointers, stream, device check, launch
-    count, views), the whole wrapper's time less the three.  Each is the
-    mean over ``calls`` calls between two synchronisations, by
-    time.perf_counter, in ms."""
+    """A packed wrapper's or the unpacked dot's host time per call,
+    split: its validation (``check_packed`` / ``check_unpacked``), its
+    allocations (the same ``torch.empty`` calls and workspace look-up),
+    the ctypes call of the C launcher with the pointers ready, and the
+    rest (geometry, pointers, stream, device check, launch count, views),
+    the whole wrapper's time less the three.  Each is the mean over
+    ``calls`` calls between two synchronisations, by time.perf_counter,
+    in ms."""
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import saddle_update as su
+
+    lib = build.library("saddle_update")
+    if name == "momentum_dot":
+        cols, ll, lp, theta = args
+        lead, n, b = su.check_unpacked(cols, dict(log_lam=ll, log_prev=lp))
+        dev = cols.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        k = lead[0] if lead else 1
+        lanes, points, blocks, chunks = su.momentum_dot_geometry(k, n, b)
+        floats = k * chunks * blocks * su.DOT_COLS
+
+        def validate():
+            su.check_unpacked(cols, dict(log_lam=ll, log_prev=lp))
+
+        def allocate():
+            torch.empty(lead + (b,), dtype=torch.float32, device=dev)
+            su.workspace(dev, k * chunks, floats)
+
+        out = torch.empty(lead + (b,), dtype=torch.float32, device=dev)
+        counters, parts = su.workspace(dev, k * chunks, floats)
+        ptrs = [t.data_ptr() for t in (cols, ll, lp)]
+        ptrs2 = [t.data_ptr() for t in (out, parts, counters)]
+        vec4 = int(b % 4 == 0 and cols.data_ptr() % 16 == 0)
+
+        def call():
+            lib.momentum_dot_f32(*ptrs, float(theta), *ptrs2, k, n, b, lanes,
+                                 points, vec4, stream)
+
+        def whole():
+            ops.momentum_dot(*args)
+
+        return _split(torch, calls, validate, allocate, call, whole)
 
     x_t, idx = args[:2]
     s, d, n_pad = x_t.shape
     b = idx.shape[1]
     tiles = n_pad // su.LANE
     dev = x_t.device
-    lib = build.library("saddle_update")
     stream = torch.cuda.current_stream(dev).cuda_stream
     tpb = su.packed_tiles_per_block(b)
     if name == "momentum_dot_packed":
@@ -815,6 +914,10 @@ def host_split(torch, name, args, calls: int = 1000) -> dict:
         def whole():
             ops.mwu_update_packed(*args)
 
+    return _split(torch, calls, validate, allocate, call, whole)
+
+
+def _split(torch, calls, validate, allocate, call, whole) -> dict:
     def per_call(fn):
         fn()
         torch.cuda.synchronize()
@@ -919,7 +1022,7 @@ def check_packed(torch, timer, g, x_t, sign, b, launches,
                   None if library is None else timer(library),
                   nbytes=nbytes, ops=ops_)
         e["launches"] = launches
-        jobs.append((e, fn, name + "_kernel"))
+        jobs.append((e, fn, name + "_kernel", 1))
     return jobs
 
 
@@ -1148,18 +1251,25 @@ def check_unpacked(torch, timer, g, name, args, launches, label,
                     f"kernel with {fault}: {ferrs}")
         print(f"  {label}: planted faults break the tolerance by "
               + ", ".join(f"{f} {r:.3g}x" for f, r in caught.items()))
+    if name == "momentum_dot":
+        split = host_split(torch, name, args)
+        print(f"  {label}: host ms per call " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()))
     e = entry(name, label, max(err for err, _ in errs.values()), timer(fn),
               timer(plain), library, nbytes=nbytes, ops=ops_)
     e["launches"] = launches
-    return e, fn, kernel
+    # the MWU wrapper merges its kernel's partials with torch ops
+    return e, fn, kernel, 1 if name == "momentum_dot" else None
 
 
 def jax_test_shapes(torch, timer, g):
     """The unpacked kernels at the JAX kernel tests' shapes and scalars
-    (tests/test_kernels.py), with one client and with 20."""
+    (tests/test_kernels.py) and at ragged B = 3 and 130, with one client
+    and with 20."""
     jobs = []
     for lead in ((), (20,)):
-        for n, b in ((17, 1), (513, 128), (1025, 8), (2048, 128)):
+        for n, b in ((17, 1), (513, 128), (1025, 8), (2048, 128), (100, 3),
+                     (300, 130)):
             def randn(*shape):
                 return torch.randn(lead + shape, generator=g, device="cuda")
             cols = randn(n, b)
@@ -1202,7 +1312,12 @@ def check_kernels(torch, timer, recs) -> list[dict]:
         entries += report(timer, jobs)
     ticket_rounds(torch, g, recs)
     print("  not on a path (launches null):")
-    jobs = [check_fwht(torch, timer, g, 50_000, 512, None, "none")]
+    jobs = [check_fwht(torch, timer, g, max(1, 12_800_000 // d), d, None,
+                       "none")
+            for d in (1024, 4096, 32_768, 65_536, 131_072)]
+    jobs.append(check_fwht(torch, timer, g, 50_000, 512, None, "none"))
+    report(timer, jobs)
+    jobs = []
     x_t, sign = synthetic_layout(torch, g)
     # b = 3 and 300: a ragged last block of 4 tiles, and a row ring that
     # is refilled (10 stages of 32 rows through 4 buffers)
@@ -1324,7 +1439,7 @@ def card_vs_cpu(torch, fits):
         clf, _ = make_fit(spec, "cpu")
         t0 = time.perf_counter()
         clf.fit(ds.x, ds.y, idx_schedule=sched)
-        print(f"main-path {spec[0]} replayed on the CPU with the card's "
+        print(f"{spec[0]} replayed on the CPU with the card's "
               f"coordinates: {time.perf_counter() - t0:.1f} s")
         compare_fits(f"  card vs CPU, {spec[0]}", card, clf, history=True)
 
@@ -1385,10 +1500,11 @@ def main() -> int:
     print(f"card: {card}, torch {torch.__version__}, cuda "
           f"{torch.version.cuda}")
 
-    recs = [PathRecorder(name) for name in ("a", "b", "c")]
+    recs = [PathRecorder(name) for name in ("a", "b", "c", "d")]
     fits = main_path(torch, recs[0])
     dist_fits = dist_path(torch, recs[1])
     reference_path(torch, recs[2], dist_fits[0])
+    fits += wide_path(torch, recs[3])
     serial_vs_dist(torch, dist_fits)
     profiles(torch, dist_fits)
     entries = check_kernels(torch, Timer(torch), recs)

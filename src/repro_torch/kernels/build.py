@@ -32,14 +32,17 @@ _I = ctypes.c_int
 # argtypes of every exported C function, by library
 SIGNATURES = {
     "fwht": {
-        "fwht_rows_f32": [_P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P],
+        "fwht_rows_f32": [_P, _P, ctypes.c_longlong, _I, _I, _I,
+                          ctypes.c_float, _P],
+        "fwht_strided_f32": [_P, ctypes.c_longlong, _I, _I, ctypes.c_float,
+                             _P],
     },
     "saddle_update": {
         "momentum_dot_packed_f32": [_P] * 9 + [_I] * 5 + [_P],
         "mwu_update_packed_f32": [_P] * 8 + [ctypes.c_float] + [_P] * 5
                                  + [_I] * 5 + [_P],
-        "momentum_dot_f32": [_P, _P, _P, ctypes.c_float, _P,
-                             _I, _I, _I, _I, _P],
+        "momentum_dot_f32": [_P, _P, _P, ctypes.c_float, _P, _P, _P]
+                            + [_I] * 6 + [_P],
         "mwu_update_f32": [_P, _P, _P, _P] + [ctypes.c_float] * 4
                           + [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },

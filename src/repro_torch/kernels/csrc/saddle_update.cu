@@ -72,30 +72,37 @@
 // UNPACKED (the per-class reference step, 4 launches per step): cols
 // (K, n, B) row-major -- the step's B sampled coordinates of each of a
 // client's n points, gathered by the caller -- point vectors (K, n), with
-// K clients (K = 1 serially).  Grid (point tile, client).  The wrapper
-// picks the tile by B (at most TILE = 1024 points, the Pallas tile) so a
-// thread handles ~8 points and a wide B still gives many blocks; any n is
-// taken: the last tile is masked in the kernel (its missing points touch
-// no sum, max or store), where the JAX wrapper pads with a copy at log
-// weight -1e30.
+// K clients (K = 1 serially).  Any n is taken: a block's last points are
+// masked in the kernel (they touch no sum, max or store), where the JAX
+// wrapper pads with a copy at log weight -1e30.
 //
 // Replaces: src/repro/kernels/saddle_update.py,
 //   _momentum_dot_kernel (launched by _momentum_dot_jit) and
 //   _mwu_kernel (launched by _mwu_update_jit).
 //
-// Bound on an H100: bytes again (cols is read once, ~2 flops a float).
-//   * momentum_dot: the block computes its points' momentum once into
-//     shared memory, then reduces cols[i, j] * mom_i over the tile.  Threads
-//     map to (column j, point phase p) so that neighbouring threads read
-//     neighbouring floats of the contiguous (tile, B) block for any B <= 256
-//     (B = 1: 256 phases over the points; B = 128: 2 phases); the phases
-//     are summed by a tree in shared memory into per-tile partials
-//     (K, tiles, B) that the wrapper sums in a fixed order.
+// Bound on an H100: bytes again (cols is read once, ~2 flops a float); at
+// the reference step's sizes (K = 20 clients of 250 points) the launch and
+// the latency of a few dependent reads are all.
+//   * momentum_dot: ONE launch whose output is delta (K, B) itself.  Grid
+//     (point block, column chunk, client); the wrapper's geometry puts
+//     lpr lanes on a row (4 columns a lane, a chunk of 4 lpr columns) and
+//     takes the widest rows for which one block's loads (8 rows a lane)
+//     hold the client's points: up to 1,024 points at B >= 5 and 2,048
+//     at B <= 4 take one block per chunk, which writes delta with no
+//     merge.  The block computes its points' momentum once (two expf
+//     each); at B = 1 every thread dots its points, else each lane reads
+//     its float4 of a row (one 16-byte load when B % 4 == 0), summing in
+//     registers; the rows' sums meet by a shuffle tree and the warps' in
+//     warp order.  A longer client's point blocks merge inside the launch
+//     as the packed kernels' do: per-block partials in the wrapper's
+//     workspace, an integer ticket per (client, chunk), the last block
+//     summing in block order.  No float atomics.
 //   * mwu_update: dv_i = cols[i] . dw first, a warp per row when B >= 32
 //     (coalesced row reads, shuffle sum) and a thread per row below; then
 //     v, log_new and u_new per point, and the tile's max and sum of
 //     exp(log_new - max) reduced in the block into partials (K, tiles)
-//     that the wrapper merges into the per-client logsumexp.
+//     that the wrapper merges into the per-client logsumexp.  The wrapper
+//     picks the tile by B (at most TILE = 1024 points, the Pallas tile).
 //   * The step scalars arrive as floats; c = 1 / (gamma + d_eff / tau) is
 //     computed in float32 inside, as the Pallas kernel does, and the
 //     elementwise arithmetic is rounded op by op (__fmul_rn / __fadd_rn,
@@ -602,61 +609,169 @@ __global__ void __launch_bounds__(THREADS) mwu_update_packed_kernel(
   }
 }
 
-constexpr int TILE = 1024;          // most points per unpacked-kernel block
+constexpr int TILE = 1024;          // most points per mwu_update block
+constexpr int DOT_COLS = 128;       // most columns a momentum_dot block covers
+constexpr int DOT_POINTS = 4096;    // most points a momentum_dot block (B > 1)
+                                    // takes: their momentum, 16 KB of smem
+constexpr int DOT_UNROLL = 8;       // rows whose loads a lane issues at once
 
 __device__ __forceinline__ float neg_inf_f32() {
   return __int_as_float(0xff800000);
 }
 
-// parts[k, tile, j] = sum over the tile's points i of
-//   cols[k, i, j] * (lam_i + theta (lam_i - lam_prev_i))
-__global__ void momentum_dot_kernel(
+// lam + theta (lam - lam_prev), rounded op by op as the plain version
+__device__ __forceinline__ float momentum_rn(float lg, float lg_prev,
+                                             float theta) {
+  const float lam = expf(lg);
+  const float lam_prev = expf(lg_prev);
+  return __fadd_rn(lam, __fmul_rn(theta, __fsub_rn(lam, lam_prev)));
+}
+
+__device__ __forceinline__ void dot_acc(float4& acc, float4 x, float m) {
+  acc.x = __fadd_rn(acc.x, __fmul_rn(x.x, m));
+  acc.y = __fadd_rn(acc.y, __fmul_rn(x.y, m));
+  acc.z = __fadd_rn(acc.z, __fmul_rn(x.z, m));
+  acc.w = __fadd_rn(acc.w, __fmul_rn(x.w, m));
+}
+
+__device__ __forceinline__ float component(float4 q, int e) {
+  return e == 0 ? q.x : e == 1 ? q.y : e == 2 ? q.z : q.w;
+}
+
+// delta[k, j] = sum over client k's points i of cols[k, i, j] * mom_i,
+// mom_i = lam_i + theta (lam_i - lam_prev_i).  Grid (point block, column
+// chunk of 4 lpr columns, client), THREADS threads; ``pts`` points a
+// block, ``lpr`` lanes on a row.  A thread issues the loads of DOT_UNROLL
+// points (rows) at once.  ONE_COL (B = 1): each thread dots its points,
+// their momentum computed where it is used.  Else each lane takes row
+// l / lpr of its warp's rows and the 4 columns 4 (l % lpr) .. + 3 of the
+// chunk (one float4 with VEC4), its first rows' loads issued before the
+// block writes its momentum to shared memory; the rows' sums meet by a
+// shuffle tree, the warps' in warp order.  A client of one point block writes delta
+// itself; else each block writes its partial and the last block of the
+// (client, chunk), found by an integer ticket, sums them in block order
+// and resets the counter.
+template <bool ONE_COL, bool VEC4>
+__global__ void __launch_bounds__(THREADS) momentum_dot_kernel(
     const float* __restrict__ cols, const float* __restrict__ log_lam,
     const float* __restrict__ log_prev, float theta,
-    float* __restrict__ parts, int n, int b, int tile_n) {
-  __shared__ float mom[TILE];
-  __shared__ float red[THREADS];
-  const int tile = blockIdx.x;
-  const int k = blockIdx.y;
-  const int tiles = gridDim.x;
+    float* __restrict__ out, float* __restrict__ parts,
+    int* __restrict__ counters, int n, int b, int lpr, int pts) {
+  constexpr int U = DOT_UNROLL;
+  __shared__ float mom[ONE_COL ? 1 : DOT_POINTS];
+  __shared__ float4 red[WARPS][WARP];
+  __shared__ int is_last;
   const int t = threadIdx.x;
-  const int i0 = tile * tile_n;
-  const int tn = min(tile_n, n - i0);        // points in this tile
-
+  const int lane = t % WARP;
+  const int warp = t / WARP;
+  const int chunk = blockIdx.y;
+  const int k = blockIdx.z;
+  const int i0 = blockIdx.x * pts;
+  const int tn = min(pts, n - i0);          // points of this block
+  const int c0 = chunk * 4 * lpr;
+  const int width = min(4 * lpr, b - c0);   // columns of this chunk
   const float* lg = log_lam + (size_t)k * n + i0;
   const float* lp = log_prev + (size_t)k * n + i0;
-  for (int i = t; i < tn; i += THREADS) {
-    const float lam = expf(lg[i]);
-    const float lam_prev = expf(lp[i]);
-    mom[i] = __fadd_rn(lam, __fmul_rn(theta, __fsub_rn(lam, lam_prev)));
+  const float* c = cols + ((size_t)k * n + i0) * b + c0;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if constexpr (ONE_COL) {
+    for (int r0 = t; r0 < tn; r0 += U * THREADS) {
+      float xc[U], a[U], ap[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = r0 + u * THREADS;
+        xc[u] = i < tn ? c[i] : 0.0f;
+        a[u] = i < tn ? lg[i] : 0.0f;
+        ap[u] = i < tn ? lp[i] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (r0 + u * THREADS < tn)
+          acc.x = __fadd_rn(acc.x,
+                            __fmul_rn(xc[u], momentum_rn(a[u], ap[u], theta)));
+      }
+    }
+    acc.x = warp_sum(acc.x);
+  } else {
+    const int rows = WARP / lpr;            // rows a warp takes at once
+    const int step = WARPS * rows;      // rows the block takes at once
+    const int grp = lane % lpr;
+    const int left = width - 4 * grp;       // columns of the lane's float4
+    const float* cg = c + 4 * grp;
+    float4 x[U];
+    // the lane's rows r0 + u step, u < U (zeros past the block or chunk)
+    auto load_rows = [&](int r0) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = r0 + u * step;
+        const float* p = cg + (size_t)r * b;
+        if (r >= tn || left <= 0) {
+          x[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        } else if constexpr (VEC4) {
+          x[u] = load4(p);
+        } else {
+          x[u] = make_float4(p[0], left > 1 ? p[1] : 0.0f,
+                             left > 2 ? p[2] : 0.0f, left > 3 ? p[3] : 0.0f);
+        }
+      }
+    };
+    int r0 = warp * rows + lane / lpr;
+    load_rows(r0);
+    for (int i0m = t; i0m < tn; i0m += U * THREADS) {
+      float a[U], ap[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0m + u * THREADS;
+        a[u] = i < tn ? lg[i] : 0.0f;
+        ap[u] = i < tn ? lp[i] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0m + u * THREADS;
+        if (i < tn) mom[i] = momentum_rn(a[u], ap[u], theta);
+      }
+    }
+    __syncthreads();
+    while (r0 < tn) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = r0 + u * step;
+        if (r < tn) dot_acc(acc, x[u], mom[r]);
+      }
+      r0 += U * step;
+      if (r0 < tn) load_rows(r0);
+    }
+    // lanes grp, grp + lpr, ... hold the same columns of other rows
+    for (int off = lpr; off < WARP; off <<= 1) {
+      acc.x += __shfl_xor_sync(FULL, acc.x, off);
+      acc.y += __shfl_xor_sync(FULL, acc.y, off);
+      acc.z += __shfl_xor_sync(FULL, acc.z, off);
+      acc.w += __shfl_xor_sync(FULL, acc.w, off);
+    }
   }
+  if (lane < (ONE_COL ? 1 : lpr)) red[warp][lane] = acc;
   __syncthreads();
-
-  const float* c = cols + ((size_t)k * n + i0) * b;
-  float* out = parts + ((size_t)k * tiles + tile) * b;
-  for (int j0 = 0; j0 < b; j0 += THREADS) {
-    const int wc = min(THREADS, b - j0);     // columns of this chunk
-    const int phases = THREADS / wc;         // point phases per column
-    const int j = t % wc;
-    const int p = t / wc;
-    float acc = 0.0f;
-    if (p < phases) {
-      for (int i = p; i < tn; i += phases)
-        acc = __fadd_rn(acc, __fmul_rn(c[(size_t)i * b + j0 + j], mom[i]));
-    }
-    red[t] = acc;
-    __syncthreads();
-    // tree over the phases, for any phase count: phase q < live - half
-    // adds phase q + half
-    for (int live = phases; live > 1;) {
-      const int half = (live + 1) / 2;
-      if (p < live - half) red[t] += red[t + half * wc];
-      __syncthreads();
-      live = half;
-    }
-    if (t < wc) out[j0 + t] = red[t];
-    __syncthreads();
+  float total = 0.0f;                        // column t of the chunk
+  if (t < width) {
+    for (int w = 0; w < WARPS; ++w)
+      total = __fadd_rn(total, component(red[w][t / 4], t % 4));
   }
+  float* dst = out + (size_t)k * b + c0;
+  if (gridDim.x == 1) {
+    if (t < width) dst[t] = total;
+    return;
+  }
+  const size_t slot = (size_t)k * gridDim.y + chunk;
+  float* ps = parts + slot * gridDim.x * DOT_COLS;
+  if (t < width) ps[(size_t)blockIdx.x * DOT_COLS + t] = total;
+  if (!last_block(counters + slot, &is_last)) return;
+  if (t < width) {
+    float sum = 0.0f;
+    for (int p = 0; p < (int)gridDim.x; ++p)
+      sum = __fadd_rn(sum, __ldcg(ps + (size_t)p * DOT_COLS + t));
+    dst[t] = sum;
+  }
+  if (t == 0) counters[slot] = 0;
 }
 
 // dv_i = cols[k, i, :] . dw[k, :];  v = sign (u + d_eff dv);
@@ -822,14 +937,32 @@ extern "C" int mwu_update_packed_f32(
   return (int)cudaGetLastError();
 }
 
+// delta (K, b); chunks of 4 lpr columns; parts scratch of (K, chunks,
+// point blocks, DOT_COLS) floats and counters (K, chunks) zero, both used
+// only when a client has more than one point block; geometry (lpr, pts)
+// as the wrapper's momentum_dot_geometry gives it; vec4: b % 4 == 0 and
+// cols 16-byte aligned.
 extern "C" int momentum_dot_f32(
     const float* cols, const float* log_lam, const float* log_prev,
-    float theta, float* parts, int num_clients, int n, int b, int tile_n,
-    void* stream) {
-  if (tile_n < 1 || tile_n > TILE) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + tile_n - 1) / tile_n, num_clients);
-  momentum_dot_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      cols, log_lam, log_prev, theta, parts, n, b, tile_n);
+    float theta, float* out, float* parts, int* counters, int num_clients,
+    int n, int b, int lpr, int pts, int vec4, void* stream) {
+  const int chunks = (b + 4 * lpr - 1) / (4 * lpr);
+  if (n < 1 || b < 1 || pts < 1 || num_clients < 1 ||
+      num_clients > 65535 || lpr < 1 || lpr > WARP || (lpr & (lpr - 1)) ||
+      chunks > 65535 || (b == 1 && lpr != 1) ||
+      (b > 1 && pts > DOT_POINTS) || (vec4 && b % 4))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + pts - 1) / pts, chunks, num_clients);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (b == 1)
+    momentum_dot_kernel<true, false><<<grid, THREADS, 0, st>>>(
+        cols, log_lam, log_prev, theta, out, parts, counters, n, b, lpr, pts);
+  else if (vec4)
+    momentum_dot_kernel<false, true><<<grid, THREADS, 0, st>>>(
+        cols, log_lam, log_prev, theta, out, parts, counters, n, b, lpr, pts);
+  else
+    momentum_dot_kernel<false, false><<<grid, THREADS, 0, st>>>(
+        cols, log_lam, log_prev, theta, out, parts, counters, n, b, lpr, pts);
   return (int)cudaGetLastError();
 }
 

@@ -20,7 +20,10 @@ def fwht_ref(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
     """Walsh--Hadamard transform along the last axis (a power of two):
     stage h pairs element i with i + h inside blocks of 2h, the same
     butterfly order as the JAX package's ``preprocess.fwht``; the
-    normalized transform divides by sqrt(d)."""
+    normalized transform divides by sqrt(d) rounded to float32.  The
+    divisor lies on x's device: PyTorch's CUDA division by a CPU scalar
+    multiplies by its reciprocal instead, which can differ in the last
+    bit from the division that the CPU and the kernel make."""
     d = x.shape[-1]
     if d <= 0 or d & (d - 1):
         raise ValueError(f"fwht needs a power-of-two axis, got {d}")
@@ -33,7 +36,7 @@ def fwht_ref(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
         x = torch.stack([a + b, a - b], dim=2).reshape(-1, d)
         h *= 2
     if normalize:
-        x = x / torch.tensor(math.sqrt(d), dtype=x.dtype)
+        x = x / torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
     return x.reshape(shape)
 
 

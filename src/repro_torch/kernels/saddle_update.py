@@ -4,9 +4,12 @@ The unpacked per-class kernels (:func:`momentum_dot`, :func:`mwu_update`,
 the reference step's four launches) take ``cols`` (n, B), the step's B
 sampled coordinates of n points, and point vectors (n,), or the same with
 a leading client axis K: cols (K, n, B), vectors (K, n), ``dw`` (K, B).
-Any n is taken; the step scalars are python floats.  Their kernels write
-per-tile partials, which the wrappers combine here in a fixed order, as
-the JAX wrappers do outside their ``pallas_call``.
+Any n is taken; the step scalars are python floats.  The momentum dot is
+one launch whose output is final (a client of several point blocks merges
+them inside the launch, as the packed kernels do, through the same
+workspace).  The MWU kernel writes per-tile partials, which its wrapper
+combines here in a fixed order, as the JAX wrapper does outside its
+``pallas_call``.
 
 The packed kernels take a leading slot axis S: ``x_t`` (S, d, n_pad),
 ``idx`` (S, b) int32, point vectors (S, n_pad) and per-slot scalars (S,),
@@ -14,7 +17,8 @@ all float32 except ``idx``.  Each call is one kernel launch whose outputs
 are final: the kernels merge their per-tile partials themselves, the last
 block of a slot taking a ticket from the slot's counter.  The counters and
 the partials' scratch are a workspace per device that the packed wrappers
-share, so the packed kernels assume one stream at a time.
+and the unpacked momentum dot share, so these kernels assume one stream at
+a time.
 
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
 runs the plain version in :mod:`repro_torch.kernels.ref`.
@@ -33,8 +37,15 @@ import torch
 from repro_torch.kernels import build, launch_counts, ref
 
 LANE = 128   # points per kernel tile; packed lengths are multiples of it
-TILE = 1024  # most points per block of the unpacked kernels (Pallas's tile)
+TILE = 1024  # most points per block of the unpacked MWU (Pallas's tile)
 THREADS = 256  # threads per block of every kernel in the source
+DOT_COLS = 128      # most columns a block of the unpacked dot covers
+DOT_POINTS = 4_096  # most points a block of the unpacked dot takes (B > 1):
+                    # their momentum in 16 KB of shared memory
+DOT_UNROLL = 8      # rows whose loads a lane of the unpacked dot issues at once
+SMS = 132           # streaming multiprocessors of an H100
+DOT_WAVE = 2 * SMS  # most blocks of the unpacked dot before a block takes
+                    # more rounds
 MAX_PACKED_ROWS = 32_768  # b of a packed kernel: its b floats of shared
                           # memory beside a 64 KB ring stay within 227 KB
 
@@ -113,9 +124,10 @@ _workspace: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def workspace(device: torch.device, slots: int, floats: int):
-    """The packed kernels' (counters, scratch) on a CUDA ``device``: at
-    least ``slots`` per-slot ticket counters and ``floats`` floats of
-    per-tile partials.  Zeroed once and grown when needed; the kernels
+    """The ticket kernels' (counters, scratch) on a CUDA ``device``: at
+    least ``slots`` ticket counters (one per packed slot, or per client
+    and column chunk of the unpacked dot) and ``floats`` floats of
+    per-block partials.  Zeroed once and grown when needed; the kernels
     leave every counter at 0, so calls on one stream can share them."""
     ws = _workspace.get(device.index)
     if ws is None or ws[0].numel() < slots or ws[1].numel() < floats:
@@ -195,15 +207,47 @@ def mwu_update_packed(x_t: torch.Tensor, idx: torch.Tensor,
     return log_new, u_new, ms[0], ms[1]
 
 
-def unpacked_tile(kernel: str, b: int) -> int:
-    """Points per block of an unpacked kernel for B = ``b`` columns: about
-    8 points a thread, so a wide B still spreads over many blocks.  The
-    momentum dot's threads cover min(b, 256) columns and 256 / that many
-    points at once; the MWU's row dot is a warp per row (8 warps, 4 rows
-    each) from b = 32 and a thread per row below."""
-    if kernel == "momentum_dot":
-        return min(TILE, 8 * (THREADS // min(THREADS, b)))
+def unpacked_tile(b: int) -> int:
+    """Points per block of the unpacked MWU for B = ``b`` columns: its row
+    dot is a warp per row (8 warps, 4 rows each) from b = 32 and a thread
+    per row below."""
     return 32 if b >= 32 else TILE
+
+
+def momentum_dot_geometry(k: int, n: int,
+                          b: int) -> tuple[int, int, int, int]:
+    """(lanes per row, points per block, point blocks, column chunks) of
+    the unpacked momentum dot for k clients of n points and B = ``b``
+    columns.  A warp puts ``lanes`` lanes on a row, each on 4 columns, and
+    32 / lanes rows side by side; a block covers a chunk of 4 * lanes
+    columns and its loads THREADS / lanes * DOT_UNROLL rows at once (a
+    round).  Fewer lanes a row give more chunks and rounds of more rows:
+    where some lanes >= 2 (a 32-byte sector a row) fit the client's n
+    points in one round, the widest such rows are taken, then halved while
+    the grid has fewer blocks than the card has SMs, and no block merges
+    (the reference step's clients of 250 points at B = 1 and 128).  A
+    longer client keeps its widest rows and takes blocks of whole rounds,
+    as many as keep the grid within DOT_WAVE blocks, which merge; two
+    rounds of one block where that avoids the merge."""
+    def per_round(lanes):
+        return THREADS // lanes * DOT_UNROLL
+
+    def chunks(lanes):
+        return -(-b // (4 * lanes))
+
+    lanes = min(32, 1 << (-(-min(b, DOT_COLS) // 4) - 1).bit_length())
+    fit = [w for w in (32, 16, 8, 4, 2) if w <= lanes and n <= per_round(w)]
+    if fit:
+        lanes = fit[0]
+        while lanes > 2 and k * chunks(lanes) < SMS:
+            lanes //= 2
+    want = -(-n // per_round(lanes))             # blocks of one round
+    rounds = (2 if want == 2
+              else -(-want // max(1, DOT_WAVE // (k * chunks(lanes)))))
+    blocks = -(-n // (per_round(lanes) * rounds))
+    if b > 1:
+        blocks = max(blocks, -(-n // DOT_POINTS))
+    return lanes, -(-n // blocks), blocks, chunks(lanes)
 
 
 def check_unpacked(cols: torch.Tensor, vectors: dict[str, torch.Tensor],
@@ -240,15 +284,17 @@ def momentum_dot(cols: torch.Tensor, log_lam: torch.Tensor,
     if cols.device.type == "cpu":
         return ref.momentum_dot_ref(cols, log_lam, log_prev, float(theta))
     k = lead[0] if lead else 1
-    tile = unpacked_tile("momentum_dot", b)
-    parts = torch.empty((k, -(-n // tile), b), dtype=torch.float32,
-                        device=cols.device)
+    lanes, points, blocks, chunks = momentum_dot_geometry(k, n, b)
+    out = torch.empty(lead + (b,), dtype=torch.float32, device=cols.device)
+    counters, parts = workspace(cols.device, k * chunks,
+                                k * chunks * blocks * DOT_COLS)
+    vec4 = b % 4 == 0 and cols.data_ptr() % 16 == 0
     _launch("momentum_dot", build.library("saddle_update").momentum_dot_f32,
             cols.device, cols.data_ptr(), log_lam.data_ptr(),
-            log_prev.data_ptr(), float(theta), parts.data_ptr(), k, n, b,
-            tile)
-    out = parts.sum(dim=1)
-    return out if lead else out[0]
+            log_prev.data_ptr(), float(theta), out.data_ptr(),
+            parts.data_ptr(), counters.data_ptr(), k, n, b, lanes, points,
+            int(vec4))
+    return out
 
 
 def mwu_update(cols: torch.Tensor, log_lam: torch.Tensor, u: torch.Tensor,
@@ -265,7 +311,7 @@ def mwu_update(cols: torch.Tensor, log_lam: torch.Tensor, u: torch.Tensor,
         return ref.mwu_update_ref(cols, log_lam, u, dw, *scalars,
                                   normalize=normalize)
     k = lead[0] if lead else 1
-    tile = unpacked_tile("mwu_update", b)
+    tile = unpacked_tile(b)
     tiles = -(-n // tile)
     log_new = torch.empty_like(log_lam)
     u_new = torch.empty_like(u)

@@ -49,6 +49,60 @@ def test_fwht_rejects_non_f32():
         ops.fwht(torch.zeros((4, 8), dtype=torch.float64))
 
 
+@pytest.mark.parametrize("log_d", range(21))
+def test_fwht_plan(log_d):
+    """One pass up to d = 32,768 (a thread, a warp or a block a row), two
+    above (the row kernel over rows of d2 = 32,768, then one strided pass
+    over the d1 = d / d2 values at stride d2); d1 * d2 = d."""
+    from repro_torch.kernels import fwht
+    d = 1 << log_d
+    plan = fwht.fwht_plan(d)
+    assert plan.d1 * plan.d2 == d and plan.d2 <= fwht.MAX_ROW
+    want = ("thread" if d <= 16 else "warp" if d <= 1024 else "block")
+    assert plan.variant == want
+    assert plan.rows_per_block == {"thread": fwht.THREAD_ROWS,
+                                   "warp": fwht.WARP_ROWS, "block": 1}[want]
+    assert sum(plan.strided) == log_d - plan.d2.bit_length() + 1
+    assert all(1 <= m <= fwht.STRIDED_LOG for m in plan.strided)
+    if d <= fwht.MAX_ROW:
+        assert plan.d1 == 1 and plan.device_launches == 1
+    else:
+        assert plan.d2 == fwht.MAX_ROW and plan.device_launches == 2
+
+
+@pytest.mark.parametrize("n,d", [(2, 65_536), (3, 131_072), (4, 65_536)])
+def test_fwht_two_pass_factorisation_is_bit_exact(n, d):
+    """The card's two passes written plainly: the stages h < d2 on every
+    chunk of d2, then the stages h >= d2 over the d1 values at stride d2,
+    then one division by sqrt(d).  Bit for bit the plain version, and
+    within 1e-4 of JAX's preprocess.fwht."""
+    from repro.core import preprocess as jpp
+    from repro_torch.kernels.fwht import fwht_plan
+    plan = fwht_plan(d)
+    assert plan.d1 > 1
+    x = torch.from_numpy(np.random.default_rng(n * d).normal(
+        size=(n, d)).astype(np.float32))
+    low = ref.fwht_ref(x.reshape(n * plan.d1, plan.d2), normalize=False)
+    cols = low.reshape(n, plan.d1, plan.d2).transpose(1, 2).contiguous()
+    high = ref.fwht_ref(cols, normalize=False).transpose(1, 2)
+    got = high.reshape(n, d) / torch.tensor(np.sqrt(d), dtype=torch.float32)
+    assert torch.equal(got, ref.fwht_ref(x))
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jpp.fwht(jnp.asarray(x.numpy()))),
+                               atol=1e-4)
+
+
+def test_fwht_refuses_a_grid_beyond_32_bits():
+    """Element offsets are 64-bit; the row kernels' 1-D grid is not."""
+    from repro_torch.kernels import fwht
+    for d in (8, 512, 4096, 131_072):
+        plan = fwht.fwht_plan(d)
+        most = fwht.MAX_GRID * plan.rows_per_block // plan.d1
+        fwht.check_grid(most, plan)
+        with pytest.raises(ValueError, match="blocks"):
+            fwht.check_grid(most + plan.rows_per_block, plan)
+
+
 def _packed_problem(rng, n_pad, n1, n2, d, b):
     """Packed operand with lane padding and per-class log weights (numpy),
     as tests/test_kernels.py builds it."""
@@ -281,7 +335,8 @@ def test_ref_fwht_is_orthonormal():
 
 
 # ------------------------------------------------ unpacked per-class kernels
-@pytest.mark.parametrize("n,b", [(17, 1), (256, 1), (1000, 4), (513, 128)])
+@pytest.mark.parametrize("n,b", [(17, 1), (256, 1), (1000, 4), (513, 128),
+                                 (100, 3), (300, 130)])
 def test_momentum_dot_matches_jax(n, b):
     """ops.momentum_dot on CPU tensors (the plain version) against the
     JAX package's Pallas kernel in interpret mode and its jnp oracle."""
@@ -298,6 +353,34 @@ def test_momentum_dot_matches_jax(n, b):
     oracle = jref.momentum_dot_ref(jnp.asarray(cols), jnp.exp(ll),
                                    jnp.exp(lp), 0.95)
     np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=1e-4)
+
+
+# (k, n, b): the reference step's shapes (k = 20 clients of 250 / 251
+# points, serial 4,999 / 5,001 points; B = 1 and 128), the JAX kernel
+# tests' shapes with 20 clients, ragged B and a client of 100,000 points
+DOT_SHAPES = [(20, 250, 1), (20, 251, 128), (1, 4_999, 1), (1, 5_001, 1),
+              (20, 17, 1), (20, 513, 128), (20, 1_025, 8), (20, 2_048, 128),
+              (20, 100, 3), (20, 300, 130), (1, 100_000, 128), (1, 5, 1000)]
+
+
+@pytest.mark.parametrize("k,n,b", DOT_SHAPES)
+def test_momentum_dot_geometry(k, n, b):
+    """The unpacked dot's blocks cover every (point, column) once: chunks
+    of 4 * lanes columns, point blocks of at most DOT_POINTS points (their
+    momentum in shared memory) when B > 1, at most DOT_WAVE blocks unless
+    a block would take more than DOT_POINTS; and the reference step's
+    clients of 250 points take one block each, so no merge."""
+    from repro_torch.kernels import saddle_update as su
+    lanes, points, blocks, chunks = su.momentum_dot_geometry(k, n, b)
+    assert lanes in (1, 2, 4, 8, 16, 32)
+    assert (lanes == 1) == (b <= 4)
+    assert chunks == -(-b // (4 * lanes)) and 4 * lanes <= su.DOT_COLS
+    assert points * blocks >= n > points * (blocks - 1)
+    assert b == 1 or points <= su.DOT_POINTS
+    if k * chunks * blocks > max(su.DOT_WAVE, k * chunks):
+        assert blocks == -(-n // su.DOT_POINTS)    # forced by the cap
+    if k == 20 and n in (250, 251) and b in (1, 128):
+        assert blocks == 1
 
 
 @pytest.mark.parametrize("normalize", [True, False])

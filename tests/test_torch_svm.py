@@ -194,10 +194,37 @@ IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_bench.py"]
     assert len(files) > 10
     for f in files:
         text = f.read_text()
         assert not IMPORT_JAX.search(text), f"{f} imports jax"
         assert not IMPORT_REPRO.search(text), f"{f} imports repro"
         assert "importlib" not in text, f"{f} imports dynamically"
+
+
+def test_fit_above_32768_features_replays_jax():
+    """d = 40,000 pads to d_pad = 65,536, where the card's FWHT takes two
+    passes (a row no longer fits one block's shared memory): the port's
+    preprocessing and a short hard-margin fit replaying JAX's signs and
+    schedule match the JAX package's."""
+    from repro.core import preprocess as jpp
+    ds = synthetic.separable(24, 40_000, seed=40_000)
+    xp, xm = ds.x[ds.y > 0], ds.x[ds.y < 0]
+    jpre = jpp.preprocess(xp, xm, jax.random.key(0))
+    assert jpre.signs.shape == (65_536,)
+    pre = pp.preprocess(xp, xm, signs=np.asarray(jpre.signs), device=CPU)
+    np.testing.assert_allclose(pre.xp.numpy(), np.asarray(jpre.xp),
+                               atol=1e-5)
+    np.testing.assert_allclose(pre.xm.numpy(), np.asarray(jpre.xm),
+                               atol=1e-5)
+    kw = dict(eps=1e-2, beta=0.1, seed=5, num_iters=300, record_every=100)
+    jclf, clf = _replay(jsvm.SaddleSVC(**kw), SaddleSVC(device=CPU, **kw),
+                        ds, seed=5)
+    assert clf.w_.shape == (40_000,)
+    np.testing.assert_allclose(clf.w_, jclf.w_, atol=1e-4)
+    np.testing.assert_allclose(clf.b_, jclf.b_, atol=1e-4)
+    np.testing.assert_allclose(clf.objective_, jclf.objective_, atol=1e-4)
+    assert [m for m, _ in clf.history_] == [m for m, _ in jclf.history_]
+    np.testing.assert_allclose([o for _, o in clf.history_],
+                               [o for _, o in jclf.history_], atol=1e-4)
