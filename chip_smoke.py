@@ -27,7 +27,8 @@ no CPU fallback):
        c. reference step: the unpacked kernels (4 launches per step, for
           k=20 and serially) against the packed solves on the same
           coordinates, 80 steps on the Figure 3 data, 1e-5 on w, the dual
-          weights and u; and one block of 4 steps at B=128.
+          weights and u, with the reference chunk's ms per step; and one
+          block of 4 steps at B=128.
        d. above 32,768 features: a hard-margin fit on separable(1500,
           40000), padded to d_pad = 65,536, through ``SaddleSVC.fit``
           (300 steps): its 3 FWHTs take two device passes each (a row
@@ -46,24 +47,29 @@ no CPU fallback):
                    profiler session per group), the plain version's, a
                    one-call PyTorch yardstick and its bound, and the
                    device launches of one call (exactly 1 for a packed
-                   wrapper and the unpacked dot, 1 or 2 passes for the
-                   FWHT as its plan says).  The FWHT also prints its
+                   wrapper and the unpacked dot and MWU, 1 or 2 passes
+                   for the FWHT as its plan says).  The FWHT also prints its
                    variant, whether it equals the plain version bit for
                    bit, and a copy of the same bytes (``out.copy_(x)``)
                    under the same events.
-                   Planted faults must break the tolerance: at the path
-                   shapes for the unpacked kernels (momentum or u
-                   dropped, a client's last point left out), and at every
-                   shape for the packed ones (theta = 0, the last row
-                   group left out of delta, u = 0, the last tile with a
-                   real point left out of the merged (m, s)), whose (m, s)
-                   must also match the plain merge of the per-tile
-                   partials of their own log_new.  Each packed wrapper's
-                   host time, and the unpacked dot's, is split into
+                   The unpacked MWU is also checked normalized, and its
+                   (m, s) against the plain merge of the per-block
+                   partials of its own log_new.  Planted faults must
+                   break the tolerance: at the path shapes for the
+                   unpacked kernels, and at K = 20, n = 2,048, B = 128
+                   for the MWU, whose clients take several blocks
+                   (momentum or u dropped, a client's last point left
+                   out, the last block left out of the merge, log_new
+                   left unnormalized), and at every shape for the packed
+                   ones (theta = 0, the last row group left out of delta,
+                   u = 0, the last tile with a real point left out of the
+                   merged (m, s)), whose (m, s) must also match the plain
+                   merge of the per-tile partials of their own log_new.
+                   Every wrapper's host time but the FWHT's is split into
                    validation, allocation, the ctypes call and the rest
-                   (1,000 calls each).  The
-                   packed kernels alternate between the path shapes for
-                   three rounds: the same bits each round and every
+                   (1,000 calls each).  The packed kernels alternate with
+                   the unpacked ones, which share their ticket counters,
+                   for three rounds: the same bits each round and every
                    ticket counter back at 0.  An out-of-range row index
                    gives NaN, not a fault.
   6. card vs CPU -- a serial fit (n=4,000, d=128, 2,000 iterations) on the
@@ -562,10 +568,15 @@ def reference_path(torch, rec: PathRecorder, fig3):
     idx128 = engine.draw_blocks(g, d, 128, 4, torch.device("cuda"))
     params128 = saddle.make_params(n1 + n2, d, 1e-3, 0.1, block_size=128)
 
-    def counted(fn):
+    def counted(fn, label=None, steps=None):
         before = Counter(ops.launch_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        if label is not None:
+            print(f"  {label}: {(time.perf_counter() - t0) / steps * 1e3:.4f}"
+                  f" ms/step over {steps} steps")
         return out, Counter(ops.launch_counts) - before
 
     def compare(label, got, want, steps, unpacked):
@@ -590,7 +601,8 @@ def reference_path(torch, rec: PathRecorder, fig3):
         (ref, _), c_ref = counted(lambda: dist.run_chunk_sim(
             dist.init_sharded_state(n1, n2, d, mask_p, mask_m,
                                     device="cuda"),
-            xps, xms, iters, params=params, idx=sched_t))
+            xps, xms, iters, params=params, idx=sched_t),
+            f"reference chunk, k={k}", iters)
         pk, c_pk = counted(lambda: dist.solve_distributed(
             pre.xp, pre.xm, k=k, num_iters=iters,
             idx_schedule=sched[:iters], device="cuda"))
@@ -600,7 +612,8 @@ def reference_path(torch, rec: PathRecorder, fig3):
 
         (sref, _), c_sref = counted(lambda: engine.run_chunk(
             saddle.init_state(n1, n2, d, pre.xp), pre.xp, pre.xm,
-            iters, params=params, idx=sched_t))
+            iters, params=params, idx=sched_t), "reference chunk, serial",
+            iters)
         spk, c_spk = counted(lambda: saddle.solve(
             pre.xp, pre.xm, num_iters=iters, idx_schedule=sched[:iters],
             device="cuda"))
@@ -815,8 +828,9 @@ def packed_faults(torch, name, b, args, got, sign) -> dict:
 
 
 def host_split(torch, name, args, calls: int = 1000) -> dict:
-    """A packed wrapper's or the unpacked dot's host time per call,
-    split: its validation (``check_packed`` / ``check_unpacked``), its
+    """A wrapper's host time per call (the unpacked MWU's with
+    ``normalize=False``, as the reference step calls it), split: its
+    validation (``check_packed`` / ``check_unpacked``), its
     allocations (the same ``torch.empty`` calls and workspace look-up),
     the ctypes call of the C launcher with the pointers ready, and the
     rest (geometry, pointers, stream, device check, launch count, views),
@@ -855,6 +869,40 @@ def host_split(torch, name, args, calls: int = 1000) -> dict:
 
         def whole():
             ops.momentum_dot(*args)
+
+        return _split(torch, calls, validate, allocate, call, whole)
+    if name == "mwu_update":
+        cols, ll, u, dw, *scalars = args
+        vecs = dict(log_lam=ll, u=u)
+        lead, n, b = su.check_unpacked(cols, vecs, dw)
+        dev = cols.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        k = lead[0] if lead else 1
+        lanes, points, blocks = su.mwu_update_geometry(k, n, b)
+
+        def validate():
+            su.check_unpacked(cols, vecs, dw)
+
+        def allocate():
+            torch.empty_like(ll)
+            torch.empty_like(u)
+            torch.empty((2, k), dtype=torch.float32, device=dev)
+            su.workspace(dev, k, 2 * k * blocks)
+
+        outs = [torch.empty_like(ll), torch.empty_like(u),
+                torch.empty((2, k), dtype=torch.float32, device=dev)]
+        counters, parts = su.workspace(dev, k, 2 * k * blocks)
+        ptrs = [t.data_ptr() for t in (cols, ll, u, dw)]
+        ptrs2 = [t.data_ptr() for t in (*outs, parts, counters)]
+        scal = [float(v) for v in scalars]
+        vec4 = int(b % 4 == 0 and cols.data_ptr() % 16 == 0)
+
+        def call():
+            lib.mwu_update_f32(*ptrs, *scal, 0, *ptrs2, k, n, b, lanes,
+                               points, vec4, stream)
+
+        def whole():
+            ops.mwu_update(*args, normalize=False)
 
         return _split(torch, calls, validate, allocate, call, whole)
 
@@ -1027,10 +1075,14 @@ def check_packed(torch, timer, g, x_t, sign, b, launches,
 
 
 def ticket_rounds(torch, g, recs, rounds: int = 3):
-    """The packed kernels at the path shapes S = 1, b = 1; S = 1, b = 128
-    and S = 20, b = 1, alternating, for ``rounds`` rounds: the same bits
-    in every round and every ticket counter back at 0 after each round,
-    so a launch leaves the counters as it found them."""
+    """The kernels that share the ticket counters, alternating for
+    ``rounds`` rounds: the packed kernels at the path shapes S = 1, b = 1;
+    S = 1, b = 128 and S = 20, b = 1, and between them the unpacked
+    momentum dot and MWU (both values of ``normalize``) at every shape
+    path c gave them and at K = 20, n = 2,048, B = 128, where every
+    client takes several blocks and a ticket.  The same bits in every
+    round and every ticket counter back at 0 after each round, so a
+    launch leaves the counters as it found them."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import saddle_update as su
 
@@ -1049,6 +1101,21 @@ def ticket_rounds(torch, g, recs, rounds: int = 3):
             *ops.mwu_update_packed(x_t, a["idx"], a["ll"], a["u"], a["dw"],
                                    sign, a["mwu_c"], a["mwu_dot"],
                                    a["d_eff"])))
+    unpacked = [args for rec in recs for (name, _), args in
+                rec.unpacked.items() if name == "mwu_update"]
+    cols = torch.randn((20, 2048, 128), generator=g, device="cuda")
+    unpacked.append((cols, torch.full((20, 2048), -math.log(2048),
+                                      device="cuda"),
+                     0.1 * torch.randn((20, 2048), generator=g,
+                                       device="cuda"),
+                     0.01 * torch.randn((20, 128), generator=g,
+                                        device="cuda"),
+                     1.0, 1e-3, 40.0, 128.0))
+    for i, args in enumerate(unpacked):
+        calls.insert(min(2 * i + 1, len(calls)), lambda args=args: (
+            ops.momentum_dot(args[0], args[1], args[1], 0.5),
+            *ops.mwu_update(*args, normalize=False),
+            *ops.mwu_update(*args, normalize=True)))
     first = None
     dev = operands[shapes[0]][0].device
     for r in range(rounds):
@@ -1060,9 +1127,13 @@ def ticket_rounds(torch, g, recs, rounds: int = 3):
             first = outs
         require(all(torch.equal(p, q) for o, f in zip(outs, first)
                     for p, q in zip(o, f)),
-                f"round {r}: the packed kernels gave other bits")
-    print(f"  ticket counters: {rounds} rounds alternating shapes "
-          f"{shapes}: same bits every round, every counter 0 after each")
+                f"round {r}: the ticket kernels gave other bits")
+    blocks = [su.mwu_update_geometry(a[0].shape[0] if a[0].ndim == 3 else 1,
+                                     *a[0].shape[-2:])[2] for a in unpacked]
+    print(f"  ticket counters: {rounds} rounds alternating the packed "
+          f"kernels at {shapes} with the unpacked ones at "
+          f"{[tuple(a[0].shape) for a in unpacked]} (MWU blocks a client "
+          f"{blocks}): same bits every round, every counter 0 after each")
 
 
 def synthetic_layout(torch, g):
@@ -1165,12 +1236,33 @@ def unpacked_errors(torch, name, got, want, real) -> dict:
             "u": ((got[1] - want[1]).abs().max().item(), 1e-5)}
 
 
+def merged_blocks(torch, cols, log_new, leave_out_last: bool = False):
+    """(m, s) of the unnormalized log weights (..., n) of an unpacked MWU
+    call on ``cols`` by the plain per-block partials of the kernel's
+    geometry merged in block order (``ref.merge_block_partials``): the
+    oracle of the kernel's in-launch merge.  With ``leave_out_last`` each
+    client's last block is left out (given (-1e30, 0)); a client of one
+    block then has nothing left."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.saddle_update import mwu_update_geometry
+
+    n, b = cols.shape[-2:]
+    k = cols.shape[0] if cols.ndim == 3 else 1
+    _, points, _ = mwu_update_geometry(k, n, b)
+    pmax, psum = ref.block_partials(log_new, points)
+    if leave_out_last:
+        pmax, psum = pmax.clone(), psum.clone()
+        pmax[..., -1], psum[..., -1] = -1e30, 0.0
+    return ref.merge_block_partials(pmax, psum)
+
+
 def planted_faults(torch, name, args, want) -> dict:
     """What a faulty kernel would return on these operands, from the
     plain version: momentum_dot with theta taken as 0, or with each
-    client's last real point left out; mwu_update with u left out, or
-    with each client's last real point left out of its tile's (max,
-    sum-exp)."""
+    client's last real point left out; mwu_update with u left out, with
+    each client's last real point left out of its block's (max,
+    sum-exp), or with the merge of its blocks' partials leaving out the
+    last block's."""
     from repro_torch.kernels import ref
 
     last = last_real(torch, args[1])
@@ -1189,21 +1281,28 @@ def planted_faults(torch, name, args, want) -> dict:
     return {"u = 0": ref.mwu_update_ref(cols, ll, torch.zeros_like(u),
                                         *rest, normalize=False),
             "last point left out": (want[0], want[1], m,
-                                    torch.exp(lo - m[..., None]).sum(-1))}
+                                    torch.exp(lo - m[..., None]).sum(-1)),
+            "last block left out of the merge": (want[0], want[1]) +
+            merged_blocks(torch, cols, want[0], leave_out_last=True)}
 
 
 def check_unpacked(torch, timer, g, name, args, launches, label,
-                   on_path: bool):
+                   on_path: bool, faults: bool | None = None):
     """One unpacked kernel on cols (K, n, B) or (n, B) against its plain
-    version (``unpacked_errors``), the same bits on a repeat call, and its
-    times.  Points at log weight -1e30 (round-robin padding of a client
-    shard) are held below -1e20 and left out of the log_new error.  On a
-    path's shape (``on_path``) the recorded call's cols, dw and step
-    scalars get fresh state (``unpacked_state``) and each planted fault
-    (``planted_faults``) must break a tolerance."""
+    version (``unpacked_errors``), the same bits on a repeat call, its
+    host time split (``host_split``) and its times; the MWU also
+    normalized (log_new within 1e-4, u 1e-5), and its (m, s) against the
+    plain merge of its own log_new cut by the kernel's blocks
+    (``merged_blocks``).  Points at log weight -1e30 (round-robin padding
+    of a client shard) are held below -1e20 and left out of the log_new
+    error.  On a path's shape (``on_path``) the recorded call's cols, dw
+    and step scalars get fresh state (``unpacked_state``); there, and
+    wherever ``faults`` asks, each planted fault (``planted_faults``, and
+    for the MWU a log_new left unnormalized) must break a tolerance."""
     from repro_torch.kernels import ops, ref
 
-    if on_path:
+    faults = on_path if faults is None else faults
+    if faults:
         args = unpacked_state(torch, g, name, args)
     cols, ll = args[:2]
     k = cols.shape[0] if cols.ndim == 3 else 1
@@ -1234,32 +1333,61 @@ def check_unpacked(torch, timer, g, name, args, launches, label,
         kernel = "mwu_update_kernel"
     got, want = fn(), plain()
     real = ll > -1e29
+    errs = unpacked_errors(torch, name, got, want, real)
     if name == "mwu_update":
         require((got[0][~real] < -1e20).all().item(),
                 f"{label}: padding not below -1e20")
-    errs = unpacked_errors(torch, name, got, want, real)
+        merged = merged_blocks(torch, cols, got[0])
+        errs["merge"] = ((got[2] + torch.log(got[3]) - merged[0]
+                          - torch.log(merged[1])).abs().max().item(), 1e-4)
+        norm = ops.mwu_update(*args, normalize=True)
+        norm_want = ref.mwu_update_ref(*args, normalize=True)
+        require((norm[0][~real] < -1e20).all().item(),
+                f"{label}: normalized padding not below -1e20")
+        require(all(torch.equal(p, q) for p, q in zip(
+            norm, ops.mwu_update(*args, normalize=True))),
+            f"{label}: normalized, not deterministic")
+
+        def norm_errors(out):
+            return {"normalized log_new": (
+                        (out[0][real] - norm_want[0][real]).abs().max()
+                        .item(), 1e-4),
+                    "normalized u": ((out[1] - norm_want[1]).abs().max()
+                                     .item(), 1e-5)}
+        errs.update(norm_errors(norm))
     require(all(e <= tol for e, tol in errs.values()), f"{label}: {errs}")
     same = (torch.equal(got, fn()) if name == "momentum_dot" else
             all(torch.equal(p, q) for p, q in zip(got, fn())))
     require(same, f"{label}: not deterministic")
-    if on_path:
+    if faults:
         caught = {}
         for fault, out in planted_faults(torch, name, args, want).items():
             ferrs = unpacked_errors(torch, name, out, want, real)
             caught[fault] = max(e / tol for e, tol in ferrs.values())
             require(caught[fault] > 1, f"{label}: the check would pass a "
                     f"kernel with {fault}: {ferrs}")
+        if name == "mwu_update":
+            ferrs = norm_errors((want[0], want[1]))
+            caught["log_new left unnormalized"] = max(
+                e / tol for e, tol in ferrs.values())
+            require(caught["log_new left unnormalized"] > 1,
+                    f"{label}: the check would pass a kernel that leaves "
+                    f"log_new unnormalized: {ferrs}")
         print(f"  {label}: planted faults break the tolerance by "
               + ", ".join(f"{f} {r:.3g}x" for f, r in caught.items()))
-    if name == "momentum_dot":
-        split = host_split(torch, name, args)
-        print(f"  {label}: host ms per call " + ", ".join(
-            f"{k} {v:.4f}" for k, v in split.items()))
+    split = host_split(torch, name, args)
+    print(f"  {label}: errors " + ", ".join(
+        f"{k_} {e:.3e} (tol {tol:.1e})" for k_, (e, tol) in errs.items())
+        + "; host ms per call " + ", ".join(
+            f"{k_} {v:.4f}" for k_, v in split.items()))
     e = entry(name, label, max(err for err, _ in errs.values()), timer(fn),
               timer(plain), library, nbytes=nbytes, ops=ops_)
     e["launches"] = launches
-    # the MWU wrapper merges its kernel's partials with torch ops
-    return e, fn, kernel, 1 if name == "momentum_dot" else None
+    if name == "mwu_update":
+        print(f"  {label}: normalized, wrapper "
+              f"{timer(lambda: ops.mwu_update(*args, normalize=True)):.4f} "
+              f"ms by events")
+    return e, fn, kernel, 1
 
 
 def jax_test_shapes(torch, timer, g):
@@ -1284,6 +1412,13 @@ def jax_test_shapes(torch, timer, g):
                     torch, timer, g, "mwu_update",
                     (cols, lu, u, dw, sign, 1e-3, 40.0, 128.0), None,
                     f",JAX test,sign={sign:+.0f}", False))
+            if lead and (n, b) == (2048, 128):
+                # several blocks a client (the ticket path), with the
+                # planted faults on fresh state
+                jobs.append(check_unpacked(
+                    torch, timer, g, "mwu_update",
+                    (cols, lu, u, dw, 1.0, 1e-3, 40.0, 128.0), None,
+                    ",JAX test,fresh state", False, faults=True))
     return jobs
 
 

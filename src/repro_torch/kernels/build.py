@@ -43,8 +43,8 @@ SIGNATURES = {
                                  + [_I] * 5 + [_P],
         "momentum_dot_f32": [_P, _P, _P, ctypes.c_float, _P, _P, _P]
                             + [_I] * 6 + [_P],
-        "mwu_update_f32": [_P, _P, _P, _P] + [ctypes.c_float] * 4
-                          + [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "mwu_update_f32": [_P] * 4 + [ctypes.c_float] * 4 + [_I]
+                          + [_P] * 5 + [_I] * 6 + [_P],
     },
 }
 

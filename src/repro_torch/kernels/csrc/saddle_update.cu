@@ -77,8 +77,10 @@
 // wrapper pads with a copy at log weight -1e30.
 //
 // Replaces: src/repro/kernels/saddle_update.py,
-//   _momentum_dot_kernel (launched by _momentum_dot_jit) and
-//   _mwu_kernel (launched by _mwu_update_jit).
+//   _momentum_dot_kernel (launched by _momentum_dot_jit, :233) and
+//   _mwu_kernel (:254, launched by _mwu_update_jit, :287), together with
+//   the merges of per-tile partials that the JAX wrappers run outside
+//   their pallas_call.
 //
 // Bound on an H100: bytes again (cols is read once, ~2 flops a float); at
 // the reference step's sizes (K = 20 clients of 250 points) the launch and
@@ -97,12 +99,38 @@
 //     as the packed kernels' do: per-block partials in the wrapper's
 //     workspace, an integer ticket per (client, chunk), the last block
 //     summing in block order.  No float atomics.
-//   * mwu_update: dv_i = cols[i] . dw first, a warp per row when B >= 32
-//     (coalesced row reads, shuffle sum) and a thread per row below; then
-//     v, log_new and u_new per point, and the tile's max and sum of
-//     exp(log_new - max) reduced in the block into partials (K, tiles)
-//     that the wrapper merges into the per-client logsumexp.  The wrapper
-//     picks the tile by B (at most TILE = 1024 points, the Pallas tile).
+//   * mwu_update: ONE launch whose outputs are final: log_new (normalised
+//     or not), u_new and (m, s) (2, K).  Its bound is bytes,
+//     4 K (n (B + 4) + B + 2) over 3.35 TB/s: 0.79 us at K = 20, n = 251,
+//     B = 128, 0.03 us at B = 1.  At these sizes the launch and the DRAM
+//     latency of each dependent step are all, so the design spends as few
+//     of them as it can.  Grid (point block, client) from the wrapper's
+//     mwu_update_geometry: a block takes ``pts`` points (at most
+//     MWU_POINTS, whose dv, log_lam and u fit its shared memory), lpr
+//     lanes a row and 4 columns a lane (one 16-byte load when B % 4 == 0),
+//     each lane with DOT_UNROLL rows' loads in flight and the next batch's
+//     issued before the current one is used; a lane's dw is read once a
+//     block into registers (a row wider than 4 lpr columns takes passes,
+//     whose later dw come from L1).  Blocks split by points only, since
+//     each point's epilogue needs its whole dv; a client of up to two
+//     rounds is one block, a longer one a block a round, so that its
+//     bytes are spread over several SMs (one SM alone moves a 128 KB
+//     client in no less than ~4 us).  The block's log_lam and u are copied
+//     to shared memory by cp.async while the rows arrive, so the epilogue
+//     waits on no second DRAM latency.  A row's lanes meet by a shuffle
+//     tree (the U rows' trees interleaved); the epilogue (a thread a
+//     point, coalesced stores) keeps log_new in shared memory and reduces
+//     the block's max and sum of exp(log_new - max) in a fixed order:
+//     shuffle trees, then warps in warp order.  A client of one block
+//     writes (m, s), and with ``normalize`` log_new - (m + log s), itself:
+//     no merge.  A client of several blocks writes per-block partials to
+//     the workspace and takes an integer ticket by one acquire-release
+//     atomic (no separate fences: the merge costs ~1 us of latency, three
+//     round trips to L2); the last block merges the partials in block
+//     order (m the max of the m_p, s the sum of s_p exp(m_p - m), the JAX
+//     wrapper's merge), resets the counter and, with ``normalize``,
+//     rewrites the client's log_new, read back from L2.  No float atomics:
+//     a repeat call gives the same bits.
 //   * The step scalars arrive as floats; c = 1 / (gamma + d_eff / tau) is
 //     computed in float32 inside, as the Pallas kernel does, and the
 //     elementwise arithmetic is rounded op by op (__fmul_rn / __fadd_rn,
@@ -609,11 +637,12 @@ __global__ void __launch_bounds__(THREADS) mwu_update_packed_kernel(
   }
 }
 
-constexpr int TILE = 1024;          // most points per mwu_update block
 constexpr int DOT_COLS = 128;       // most columns a momentum_dot block covers
 constexpr int DOT_POINTS = 4096;    // most points a momentum_dot block (B > 1)
                                     // takes: their momentum, 16 KB of smem
 constexpr int DOT_UNROLL = 8;       // rows whose loads a lane issues at once
+constexpr int MWU_POINTS = 2048;    // most points a mwu_update block takes:
+                                    // dv, log_lam and u, 24 KB of smem
 
 __device__ __forceinline__ float neg_inf_f32() {
   return __int_as_float(0xff800000);
@@ -774,87 +803,260 @@ __global__ void __launch_bounds__(THREADS) momentum_dot_kernel(
   if (t == 0) counters[slot] = 0;
 }
 
+// global -> shared, 4 bytes, asynchronous (cp.async); completes at
+// cp_async_wait_all in the issuing thread
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// acc + x . w, rounded op by op in column order
+__device__ __forceinline__ float dot4_rn(float acc, float4 x, float4 w) {
+  acc = __fadd_rn(acc, __fmul_rn(x.x, w.x));
+  acc = __fadd_rn(acc, __fmul_rn(x.y, w.y));
+  acc = __fadd_rn(acc, __fmul_rn(x.z, w.z));
+  return __fadd_rn(acc, __fmul_rn(x.w, w.w));
+}
+
+// The block's max (MAX) or sum of v in a fixed order: each warp's shuffle
+// tree, then the warps in warp order; every thread gets the result.
+template <bool MAX>
+__device__ __forceinline__ float block_reduce(float v, float* red,
+                                              float* bc) {
+  v = MAX ? warp_max(v) : warp_sum(v);
+  if (threadIdx.x % WARP == 0) red[threadIdx.x / WARP] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float r = red[0];
+    for (int w = 1; w < WARPS; ++w)
+      r = MAX ? fmaxf(r, red[w]) : __fadd_rn(r, red[w]);
+    *bc = r;
+  }
+  __syncthreads();
+  return *bc;
+}
+
+// The client's ticket, with release and acquire semantics at gpu scope:
+// the calling thread's earlier writes (and those the block's barrier
+// ordered before it) are visible to the block that draws the last
+// ticket, and that block sees every other block's.
+__device__ __forceinline__ int ticket_acq_rel(int* counter) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
+
 // dv_i = cols[k, i, :] . dw[k, :];  v = sign (u + d_eff dv);
 // log_new = c ((d_eff / tau) log_lam - v), c = 1 / (gamma + d_eff / tau);
-// u_new = u + dv;  pmax[k, tile], psum[k, tile] = the tile's max of log_new
-// and sum of exp(log_new - max).
-__global__ void mwu_update_kernel(
+// u_new = u + dv;  ms (2, K) = (m, s), client k's max m of log_new and sum
+// s of exp(log_new - m); with ``normalize`` log_new - (m + log s) is
+// written in place of log_new.  Grid (point block of ``pts`` points,
+// client), lpr lanes a row (see the header).  parts (K, blocks, 2) is
+// scratch and counters (K,) are 0 before and after the launch, both used
+// only when a client has more than one block.  Dynamic shared memory:
+// 3 pts floats (dv then log_new, log_lam, u).  VEC4: B % 4 == 0 and cols
+// 16-byte aligned, one float4 load a lane and row.
+template <bool VEC4>
+__global__ void __launch_bounds__(THREADS) mwu_update_kernel(
     const float* __restrict__ cols, const float* __restrict__ log_lam,
     const float* __restrict__ u, const float* __restrict__ dw, float sign,
-    float gamma, float tau, float d_eff, float* __restrict__ log_new,
-    float* __restrict__ u_new, float* __restrict__ pmax,
-    float* __restrict__ psum, int n, int b, int tile_n) {
-  __shared__ float val[TILE];                // dv, then log_new
+    float gamma, float tau, float d_eff, int normalize,
+    float* __restrict__ log_new, float* __restrict__ u_new,
+    float* __restrict__ ms, float* __restrict__ parts,
+    int* __restrict__ counters, int n, int b, int lpr, int pts) {
+  constexpr int U = DOT_UNROLL;
+  extern __shared__ __align__(16) float dyn[];
+  float* val = dyn;                          // dv, then log_new
+  float* lg_s = dyn + pts;
+  float* u_s = dyn + 2 * pts;
   __shared__ float red[WARPS];
-  __shared__ float bcast;
-  const int tile = blockIdx.x;
-  const int k = blockIdx.y;
-  const int tiles = gridDim.x;
+  __shared__ float bc;
+  __shared__ float lse_s;                    // the merged m + log s
+  __shared__ int is_last;
   const int t = threadIdx.x;
   const int lane = t % WARP;
   const int warp = t / WARP;
-  const int i0 = tile * tile_n;
-  const int tn = min(tile_n, n - i0);
+  const int k = blockIdx.y;
+  const int tn = min(pts, n - (int)blockIdx.x * pts);  // points here
+  const size_t base = (size_t)k * n + (size_t)blockIdx.x * pts;
 
-  const float* c = cols + ((size_t)k * n + i0) * b;
+  // the epilogue's operands, while the rows arrive: thread t copies the
+  // points it reads in the epilogue
+  for (int i = t; i < tn; i += THREADS) {
+    cp_async4(lg_s + i, log_lam + base + i);
+    cp_async4(u_s + i, u + base + i);
+  }
+
+  // dv: lane l takes row l / lpr of its warp's rows and the columns
+  // 4 (l % lpr) + 4 lpr p .. + 3 of pass p; U rows' loads at once, the
+  // next batch's issued before the current one is used
+  const int rows = WARP / lpr;               // rows a warp takes at once
+  const int step = WARPS * rows;             // rows the block takes at once
+  const int batch = U * step;
+  const int grp = lane % lpr;
+  const int passes = (b + 4 * lpr - 1) / (4 * lpr);
+  const float* c = cols + base * b;
   const float* dwk = dw + (size_t)k * b;
-  if (b >= WARP) {
-    for (int i = warp; i < tn; i += WARPS) {
-      const float* row = c + (size_t)i * b;
-      float acc = 0.0f;
-      for (int j = lane; j < b; j += WARP)
-        acc = __fadd_rn(acc, __fmul_rn(row[j], dwk[j]));
-      acc = warp_sum(acc);
-      if (lane == 0) val[i] = acc;
+  auto dw4 = [&](int p) {
+    const int j = 4 * (grp + p * lpr);
+    return make_float4(j < b ? dwk[j] : 0.0f, j + 1 < b ? dwk[j + 1] : 0.0f,
+                       j + 2 < b ? dwk[j + 2] : 0.0f,
+                       j + 3 < b ? dwk[j + 3] : 0.0f);
+  };
+  float4 x[U];
+  // pass p of the lane's rows rb + l / lpr + v step (zeros past the block
+  // or the row)
+  auto load_rows = [&](int rb, int p) {
+    const int j = 4 * (grp + p * lpr);
+    const int left = b - j;                  // columns of the lane's float4
+#pragma unroll
+    for (int v = 0; v < U; ++v) {
+      const int r = rb + lane / lpr + v * step;
+      const float* q = c + (size_t)r * b + j;
+      if (r >= tn || left <= 0) {
+        x[v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else if constexpr (VEC4) {
+        x[v] = load4(q);
+      } else {
+        x[v] = make_float4(q[0], left > 1 ? q[1] : 0.0f,
+                           left > 2 ? q[2] : 0.0f, left > 3 ? q[3] : 0.0f);
+      }
     }
-  } else {
-    for (int i = t; i < tn; i += THREADS) {
-      const float* row = c + (size_t)i * b;
-      float acc = 0.0f;
-      for (int j = 0; j < b; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(row[j], dwk[j]));
-      val[i] = acc;
+  };
+  const float4 w0 = dw4(0);                  // the lane's dw, once a block
+  const int rb0 = warp * rows;               // the warp's first row
+  if (rb0 < tn) load_rows(rb0, 0);
+  for (int rb = rb0; rb < tn; rb += batch) {  // uniform across the warp
+    float acc[U];
+#pragma unroll
+    for (int v = 0; v < U; ++v) acc[v] = 0.0f;
+    for (int p = 0; p < passes; ++p) {
+      const float4 w = p == 0 ? w0 : dw4(p);
+      float4 cur[U];
+#pragma unroll
+      for (int v = 0; v < U; ++v) cur[v] = x[v];
+      if (p + 1 < passes) load_rows(rb, p + 1);
+      else if (rb + batch < tn) load_rows(rb + batch, 0);
+#pragma unroll
+      for (int v = 0; v < U; ++v) acc[v] = dot4_rn(acc[v], cur[v], w);
+    }
+    // a row's lanes by a shuffle tree, the U rows' trees interleaved
+#pragma unroll
+    for (int off = 1; off < WARP; off <<= 1) {
+      if (off < lpr) {
+#pragma unroll
+        for (int v = 0; v < U; ++v)
+          acc[v] = __fadd_rn(acc[v], __shfl_xor_sync(FULL, acc[v], off));
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < U; ++v) {
+      const int r = rb + lane / lpr + v * step;
+      if (grp == 0 && r < tn) val[r] = acc[v];
     }
   }
-  __syncthreads();
+  cp_async_wait_all();
+  __syncthreads();                           // every dv in val
 
+  // the epilogue, a thread a point
   const float ratio = __fdiv_rn(d_eff, tau);
   const float cc = __fdiv_rn(1.0f, __fadd_rn(gamma, ratio));
-  const size_t base = (size_t)k * n + i0;
+  const bool one = gridDim.x == 1;
+  const bool late = one && normalize;        // log_new written normalised
   float mx = neg_inf_f32();
   for (int i = t; i < tn; i += THREADS) {
     const float dv = val[i];
-    const float uu = u[base + i];
+    const float uu = u_s[i];
     const float v = __fmul_rn(sign, __fadd_rn(uu, __fmul_rn(d_eff, dv)));
-    const float ln = __fmul_rn(cc, __fsub_rn(__fmul_rn(ratio,
-                                                       log_lam[base + i]),
-                                             v));
-    log_new[base + i] = ln;
+    const float ln = __fmul_rn(cc, __fsub_rn(__fmul_rn(ratio, lg_s[i]), v));
     u_new[base + i] = __fadd_rn(uu, dv);
+    if (!late) log_new[base + i] = ln;
     val[i] = ln;
     mx = fmaxf(mx, ln);
   }
-  mx = warp_max(mx);
-  if (lane == 0) red[warp] = mx;
-  __syncthreads();
-  if (t == 0) {
-    float m = red[0];
-    for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w]);
-    bcast = m;
-  }
-  __syncthreads();
-  const float m = bcast;
+  // (the reductions' barriers also order the stores above before the
+  // ticket that thread 0 may draw below)
+  const float m = block_reduce<true>(mx, red, &bc);
   float sm = 0.0f;
-  for (int i = t; i < tn; i += THREADS) sm += expf(val[i] - m);
-  sm = warp_sum(sm);
-  __syncthreads();                           // red[] was read by thread 0
-  if (lane == 0) red[warp] = sm;
+  for (int i = t; i < tn; i += THREADS)
+    sm = __fadd_rn(sm, expf(__fsub_rn(val[i], m)));
+  const float s = block_reduce<false>(sm, red, &bc);
+
+  if (one) {                                 // the client's whole (m, s)
+    if (t == 0) {
+      ms[k] = m;
+      ms[gridDim.y + k] = s;
+    }
+    if (late) {
+      const float lse = __fadd_rn(m, logf(s));
+      for (int i = t; i < tn; i += THREADS)
+        log_new[base + i] = __fsub_rn(val[i], lse);
+    }
+    return;
+  }
+
+  // several blocks: thread 0 writes the block's partial and draws the
+  // ticket; the last block's warp 0 merges the partials in block order,
+  // lane l holding blocks l, l + 32, ...
+  const int nb = gridDim.x;
+  float2* pk = reinterpret_cast<float2*>(parts) + (size_t)k * nb;
+  if (warp == 0) {
+    int ticket = 0;
+    if (lane == 0) {
+      pk[blockIdx.x] = make_float2(m, s);
+      ticket = ticket_acq_rel(counters + k);
+    }
+    __syncwarp();                            // lane 0's acquire, for all
+    const bool last = __shfl_sync(FULL, ticket, 0) == nb - 1;
+    if (last) {
+      const float2 none = make_float2(neg_inf_f32(), 0.0f);
+      const float2 q0 = lane < nb ? __ldcg(pk + lane) : none;
+      float mm = q0.x;
+      for (int p = lane + WARP; p < nb; p += WARP)
+        mm = fmaxf(mm, __ldcg(pk + p).x);
+      mm = warp_max(mm);
+      float ss = 0.0f;
+      for (int p0 = 0; p0 < nb; p0 += WARP) {
+        const int p = p0 + lane;
+        const float2 q = p0 == 0 ? q0 : p < nb ? __ldcg(pk + p) : none;
+        const float term =
+            p < nb ? __fmul_rn(q.y, expf(__fsub_rn(q.x, mm))) : 0.0f;
+        const int live = min(WARP, nb - p0);
+        for (int l = 0; l < live; ++l)
+          ss = __fadd_rn(ss, __shfl_sync(FULL, term, l));
+      }
+      if (lane == 0) {
+        ms[k] = mm;
+        ms[gridDim.y + k] = ss;
+        counters[k] = 0;
+        lse_s = __fadd_rn(mm, logf(ss));
+      }
+    }
+    if (lane == 0) is_last = last;
+  }
+  if (!normalize) return;
   __syncthreads();
-  if (t == 0) {
-    float s = red[0];
-    for (int w = 1; w < WARPS; ++w) s += red[w];
-    pmax[(size_t)k * tiles + tile] = m;
-    psum[(size_t)k * tiles + tile] = s;
+  if (!is_last) return;
+  // normalise every block's log_new of the client, read back from L2
+  const float lse = lse_s;
+  float* lk = log_new + (size_t)k * n;
+  for (int i0 = t; i0 < n; i0 += U * THREADS) {
+    float q[U];
+#pragma unroll
+    for (int e = 0; e < U; ++e) {
+      const int i = i0 + e * THREADS;
+      q[e] = i < n ? __ldcg(lk + i) : 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < U; ++e) {
+      const int i = i0 + e * THREADS;
+      if (i < n) lk[i] = __fsub_rn(q[e], lse);
+    }
   }
 }
 
@@ -966,15 +1168,31 @@ extern "C" int momentum_dot_f32(
   return (int)cudaGetLastError();
 }
 
+// log_new, u_new (K, n); ms (2, K) = (m, s); parts scratch of
+// (K, point blocks, 2) floats and counters (K,) zero, both used only when
+// a client has more than one point block; geometry (lpr, pts) as the
+// wrapper's mwu_update_geometry gives it; vec4: b % 4 == 0 and cols
+// 16-byte aligned.
 extern "C" int mwu_update_f32(
     const float* cols, const float* log_lam, const float* u, const float* dw,
-    float sign, float gamma, float tau, float d_eff, float* log_new,
-    float* u_new, float* pmax, float* psum, int num_clients, int n, int b,
-    int tile_n, void* stream) {
-  if (tile_n < 1 || tile_n > TILE) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + tile_n - 1) / tile_n, num_clients);
-  mwu_update_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      cols, log_lam, u, dw, sign, gamma, tau, d_eff, log_new, u_new, pmax,
-      psum, n, b, tile_n);
+    float sign, float gamma, float tau, float d_eff, int normalize,
+    float* log_new, float* u_new, float* ms, float* parts, int* counters,
+    int num_clients, int n, int b, int lpr, int pts, int vec4,
+    void* stream) {
+  if (n < 1 || b < 1 || num_clients < 1 || num_clients > 65535 || pts < 1 ||
+      pts > MWU_POINTS || lpr < 1 || lpr > WARP || (lpr & (lpr - 1)) ||
+      (vec4 && b % 4))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + pts - 1) / pts, num_clients);
+  const size_t smem = 3 * (size_t)pts * sizeof(float);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (vec4)
+    mwu_update_kernel<true><<<grid, THREADS, smem, st>>>(
+        cols, log_lam, u, dw, sign, gamma, tau, d_eff, normalize, log_new,
+        u_new, ms, parts, counters, n, b, lpr, pts);
+  else
+    mwu_update_kernel<false><<<grid, THREADS, smem, st>>>(
+        cols, log_lam, u, dw, sign, gamma, tau, d_eff, normalize, log_new,
+        u_new, ms, parts, counters, n, b, lpr, pts);
   return (int)cudaGetLastError();
 }

@@ -152,3 +152,27 @@ def merge_class_partials(parts: torch.Tensor):
     m_t, s_t = parts[..., 0::2], parts[..., 1::2]         # (S, tiles, 2)
     m = m_t.amax(dim=1)
     return m, (s_t * torch.exp(m_t - m[:, None, :])).sum(dim=1)
+
+
+def block_partials(log_new: torch.Tensor, points: int):
+    """Per-block (max, sum of exp(log_new - max)) of log weights (..., n)
+    cut into blocks of ``points`` points along the last axis (the last
+    block may be shorter): (pmax, psum), each (..., blocks).  These are
+    the partials each point block of the unpacked MWU kernel writes
+    before the client's last block merges them."""
+    n = log_new.shape[-1]
+    blocks = -(-n // points)
+    x = torch.nn.functional.pad(log_new, (0, blocks * points - n),
+                                value=-math.inf)
+    x = x.reshape(*log_new.shape[:-1], blocks, points)
+    pmax = x.amax(dim=-1)
+    return pmax, torch.exp(x - pmax[..., None]).sum(dim=-1)
+
+
+def merge_block_partials(pmax: torch.Tensor, psum: torch.Tensor):
+    """Merge per-block (max, sum-exp) partials (..., blocks) into the
+    (m, s) of the whole point axis, as the JAX wrapper of the unpacked
+    MWU merges its per-tile partials: m the max of the blocks' m, s the
+    sum of their s exp(m_block - m); lse = m + log(s)."""
+    m = pmax.amax(dim=-1)
+    return m, (psum * torch.exp(pmax - m[..., None])).sum(dim=-1)

@@ -4,12 +4,10 @@ The unpacked per-class kernels (:func:`momentum_dot`, :func:`mwu_update`,
 the reference step's four launches) take ``cols`` (n, B), the step's B
 sampled coordinates of n points, and point vectors (n,), or the same with
 a leading client axis K: cols (K, n, B), vectors (K, n), ``dw`` (K, B).
-Any n is taken; the step scalars are python floats.  The momentum dot is
-one launch whose output is final (a client of several point blocks merges
-them inside the launch, as the packed kernels do, through the same
-workspace).  The MWU kernel writes per-tile partials, which its wrapper
-combines here in a fixed order, as the JAX wrapper does outside its
-``pallas_call``.
+Any n is taken; the step scalars are python floats.  Each is one launch
+whose outputs are final, the MWU's normalisation included: a client of
+several point blocks merges them inside the launch, as the packed kernels
+do, through the same workspace.
 
 The packed kernels take a leading slot axis S: ``x_t`` (S, d, n_pad),
 ``idx`` (S, b) int32, point vectors (S, n_pad) and per-slot scalars (S,),
@@ -17,8 +15,8 @@ all float32 except ``idx``.  Each call is one kernel launch whose outputs
 are final: the kernels merge their per-tile partials themselves, the last
 block of a slot taking a ticket from the slot's counter.  The counters and
 the partials' scratch are a workspace per device that the packed wrappers
-and the unpacked momentum dot share, so these kernels assume one stream at
-a time.
+and the unpacked kernels share, so these kernels assume one stream at a
+time.
 
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
 runs the plain version in :mod:`repro_torch.kernels.ref`.
@@ -37,15 +35,17 @@ import torch
 from repro_torch.kernels import build, launch_counts, ref
 
 LANE = 128   # points per kernel tile; packed lengths are multiples of it
-TILE = 1024  # most points per block of the unpacked MWU (Pallas's tile)
 THREADS = 256  # threads per block of every kernel in the source
 DOT_COLS = 128      # most columns a block of the unpacked dot covers
 DOT_POINTS = 4_096  # most points a block of the unpacked dot takes (B > 1):
                     # their momentum in 16 KB of shared memory
-DOT_UNROLL = 8      # rows whose loads a lane of the unpacked dot issues at once
+DOT_UNROLL = 8      # rows whose loads a lane of an unpacked kernel issues
+                    # at once
+MWU_POINTS = 2_048  # most points a block of the unpacked MWU takes: their
+                    # dv, log_lam and u in 24 KB of shared memory
 SMS = 132           # streaming multiprocessors of an H100
-DOT_WAVE = 2 * SMS  # most blocks of the unpacked dot before a block takes
-                    # more rounds
+DOT_WAVE = 2 * SMS  # most blocks of an unpacked kernel before a block
+                    # takes more rounds
 MAX_PACKED_ROWS = 32_768  # b of a packed kernel: its b floats of shared
                           # memory beside a 64 KB ring stay within 227 KB
 
@@ -207,13 +207,6 @@ def mwu_update_packed(x_t: torch.Tensor, idx: torch.Tensor,
     return log_new, u_new, ms[0], ms[1]
 
 
-def unpacked_tile(b: int) -> int:
-    """Points per block of the unpacked MWU for B = ``b`` columns: its row
-    dot is a warp per row (8 warps, 4 rows each) from b = 32 and a thread
-    per row below."""
-    return 32 if b >= 32 else TILE
-
-
 def momentum_dot_geometry(k: int, n: int,
                           b: int) -> tuple[int, int, int, int]:
     """(lanes per row, points per block, point blocks, column chunks) of
@@ -248,6 +241,34 @@ def momentum_dot_geometry(k: int, n: int,
     if b > 1:
         blocks = max(blocks, -(-n // DOT_POINTS))
     return lanes, -(-n // blocks), blocks, chunks(lanes)
+
+
+def mwu_update_geometry(k: int, n: int, b: int) -> tuple[int, int, int]:
+    """(lanes per row, points per block, point blocks) of the unpacked
+    MWU for k clients of n points and B = ``b`` columns.  A warp puts
+    ``lanes`` lanes on a row, each on 4 columns: the widest rows that B
+    fills (one pass over a row up to B = 128).  A block's loads cover
+    THREADS / lanes * DOT_UNROLL rows at once (a round).  Blocks split by
+    points only, at most MWU_POINTS a block.  A client of at most two
+    rounds takes one block, which needs no merge (the reference step's
+    clients of 250 points at B = 1); a longer one takes blocks of one
+    round (those of 251 points at B = 128: 4 blocks), fewer and longer
+    where one-round blocks would make the grid larger than DOT_WAVE (at
+    most two blocks an SM: a third on a few SMs costs more than longer
+    blocks), and twice as many while twice the grid still fits in one
+    wave of the card's SMS and a block keeps a row for every lane (the
+    serial B = 1 call of 5,000 points: 12 blocks); its blocks merge
+    inside the launch."""
+    lanes = min(32, 1 << (-(-b // 4) - 1).bit_length())
+    per_round = THREADS // lanes * DOT_UNROLL
+    if n <= min(2 * per_round, MWU_POINTS):
+        return lanes, n, 1
+    blocks = -(-n // min(per_round, MWU_POINTS))
+    if k * blocks > DOT_WAVE:
+        blocks = max(DOT_WAVE // k, -(-n // MWU_POINTS), 1)
+    while 2 * k * blocks <= SMS and -(-n // (2 * blocks)) >= THREADS // lanes:
+        blocks *= 2
+    return lanes, -(-n // blocks), blocks
 
 
 def check_unpacked(cols: torch.Tensor, vectors: dict[str, torch.Tensor],
@@ -301,31 +322,29 @@ def mwu_update(cols: torch.Tensor, log_lam: torch.Tensor, u: torch.Tensor,
                dw: torch.Tensor, sign: float, gamma: float, tau: float,
                d_eff: float, *, normalize: bool = True):
     """Fused per-class dual update (lines 5-6 of Algorithm 2) and the
-    incremental u.  Returns (log_new normalized, u_new), or with
-    ``normalize=False`` (log_new UNNORMALIZED, u_new, m, s), lse = m +
-    log(s) per client, so a caller can combine the partials across
-    clients before applying them."""
+    incremental u, one launch on CUDA.  Returns (log_new normalized,
+    u_new), or with ``normalize=False`` (log_new UNNORMALIZED, u_new, m,
+    s), lse = m + log(s) per client ((K,) each, scalars without a client
+    axis), so a caller can combine the partials across clients before
+    applying them."""
     lead, n, b = check_unpacked(cols, dict(log_lam=log_lam, u=u), dw)
     scalars = [float(v) for v in (sign, gamma, tau, d_eff)]
     if cols.device.type == "cpu":
         return ref.mwu_update_ref(cols, log_lam, u, dw, *scalars,
                                   normalize=normalize)
     k = lead[0] if lead else 1
-    tile = unpacked_tile(b)
-    tiles = -(-n // tile)
+    lanes, points, blocks = mwu_update_geometry(k, n, b)
     log_new = torch.empty_like(log_lam)
     u_new = torch.empty_like(u)
-    pmax = torch.empty((k, tiles), dtype=torch.float32, device=cols.device)
-    psum = torch.empty_like(pmax)
+    ms = torch.empty((2, k), dtype=torch.float32, device=cols.device)
+    counters, parts = workspace(cols.device, k, 2 * k * blocks)
+    vec4 = b % 4 == 0 and cols.data_ptr() % 16 == 0
     _launch("mwu_update", build.library("saddle_update").mwu_update_f32,
             cols.device, cols.data_ptr(), log_lam.data_ptr(), u.data_ptr(),
-            dw.data_ptr(), *scalars, log_new.data_ptr(), u_new.data_ptr(),
-            pmax.data_ptr(), psum.data_ptr(), k, n, b, tile)
-    # merge the per-tile (max, sum-exp) partials in a fixed order
-    m = pmax.amax(dim=1)
-    s = (psum * torch.exp(pmax - m[:, None])).sum(dim=1)
-    if not lead:
-        m, s = m[0], s[0]
-    if not normalize:
-        return log_new, u_new, m, s
-    return log_new - (m + torch.log(s))[..., None], u_new
+            dw.data_ptr(), *scalars, int(normalize), log_new.data_ptr(),
+            u_new.data_ptr(), ms.data_ptr(), parts.data_ptr(),
+            counters.data_ptr(), k, n, b, lanes, points, int(vec4))
+    m, s = ms if lead else ms[:, 0]
+    if normalize:
+        return log_new, u_new
+    return log_new, u_new, m, s

@@ -383,6 +383,82 @@ def test_momentum_dot_geometry(k, n, b):
         assert blocks == 1
 
 
+@pytest.mark.parametrize("k,n,b", DOT_SHAPES)
+def test_mwu_update_geometry(k, n, b):
+    """The unpacked MWU's point blocks cover every point exactly once
+    (each block non-empty), a block's dv, log_lam and u (3 floats a point)
+    fit its shared memory, the reference step's clients take the blocks
+    the design chose (one block of 250 points at B = 1, four of 63 at
+    B = 128), and the serial B = 1 call of ~5,000 points is spread over
+    more than the 5 blocks of the tiled kernel it replaced."""
+    from repro_torch.kernels import saddle_update as su
+    lanes, points, blocks = su.mwu_update_geometry(k, n, b)
+    assert lanes == min(32, 1 << (-(-b // 4) - 1).bit_length())
+    assert points * blocks >= n > points * (blocks - 1)
+    assert 1 <= points <= su.MWU_POINTS
+    assert 3 * 4 * su.MWU_POINTS <= 48 * 1024
+    rnd = su.THREADS // lanes * su.DOT_UNROLL       # rows one round loads
+    one_round = -(-n // min(rnd, su.MWU_POINTS))     # blocks of one round
+    if blocks == 1:
+        assert n <= 2 * rnd
+    elif k * one_round <= su.DOT_WAVE:
+        assert points <= rnd
+    else:                            # fewer, longer blocks: about one wave
+        assert (k * blocks < su.DOT_WAVE + k
+                or points > su.MWU_POINTS // 2)
+    if k == 20 and n in (250, 251) and b in (1, 128):
+        assert (blocks, points) == ((1, n) if b == 1 else (4, 63))
+    if k == 1 and n in (4_999, 5_001) and b == 1:
+        assert blocks > 5
+
+
+# (k, n, b, pad): the JAX kernel tests' shapes, the reference step's
+# clients (K = 20 of 250 / 251 points) and a client whose last point is
+# round-robin padding
+MERGE_SHAPES = [(1, 17, 1, False), (1, 512, 1, False), (1, 1025, 8, False),
+                (1, 2048, 128, False), (20, 250, 1, False),
+                (20, 251, 128, False), (20, 251, 128, True),
+                (3, 5_001, 1, True)]
+
+
+@pytest.mark.parametrize("k,n,b,pad", MERGE_SHAPES)
+def test_mwu_block_merge_matches_jax(k, n, b, pad):
+    """The plain form of the CUDA kernel's in-launch merge: the plain
+    log_new cut by the geometry's point blocks into per-block (max,
+    sum-exp) partials (``ref.block_partials``), merged in block order by
+    ``ref.merge_block_partials``, gives the plain version's m bit for bit
+    and, per client, JAX's ``mwu_update(normalize=False)`` m and
+    lse = m + log s within 1e-5.  (The two packages' log_new differ by a
+    few float32 ulps, up to 4e-6 here: XLA and PyTorch round the dual
+    update's products differently, so m is not bit-equal across them.)"""
+    import jax
+
+    from repro_torch.kernels import saddle_update as su
+    rng = np.random.default_rng(k * n + b)
+    cols = rng.normal(size=(k, n, b)).astype(np.float32)
+    ll = (rng.normal(size=(k, n)) * 0.5 - np.log(n)).astype(np.float32)
+    u = (rng.normal(size=(k, n)) * 0.1).astype(np.float32)
+    dw = (rng.normal(size=(k, b)) * 0.01).astype(np.float32)
+    if pad:
+        cols[-1, -1], ll[-1, -1], u[-1, -1] = 0.0, NEG, 0.0
+    scal = dict(sign=1.0, gamma=1e-3, tau=40.0, d_eff=128.0)
+    ln, _, m, s = ref.mwu_update_ref(
+        *(torch.from_numpy(a) for a in (cols, ll, u, dw)), *scal.values(),
+        normalize=False)
+    _, points, blocks = su.mwu_update_geometry(k, n, b)
+    pmax, psum = ref.block_partials(ln, points)
+    assert pmax.shape == psum.shape == (k, blocks)
+    mm, ss = ref.merge_block_partials(pmax, psum)
+    assert torch.equal(mm, m)
+    np.testing.assert_allclose(ss.numpy(), s.numpy(), rtol=1e-5)
+    _, _, jm, js = jax.vmap(lambda c, l, uu, w: jops.mwu_update(
+        c, l, uu, w, **scal, normalize=False))(
+        *(jnp.asarray(a) for a in (cols, ll, u, dw)))
+    np.testing.assert_allclose(mm.numpy(), np.asarray(jm), atol=1e-5)
+    np.testing.assert_allclose((mm + torch.log(ss)).numpy(),
+                               np.asarray(jm + jnp.log(js)), atol=1e-5)
+
+
 @pytest.mark.parametrize("normalize", [True, False])
 @pytest.mark.parametrize("sign", [1.0, -1.0])
 @pytest.mark.parametrize("n,b", [(17, 1), (512, 1), (1025, 8), (2048, 128)])
@@ -419,8 +495,9 @@ def test_mwu_update_matches_jax(n, b, sign, normalize):
 def test_unpacked_client_axis_is_per_client(k, n, b):
     """With a leading client axis each client's row is the single-client
     call on that row (no sum over clients), and matches JAX's kernel on
-    it; round-robin padding rows (zero points, log weight -1e30) add
-    exactly 0."""
+    it, unnormalized and normalized (each client by its own logsumexp);
+    round-robin padding rows (zero points, log weight -1e30) add exactly
+    0."""
     rng = np.random.default_rng(k * n + b)
     cols = rng.normal(size=(k, n, b)).astype(np.float32)
     ll = (rng.normal(size=(k, n)) * 0.1 - np.log(k * n)).astype(np.float32)
@@ -434,7 +511,10 @@ def test_unpacked_client_axis_is_per_client(k, n, b):
     delta = ops.momentum_dot(t[0], t[1], t[2], 0.9)
     out = ops.mwu_update(t[0], t[1], t[3], t[4], -1.0, 1e-3, 40.0, 16.0,
                          normalize=False)
+    norm = ops.mwu_update(t[0], t[1], t[3], t[4], -1.0, 1e-3, 40.0, 16.0,
+                          normalize=True)
     assert delta.shape == (k, b) and out[2].shape == out[3].shape == (k,)
+    assert len(norm) == 2 and norm[0].shape == norm[1].shape == (k, n)
     for c in range(k):
         one = ops.momentum_dot(t[0][c], t[1][c], t[2][c], 0.9)
         np.testing.assert_array_equal(delta[c].numpy(), one.numpy())
@@ -453,9 +533,21 @@ def test_unpacked_client_axis_is_per_client(k, n, b):
                                    atol=1e-5)
         np.testing.assert_allclose(float(out[2][c] + torch.log(out[3][c])),
                                    float(jw[2] + jnp.log(jw[3])), atol=1e-4)
+        jn = jops.mwu_update(jnp.asarray(cols[c]), jnp.asarray(ll[c]),
+                             jnp.asarray(u[c]), jnp.asarray(dw[c]),
+                             sign=-1.0, gamma=1e-3, tau=40.0, d_eff=16.0,
+                             normalize=True)
+        np.testing.assert_allclose(norm[0][c, real].numpy(),
+                                   np.asarray(jn[0])[real], atol=1e-4)
+        np.testing.assert_allclose(norm[1][c].numpy(), np.asarray(jn[1]),
+                                   atol=1e-5)
+        one = ops.mwu_update(t[0][c], t[1][c], t[3][c], t[4][c], -1.0, 1e-3,
+                             40.0, 16.0, normalize=True)
+        np.testing.assert_array_equal(norm[0][c].numpy(), one[0].numpy())
     # the padding point's log weight stays finite near -1e30
     assert torch.isfinite(out[0][:, -1]).all()
     assert (out[0][:, -1] < -1e29).all()
+    assert (norm[0][:, -1] < -1e29).all()
 
 
 def _good_unpacked(k=None, n=40, b=4):
