@@ -29,6 +29,13 @@ the card's name and power limit:
   * path a's set-up: ``preprocess.preprocess`` of each serial fit's data
     on the card, wall seconds (median of 5, synchronised).
 
+  * the packed momentum dot and MWU at the shapes of ``chip_smoke.py``'s
+    paths a-e and at b = 32,768 / 32,769 / 40,000 of d = 65,536, on
+    inputs drawn from a fixed seed: wrapper ms by events, kernel device
+    ms, device launches a call, and a SHA-1 of each call's output bytes,
+    so that two trees' outputs can be compared bit for bit; a tree that
+    refuses a shape says so.
+
 The last line is the same numbers as one JSON object.  It imports nothing
 of JAX.
 """
@@ -94,6 +101,87 @@ def reference_chunk(torch, steps: int = 80) -> list[dict]:
     return out
 
 
+# (S, d, n_pad, b, distinct blocks per slot): paths a-d, b above and at
+# a packed block's chunk of rows, and path e's service buckets
+PACKED_SHAPES = ((1, 512, 50_048, 1, False), (1, 256, 20_096, 128, False),
+                 (20, 256, 512, 1, False), (20, 512, 384, 1, False),
+                 (20, 256, 512, 128, False), (1, 256, 10_112, 1, False),
+                 (1, 65_536, 1_536, 1, False),
+                 (1, 65_536, 1_536, 32_768, False),
+                 (1, 65_536, 1_536, 32_769, False),
+                 (1, 65_536, 1_536, 40_000, False),
+                 (8, 256, 4_096, 1, True), (8, 256, 8_192, 1, True),
+                 (8, 512, 8_192, 1, True))
+
+
+def packed_kernels(torch, timer) -> list[dict]:
+    """Both packed kernels at PACKED_SHAPES on seeded inputs (points in
+    the unit ball, per-class log weights near uniform, the main path's
+    step scalars): wrapper ms, device ms and launches a call, and the
+    SHA-1 of each call's outputs."""
+    import hashlib
+    import math
+
+    from repro_torch.core import engine, saddle
+    from repro_torch.kernels import ops
+
+    rows, jobs = [], []
+    for k, (s, d, n_pad, b, distinct) in enumerate(PACKED_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(k)
+        dev = torch.device("cuda")
+        n1, n2 = n_pad // 3, n_pad // 2
+        x_t = torch.randn((s, d, n_pad), generator=g, device=dev)
+        x_t *= 1.0 / math.sqrt(d)
+        x_t[:, :, n1 + n2:] = 0.0
+        sign = torch.zeros((s, n_pad), device=dev)
+        sign[:, :n1], sign[:, n1:n1 + n2] = 1.0, -1.0
+        noise = 0.1 * torch.randn((s, n_pad), generator=g, device=dev)
+        ll = torch.where(sign > 0, -math.log(n1) + noise,
+                         torch.where(sign < 0, -math.log(n2) + noise,
+                                     torch.full_like(noise, -1e30)))
+        lp = ll + 0.05 * torch.randn((s, n_pad), generator=g,
+                                     device=dev) * (sign != 0)
+        u = 0.1 * torch.randn((s, n_pad), generator=g, device=dev)
+        dw = 0.01 * math.sqrt(min(1.0, 128 / b)) * torch.randn(
+            (s, b), generator=g, device=dev)
+        perms = [torch.randperm(d, generator=g, device=dev)[:b]
+                 for _ in range(s if distinct else 1)]
+        idx = torch.stack(perms).expand(s, b).to(torch.int32).contiguous()
+        sp = engine.stack_slot_params([engine.slot_params_row(
+            saddle.make_params(n1 + n2, d, 1e-3, 0.1, block_size=b))] * s,
+            dev)
+        for name, args in (
+                ("momentum_dot_packed", (x_t, idx, ll, lp, sign, sp.theta)),
+                ("mwu_update_packed", (x_t, idx, ll, u, dw, sign, sp.mwu_c,
+                                       sp.mwu_dot, d / b))):
+            fn = getattr(ops, name)
+            row = dict(kernel=name, s=s, d=d, n_pad=n_pad, b=b)
+            try:
+                out = fn(*args)
+            except ValueError as err:
+                print(f"  {name} S={s} d={d} n_pad={n_pad} b={b}: refused "
+                      f"({err})")
+                rows.append(dict(row, refused=str(err)))
+                continue
+            outs = (out,) if isinstance(out, torch.Tensor) else out
+            torch.cuda.synchronize()
+            row["sha1"] = hashlib.sha1(b"".join(
+                o.cpu().numpy().tobytes() for o in outs)).hexdigest()
+            row["ms"] = timer(lambda fn=fn, args=args: fn(*args))
+            rows.append(row)
+            jobs.append((lambda fn=fn, args=args: fn(*args),
+                         name + "_kernel", row))
+        del x_t
+    dev_ms = timer.device_ms([(fn, kernel) for fn, kernel, _ in jobs])
+    for (_, _, row), (ms, _, per_call) in zip(jobs, dev_ms):
+        row["device_ms"], row["device_launches"] = ms, per_call
+        print(f"  {row['kernel']} S={row['s']} d={row['d']} n_pad="
+              f"{row['n_pad']} b={row['b']}: wrapper {row['ms']:.4f} ms, "
+              f"kernel device {ms:.4f} ms ({per_call:.2f} device launches a"
+              f" call), output sha1 {row['sha1'][:16]}")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
@@ -116,7 +204,7 @@ def main() -> int:
     timer = chip_smoke.Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(0)
     out = dict(tag=args.tag, card=card, fwht=[], momentum_dot=[],
-               mwu_update=[], reference_chunk=[], setup=[])
+               mwu_update=[], reference_chunk=[], setup=[], packed=[])
     print(f"{args.tag}: {card}, torch {torch.__version__}")
 
     data = [synthetic.non_separable(50_000, 512, beta2=0.2, seed=50_000),
@@ -231,6 +319,7 @@ def main() -> int:
         print(f"  preprocess n={len(ds.y)} d={ds.x.shape[1]}: {med:.4f} s "
               f"(median of 5 after a warm call)")
         out["setup"].append(dict(n=len(ds.y), d=ds.x.shape[1], s=med))
+    out["packed"] = packed_kernels(torch, timer)
     print(json.dumps(out))
     return 0
 

@@ -34,6 +34,13 @@
 //     row of the block is in flight at once (64 KB); a larger b refills a
 //     stage once all warps are done with it.  The warps read rows from
 //     shared memory while later stages are still arriving.
+//   * Any b from 1 to d: after the ring the block keeps the sampled rows'
+//     indices (dot) or dw (MWU) in shared memory, all b of them up to
+//     CHUNK_ROWS = 32,768 (128 KB), else a chunk of CHUNK_ROWS at a time,
+//     reloaded by the whole block at the stage where the next chunk
+//     starts (the ring's copies take their row indices from global
+//     memory, so they need not wait).  The rows are summed in the same
+//     order either way.
 //   * Reductions across blocks happen inside the kernel, in a fixed
 //     order: each block writes per-tile partials to scratch, fences, and
 //     takes an integer ticket from its slot's counter (atomicAdd); the
@@ -151,6 +158,16 @@ constexpr int THREADS = 256;        // threads per block, every kernel here
 constexpr int WARPS = THREADS / WARP;
 constexpr int STAGE_FLOATS = 4096;  // one 16 KB stage of the row ring
 constexpr int MAX_STAGES = 4;       // ring depth: 64 KB
+constexpr int CHUNK_ROWS = 32768;   // sampled rows whose indices (dot) or
+                                    // dw (MWU) a packed block holds in
+                                    // shared memory at once, after the ring
+constexpr int MAX_SMEM = 232448;    // shared memory a block may use (227 KB)
+static_assert(CHUNK_ROWS % (STAGE_FLOATS / LANE) == 0,
+              "a chunk ends where a stage of the ring ends, at any T");
+static_assert(MAX_STAGES * STAGE_FLOATS * 4 + CHUNK_ROWS * 4 + 8192 <=
+                  MAX_SMEM,
+              "the ring and one chunk, beside the kernels' static shared "
+              "memory (under 8 KB), fit a block");
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -271,23 +288,35 @@ struct RowRing {
       if (k < nbuf) issue(k, lane, row[k]);
   }
 
-  // every thread: for each stage, wait for it, call fn(j, x) for the rows
-  // j of row group g, x the float4 of the lane's points of its tile in
-  // row j, then refill the stage once every warp is done with it
-  template <class Fn>
+  // every thread: for each stage, wait for it, call fn(j, c, x) for the
+  // rows j of row group g, c = j % CHUNK_ROWS the row's place in the
+  // block's chunk of indices or dw, x the float4 of the lane's points of
+  // its tile in row j, then refill the stage once every warp is done with
+  // it.  Where a stage starts a new chunk (b > CHUNK_ROWS only; chunks end
+  // on stage boundaries), every warp is first done with the last chunk
+  // and reload(j0) fills the chunk of rows from j0.  The ring's copies
+  // read their row indices from global memory, so stages in flight do
+  // not wait for the reload.
+  template <class Reload, class Fn>
   __device__ void walk(int g, int groups, int tile, bool active,
-                       Fn fn) const {
+                       Reload reload, Fn fn) const {
     const int lane = threadIdx.x % WARP;
     for (int k = 0; k < stages; ++k) {
-      mbar_wait(&full[k % nbuf], (k / nbuf) & 1);
       const int j0 = k * rows;
+      if (j0 > 0 && j0 % CHUNK_ROWS == 0) {
+        __syncthreads();
+        reload(j0);
+        __syncthreads();
+      }
+      mbar_wait(&full[k % nbuf], (k / nbuf) & 1);
       const int n = min(rows, b - j0);
+      const int c0 = j0 % CHUNK_ROWS;
       const float* st = buf + (k % nbuf) * STAGE_FLOATS + tile * LANE +
                         lane * 4;
       if (active) {
 #pragma unroll 4
         for (int r = g; r < n; r += groups)
-          fn(j0 + r, load4(st + r * tpb * LANE));
+          fn(j0 + r, c0 + r, load4(st + r * tpb * LANE));
       }
       if (k + nbuf < stages) {
         __syncthreads();
@@ -403,11 +432,13 @@ __global__ void __launch_bounds__(THREADS) momentum_dot_packed_kernel(
   if (warp == 0) R.start(lane);
 
   // the rows' indices, after the ring, for the range check of each dot
-  // (by warps 1-7, while warp 0 starts the ring)
+  // (by warps 1-7, while warp 0 starts the ring): the first chunk of
+  // CHUNK_ROWS, the later ones loaded by the walk
   int* ids_s = reinterpret_cast<int*>(ring + nbuf * STAGE_FLOATS);
+  const int* ids_g = idx + (size_t)s * b;
   if (warp > 0) {
-    for (int j = t - WARP; j < b; j += THREADS - WARP)
-      ids_s[j] = idx[(size_t)s * b + j];
+    for (int j = t - WARP; j < min(b, CHUNK_ROWS); j += THREADS - WARP)
+      ids_s[j] = ids_g[j];
   }
   // the block's momentum, once
   if (mine) {
@@ -426,12 +457,18 @@ __global__ void __launch_bounds__(THREADS) momentum_dot_packed_kernel(
                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const int bp = (b + 3) & ~3;
   float* part = parts + ((size_t)s * tiles + tile0 + tile) * bp;
-  R.walk(warp / tpb, groups, tile, active, [&](int j, float4 xv) {
-    float acc = xv.x * mom.x + xv.y * mom.y + xv.z * mom.z + xv.w * mom.w;
-    acc = warp_sum(acc);
-    if (lane == 0)
-      part[j] = (unsigned)ids_s[j] < (unsigned)d ? acc : nan_f32();
-  });
+  R.walk(warp / tpb, groups, tile, active,
+         [&](int j0) {
+           for (int j = t; j < min(CHUNK_ROWS, b - j0); j += THREADS)
+             ids_s[j] = ids_g[j0 + j];
+         },
+         [&](int j, int c, float4 xv) {
+           float acc = xv.x * mom.x + xv.y * mom.y + xv.z * mom.z +
+                       xv.w * mom.w;
+           acc = warp_sum(acc);
+           if (lane == 0)
+             part[j] = (unsigned)ids_s[c] < (unsigned)d ? acc : nan_f32();
+         });
   // the partials are read back by bulk copies (the async proxy)
   asm volatile("fence.proxy.async.global;" ::: "memory");
   if (!last_block(counters + s, &is_last)) return;
@@ -537,13 +574,15 @@ __global__ void __launch_bounds__(THREADS) mwu_update_packed_kernel(
   }
   if (warp == 0) R.start(lane);
 
-  // dw after the ring, and whether any row index is out of range (by
+  // dw after the ring (its first chunk of CHUNK_ROWS, the later ones
+  // loaded by the walk), and whether any row index is out of range (by
   // warps 1-7, while warp 0 starts the ring)
   float* dw_s = ring + nbuf * STAGE_FLOATS;
+  const float* dw_g = dw + (size_t)s * b;
   bool bad = false;
   if (warp > 0) {
     for (int j = t - WARP; j < b; j += THREADS - WARP) {
-      dw_s[j] = dw[(size_t)s * b + j];
+      if (j < CHUNK_ROWS) dw_s[j] = dw_g[j];
       bad = bad || (unsigned)idx[(size_t)s * b + j] >= (unsigned)d;
     }
   }
@@ -552,9 +591,15 @@ __global__ void __launch_bounds__(THREADS) mwu_update_packed_kernel(
   const int tile = warp % tpb;
   const int groups = WARPS / tpb;
   float4 dv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // each row group's dv sums its rows in the order j = g, g + G, ...
+  // across chunk boundaries, as one buffer of all b rows would
   R.walk(warp / tpb, groups, tile, tile < tiles_here,
-         [&](int j, float4 xv) {
-           const float w = dw_s[j];
+         [&](int j0) {
+           for (int j = t; j < min(CHUNK_ROWS, b - j0); j += THREADS)
+             dw_s[j] = dw_g[j0 + j];
+         },
+         [&](int, int c, float4 xv) {
+           const float w = dw_s[c];
            dv.x += xv.x * w;
            dv.y += xv.y * w;
            dv.z += xv.z * w;
@@ -1063,7 +1108,10 @@ __global__ void __launch_bounds__(THREADS) mwu_update_kernel(
 constexpr int MAX_DEVICES = 64;
 
 // Dynamic shared memory of a packed block: its row ring (one stage per
-// 32 / T rows, at most MAX_STAGES) and the b row indices or dw after it.
+// 32 / T rows, at most MAX_STAGES) and after it the row indices or dw of
+// one chunk: all b rows up to CHUNK_ROWS, else CHUNK_ROWS at a time.  At
+// most 64 KB + 128 KB (the static_assert above); the Python wrapper
+// mirrors both (saddle_update.packed_ring_stages / packed_smem).
 int ring_stages(int b, int tpb) {
   const int rows = STAGE_FLOATS / (tpb * LANE);
   const int stages = (b + rows - 1) / rows;
@@ -1071,8 +1119,9 @@ int ring_stages(int b, int tpb) {
 }
 
 size_t packed_smem(int b, int nbuf) {
+  const int chunk = b < CHUNK_ROWS ? b : CHUNK_ROWS;
   return (size_t)nbuf * STAGE_FLOATS * sizeof(float) +
-         ((size_t)b * sizeof(float) + 15) / 16 * 16;
+         ((size_t)chunk * sizeof(float) + 15) / 16 * 16;
 }
 
 // Dynamic shared memory above 48 KB must be allowed per kernel and
@@ -1107,6 +1156,7 @@ extern "C" int momentum_dot_packed_f32(
   if (!valid_tpb(tpb)) return (int)cudaErrorInvalidValue;
   const int nbuf = ring_stages(b, tpb);
   const size_t smem = packed_smem(b, nbuf);
+  if (b < 1 || b > d || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int err = allow_smem((const void*)momentum_dot_packed_kernel,
                              allowed, smem);
   if (err) return err;
@@ -1129,6 +1179,7 @@ extern "C" int mwu_update_packed_f32(
   if (!valid_tpb(tpb)) return (int)cudaErrorInvalidValue;
   const int nbuf = ring_stages(b, tpb);
   const size_t smem = packed_smem(b, nbuf);
+  if (b < 1 || b > d || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int err = allow_smem((const void*)mwu_update_packed_kernel,
                              allowed, smem);
   if (err) return err;

@@ -10,13 +10,13 @@ several point blocks merges them inside the launch, as the packed kernels
 do, through the same workspace.
 
 The packed kernels take a leading slot axis S: ``x_t`` (S, d, n_pad),
-``idx`` (S, b) int32, point vectors (S, n_pad) and per-slot scalars (S,),
-all float32 except ``idx``.  Each call is one kernel launch whose outputs
-are final: the kernels merge their per-tile partials themselves, the last
-block of a slot taking a ticket from the slot's counter.  The counters and
-the partials' scratch are a workspace per device that the packed wrappers
-and the unpacked kernels share, so these kernels assume one stream at a
-time.
+``idx`` (S, b) int32 with any b from 1 to d, point vectors (S, n_pad) and
+per-slot scalars (S,), all float32 except ``idx``.  Each call is one kernel
+launch whose outputs are final: the kernels merge their per-tile partials
+themselves, the last block of a slot taking a ticket from the slot's
+counter.  The counters and the partials' scratch are a workspace per
+device that the packed wrappers and the unpacked kernels share, so these
+kernels assume one stream at a time.
 
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
 runs the plain version in :mod:`repro_torch.kernels.ref`.
@@ -46,8 +46,13 @@ MWU_POINTS = 2_048  # most points a block of the unpacked MWU takes: their
 SMS = 132           # streaming multiprocessors of an H100
 DOT_WAVE = 2 * SMS  # most blocks of an unpacked kernel before a block
                     # takes more rounds
-MAX_PACKED_ROWS = 32_768  # b of a packed kernel: its b floats of shared
-                          # memory beside a 64 KB ring stay within 227 KB
+# The packed kernels' dynamic shared memory, as csrc/saddle_update.cu sizes
+# it: a ring of up to MAX_STAGES stages of STAGE_FLOATS floats, then the
+# sampled rows' indices (dot) or dw (MWU), CHUNK_ROWS of them at a time.
+STAGE_FLOATS = 4_096
+MAX_STAGES = 4
+CHUNK_ROWS = 32_768
+MAX_SMEM = 232_448  # bytes of shared memory an H100 block may use
 
 
 def _check_f32(name: str, t: torch.Tensor, shape: tuple,
@@ -96,9 +101,6 @@ def check_packed(x_t: torch.Tensor, idx: torch.Tensor,
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"packed kernels run on cuda or cpu, not {dev}")
     cuda = kind == "cuda"
-    if cuda and b > MAX_PACKED_ROWS:
-        raise ValueError(f"the packed CUDA kernels take at most "
-                         f"{MAX_PACKED_ROWS} sampled rows, got b={b}")
     _check_f32("x_t", x_t, (s, d, n_pad), dev, aligned=cuda)
     for name, t in vectors.items():
         _check_f32(name, t, (s, n_pad), dev, aligned=cuda)
@@ -117,6 +119,21 @@ def packed_tiles_per_block(b: int) -> int:
     than rows), so b = 1 spreads a block over 8 tiles and b >= 8 puts all
     8 warps on one tile."""
     return 1 if b >= 8 else 2 if b >= 4 else 4 if b >= 2 else 8
+
+
+def packed_ring_stages(b: int, tpb: int) -> int:
+    """Stages of a packed block's row ring (``ring_stages`` in the CUDA
+    source): one per 32 / T rows, at most MAX_STAGES."""
+    rows = STAGE_FLOATS // (tpb * LANE)
+    return min(-(-b // rows), MAX_STAGES)
+
+
+def packed_smem(b: int) -> int:
+    """Bytes of dynamic shared memory of a packed block for b sampled rows
+    (``packed_smem`` in the CUDA source): the ring, then one chunk of the
+    rows' indices or dw, all b up to CHUNK_ROWS, rounded up to 16 bytes."""
+    nbuf = packed_ring_stages(b, packed_tiles_per_block(b))
+    return nbuf * STAGE_FLOATS * 4 + -(-min(b, CHUNK_ROWS) * 4 // 16) * 16
 
 
 # device index -> (counters (S,) int32, zero between launches; scratch)

@@ -297,6 +297,84 @@ def test_packed_block_geometry(b):
     assert (tiles == 1) == (b >= 8)
 
 
+@pytest.mark.parametrize("b", [1, 32_768, 32_769, 40_000, 65_536])
+def test_packed_chunk_geometry(b):
+    """A packed block holds the ring and one chunk of the sampled rows'
+    indices or dw in at most 232,448 bytes of shared memory, by the CUDA
+    source's formula (mirrored as packed_smem): all b rows up to
+    CHUNK_ROWS, CHUNK_ROWS at a time above, a chunk ending where a stage
+    of the ring ends."""
+    from repro_torch.kernels import saddle_update as su
+    tpb = su.packed_tiles_per_block(b)
+    rows = su.STAGE_FLOATS // (tpb * su.LANE)
+    nbuf = su.packed_ring_stages(b, tpb)
+    assert 1 <= nbuf <= su.MAX_STAGES and nbuf == min(-(-b // rows), 4)
+    assert su.CHUNK_ROWS % rows == 0
+    chunk = min(b, su.CHUNK_ROWS)
+    assert su.packed_smem(b) == nbuf * 16_384 + -(-chunk * 4 // 16) * 16
+    assert su.packed_smem(b) <= su.MAX_SMEM
+    assert -(-b // chunk) == (1 if b <= 32_768 else 2)
+
+
+def test_check_packed_takes_b_above_32768():
+    """No cap on the sampled rows below d: the wrapper's check takes
+    b = 40,000 of d = 65,536 (the CUDA kernels walk the rows in chunks)."""
+    from repro_torch.kernels import saddle_update as su
+    assert not hasattr(su, "MAX_PACKED_ROWS")
+    s, d, n_pad, b = 1, 65_536, 128, 40_000
+    x_t = torch.zeros((s, d, n_pad))
+    idx = torch.arange(b, dtype=torch.int32)[None]
+    vec = torch.zeros((s, n_pad))
+    assert su.check_packed(x_t, idx, dict(sign=vec), dict(
+        theta=torch.ones(s)), rows=dict(dw=torch.zeros((s, b)))) == (
+            s, d, n_pad, b)
+
+
+def test_packed_plain_versions_above_32768_rows_match_jax():
+    """Both packed plain versions at b = 40,000 sampled rows of d = 65,536
+    (S = 2, n_pad = 128), each slot against the JAX package's jnp oracle
+    on the same inputs: the reference the card holds the chunked kernels
+    to.  The points are scaled into the unit ball, as Algorithm 1 leaves
+    them (coordinates ~ 1 / sqrt(d)): with unit Gaussian coordinates the
+    40,000-term sums of the two float32 versions differ by 1e-3 in an
+    order of summation neither package fixes."""
+    rng = np.random.default_rng(40_000)
+    s, d, n_pad, b, n1, n2 = 2, 65_536, 128, 40_000, 40, 50
+    probs = [_packed_problem(rng, n_pad, n1, n2, d, b) for _ in range(s)]
+    x_t, sign, ll, idx = (np.stack([p[i] for p in probs]) for i in range(4))
+    x_t *= np.float32(1.0 / np.sqrt(d))
+    lp = (ll + 0.05 * rng.normal(size=(s, n_pad)) * (sign != 0)).astype(
+        np.float32)
+    u = (0.1 * rng.normal(size=(s, n_pad))).astype(np.float32)
+    dw = (0.01 * rng.normal(size=(s, b))).astype(np.float32)
+    theta = np.float32(0.95)
+    gamma, tau, d_eff = 1e-3, 40.0, float(d) / b
+    t = [torch.from_numpy(a) for a in (x_t, idx, ll, lp, sign, u, dw)]
+    delta = ops.momentum_dot_packed(t[0], t[1], t[2], t[3], t[4],
+                                    torch.full((s,), theta))
+    got = ops.mwu_update_packed(
+        t[0], t[1], t[2], t[5], t[6], t[4],
+        torch.full((s,), 1.0 / (gamma + d_eff / tau)),
+        torch.full((s,), d_eff / tau), d_eff)
+    for k in range(s):
+        args = [jnp.asarray(a[k]) for a in (x_t, idx, ll)]
+        want = jref.momentum_dot_packed_ref(*args, jnp.asarray(lp[k]),
+                                            jnp.asarray(sign[k]), theta)
+        np.testing.assert_allclose(delta[k].numpy(), np.asarray(want),
+                                   atol=1e-4)
+        want = [np.asarray(w) for w in jref.mwu_update_packed_ref(
+            *args, jnp.asarray(u[k]), jnp.asarray(dw[k]),
+            jnp.asarray(sign[k]), gamma, tau, d_eff)]
+        n = n1 + n2
+        np.testing.assert_allclose(got[0][k, :n].numpy(), want[0][:n],
+                                   atol=1e-4)
+        np.testing.assert_allclose(got[1][k].numpy(), want[1], atol=1e-5)
+        lse = (got[2][k] + torch.log(got[3][k])).numpy()
+        np.testing.assert_allclose(
+            lse, [float(want[2]) + np.log(float(want[3])),
+                  float(want[4]) + np.log(float(want[5]))], atol=1e-4)
+
+
 def test_packed_workspace_grows_and_keeps_counters_zero():
     """The packed kernels' per-device workspace: zeroed counters, grown
     (never shrunk) when a call needs more slots or scratch."""

@@ -12,6 +12,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import engine as jengine
 from repro.core import saddle as jsaddle
@@ -175,7 +176,8 @@ def test_cuda_without_a_card_raises_instead_of_falling_back():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.core.svm, "
-            "repro_torch.convert, repro_torch.data.synthetic; "
+            "repro_torch.convert, repro_torch.data.synthetic, "
+            "repro_torch.serve.solver_service; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")
@@ -228,3 +230,31 @@ def test_fit_above_32768_features_replays_jax():
     assert [m for m, _ in clf.history_] == [m for m, _ in jclf.history_]
     np.testing.assert_allclose([o for _, o in clf.history_],
                                [o for _, o in jclf.history_], atol=1e-4)
+
+
+def test_large_block_solve_amplifies_rounding():
+    """With a block of most of the coordinates (640 of 1,024), the paper's
+    step sizes make the solve sensitive to rounding: a relative change of
+    1e-7 in the data moves w by under 1e-6 over 16 steps but by more than
+    1e-3 over 200, where a block of 16 stays under 1e-6.  So a card run at
+    such a block (chip_smoke.py's path d at B = 40,000) can be replayed on
+    the CPU over its first steps only."""
+    ds = synthetic.separable(200, 1000, seed=1000)
+    xp, xm = ds.x[ds.y > 0], ds.x[ds.y < 0]
+    pre = pp.preprocess(xp, xm, generator=torch.Generator().manual_seed(0),
+                        device=CPU)
+    rng = np.random.default_rng(0)
+    jitter = 1 + 1e-7 * torch.randn(
+        pre.xp.shape, generator=torch.Generator().manual_seed(1))
+    moved = {}
+    for b in (640, 16):
+        sched = np.stack([rng.choice(1024, b, replace=False)
+                          for _ in range(200)]).astype(np.int32)
+        for steps in (16, 200):
+            kw = dict(num_iters=steps * b, block_size=b,
+                      idx_schedule=sched[:steps], device=CPU)
+            w = [saddle.solve(xp_t, pre.xm, **kw).state.w
+                 for xp_t in (pre.xp, pre.xp * jitter)]
+            moved[b, steps] = (w[0] - w[1]).abs().max().item()
+    assert moved[640, 16] < 1e-6 and moved[640, 200] > 1e-3, moved
+    assert moved[16, 200] < 1e-6, moved
