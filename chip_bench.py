@@ -32,9 +32,11 @@ the card's name and power limit:
   * the packed momentum dot and MWU at the shapes of ``chip_smoke.py``'s
     paths a-e and at b = 32,768 / 32,769 / 40,000 of d = 65,536, on
     inputs drawn from a fixed seed: wrapper ms by events, kernel device
-    ms, device launches a call, and a SHA-1 of each call's output bytes,
-    so that two trees' outputs can be compared bit for bit; a tree that
-    refuses a shape says so.
+    ms, device launches a call, the plain version's ms by events (the
+    tree's ``kernels.ref``), for the dot where every slot shares one
+    block the one-call yardstick ``x_t[:, idx] @ mom`` by events, and a
+    SHA-1 of each call's output bytes, so that two trees' outputs can be
+    compared bit for bit; a tree that refuses a shape says so.
 
 The last line is the same numbers as one JSON object.  It imports nothing
 of JAX.
@@ -123,7 +125,7 @@ def packed_kernels(torch, timer) -> list[dict]:
     import math
 
     from repro_torch.core import engine, saddle
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
 
     rows, jobs = [], []
     for k, (s, d, n_pad, b, distinct) in enumerate(PACKED_SHAPES):
@@ -150,10 +152,15 @@ def packed_kernels(torch, timer) -> list[dict]:
         sp = engine.stack_slot_params([engine.slot_params_row(
             saddle.make_params(n1 + n2, d, 1e-3, 0.1, block_size=b))] * s,
             dev)
-        for name, args in (
-                ("momentum_dot_packed", (x_t, idx, ll, lp, sign, sp.theta)),
+        lam = torch.exp(ll)
+        mom = sign * (lam + sp.theta[:, None] * (lam - torch.exp(lp)))
+        for name, args, library in (
+                ("momentum_dot_packed", (x_t, idx, ll, lp, sign, sp.theta),
+                 None if distinct else
+                 (lambda x_t=x_t, i=idx[0].long(), mom=mom:
+                  x_t[:, i] @ mom[..., None])),
                 ("mwu_update_packed", (x_t, idx, ll, u, dw, sign, sp.mwu_c,
-                                       sp.mwu_dot, d / b))):
+                                       sp.mwu_dot, d / b), None)):
             fn = getattr(ops, name)
             row = dict(kernel=name, s=s, d=d, n_pad=n_pad, b=b)
             try:
@@ -168,6 +175,9 @@ def packed_kernels(torch, timer) -> list[dict]:
             row["sha1"] = hashlib.sha1(b"".join(
                 o.cpu().numpy().tobytes() for o in outs)).hexdigest()
             row["ms"] = timer(lambda fn=fn, args=args: fn(*args))
+            plain = getattr(ref, name + "_ref")
+            row["plain_ms"] = timer(lambda p=plain, args=args: p(*args))
+            row["library_ms"] = None if library is None else timer(library)
             rows.append(row)
             jobs.append((lambda fn=fn, args=args: fn(*args),
                          name + "_kernel", row))
@@ -175,10 +185,13 @@ def packed_kernels(torch, timer) -> list[dict]:
     dev_ms = timer.device_ms([(fn, kernel) for fn, kernel, _ in jobs])
     for (_, _, row), (ms, _, per_call) in zip(jobs, dev_ms):
         row["device_ms"], row["device_launches"] = ms, per_call
+        lib = row["library_ms"]
         print(f"  {row['kernel']} S={row['s']} d={row['d']} n_pad="
               f"{row['n_pad']} b={row['b']}: wrapper {row['ms']:.4f} ms, "
               f"kernel device {ms:.4f} ms ({per_call:.2f} device launches a"
-              f" call), output sha1 {row['sha1'][:16]}")
+              f" call), plain {row['plain_ms']:.4f} ms, x_t[:, idx] @ mom "
+              f"{'null' if lib is None else f'{lib:.4f}'} ms, output sha1 "
+              f"{row['sha1'][:16]}")
     return rows
 
 

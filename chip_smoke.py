@@ -8,7 +8,7 @@ no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- five paths, each driven with the launch counts reset
+  2. paths      -- six paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -50,6 +50,22 @@ no CPU fallback):
           level after the drain; requests per second, ms per chunk and
           step, launches per step and the sampler's host time are
           printed.
+       f. real collectives: ``distributed.solve_distributed(mesh=...)``
+          with one client a process.  NCCL at world size 1 in this
+          process on Figure 3's data (600 steps, bit-equal to the serial
+          ``saddle.solve``); then one spawn of 20 gloo ranks over CUDA
+          tensors on the one card (NCCL refuses two ranks on one card):
+          Figure 3 at k = 20 on path b's first 120 draws, Figure 3 (600
+          steps) and Figure 4 (200 steps) at k = 4 on ranks 0-3, each
+          within 1e-4 of the simulated solve with the same draws; on
+          ranks 0-1 two chunks of 64 steps of an 8-lane 8,192 x 256
+          serving bucket point-sharded (within 1e-5 of the unsharded
+          chunk), lane-placed (bit-equal) and point-sharded after
+          ``drop_slot_shard`` (batch-mates bit-equal).  Every run: 2 packed
+          launches a step on every rank, the tallied collectives equal
+          to ``CommModel`` / ``ServeCommModel``, the same from the
+          profiler's events (``utils.comm_audit``), ms a step and the
+          collectives' host time printed.
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -1223,6 +1239,358 @@ def check_service_calls(torch, timer, rec) -> list:
     return jobs
 
 
+# ---------------------------------------------------------------- path f
+# Algorithm 4 over real collectives: solve_distributed(mesh=ClientGroup),
+# one client a process.  The ranks share the one card, where NCCL refuses
+# two ranks ("Duplicate GPU detected"), so they talk through gloo over CUDA
+# tensors (copied to the host and back) and NCCL runs at world size 1, in
+# this process.  One spawn of F_RANKS gloo ranks runs every gloo case: the
+# whole group is Figure 3 at the paper's k = 20, ranks 0-3 the k = 4 fits,
+# ranks 0-1 the serving chunk's two placements.  Cut to fit ~2 minutes:
+# 600 / 200 / 120 steps (paths b's 6,000 / 5,000), 2 chunks of the bucket.
+F_RANKS = 20
+F_K4 = (("Figure 3 hard margin k=4", 0, dict(num_iters=600,
+                                              record_every=200)),
+        ("Figure 4 nu-SVM k=4", 1, dict(num_iters=200, record_every=100)))
+F_K20_STEPS = 120
+F_SERVE = dict(k=2, lanes=8, n_pad=8192, d=256, chunk_steps=64, chunks=2,
+               drop=(3, 1), ns=[5000 + 400 * i for i in range(8)])
+F_TIMEOUT_S = 600
+
+
+def f_solve(group, xp, xm, k, **kw) -> dict:
+    """One solve on this rank with its launches, tallied collectives and
+    their host seconds, each counted from just before it."""
+    import torch
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+
+    launches = Counter(ops.launch_counts)
+    counts = Counter(engine.collective_counts)
+    secs = Counter(engine.collective_seconds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = dist.solve_distributed(xp, xm, k=k, mesh=group, device="cuda",
+                                 **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(
+        w=res.state.w.cpu().numpy(), history=res.history, wall=wall,
+        log_eta=res.state.log_eta.cpu().numpy(),
+        launches=dict(Counter(ops.launch_counts) - launches),
+        tally=Counter(engine.collective_counts) - counts,
+        coll_s=sum((Counter(engine.collective_seconds) - secs).values()))
+
+
+def f_serve_batch(torch, lanes, dev):
+    """Path f's serving bucket (F_SERVE) from the preprocessed lanes."""
+    from repro_torch.core import engine, saddle
+
+    rows = [engine.slot_params_row(saddle.make_params(
+        len(xp) + len(xm), F_SERVE["d"], 1e-3, 0.1, block_size=1))
+        for xp, xm in lanes]
+    return engine.fresh_slot_batch(
+        [(torch.as_tensor(xp, device=dev), torch.as_tensor(xm, device=dev))
+         for xp, xm in lanes], F_SERVE["n_pad"], F_SERVE["d"], rows,
+        [100 + i for i in range(len(lanes))], 1 << 20, dev)
+
+
+def f_serve_run(torch, group, placement, batch, drop=None) -> dict:
+    """F_SERVE's chunks of the bucket: unsharded without a group, else
+    this rank's shard in ``placement`` (after dropping ``drop``)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+
+    state, x_t, sign, sp = batch
+    if drop is not None:
+        state, sign = dist.drop_slot_shard(state, sign, *drop,
+                                           num_shards=group.size)
+    if group is not None:
+        state, x_t, sign, sp = engine.shard_slot_batch(group, placement,
+                                                       state, x_t, sign, sp)
+    kw = dict(chunk_steps=F_SERVE["chunk_steps"], d=F_SERVE["d"],
+              block_size=1, project=False, check_gap=False)
+    launches = Counter(ops.launch_counts)
+    counts = Counter(engine.collective_counts)
+    secs = Counter(engine.collective_seconds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    objs = []
+    for _ in range(F_SERVE["chunks"]):
+        if group is None:
+            state, obj, healthy = engine.run_chunk_slots(
+                state, x_t, sign, sp, F_SERVE["chunk_steps"], **kw)
+        else:
+            state, obj, healthy = engine.run_chunk_slots_sharded(
+                state, x_t, sign, sp, F_SERVE["chunk_steps"], mesh=group,
+                placement=placement, **kw)
+        objs.append(obj)
+    torch.cuda.synchronize()
+    return dict(
+        wall=time.perf_counter() - t0, w=state.w.cpu().numpy(),
+        weights=torch.exp(state.log_lam).cpu().numpy(),
+        u=state.u.cpu().numpy(), obj=torch.stack(objs).cpu().numpy(),
+        healthy=healthy.cpu().numpy(),
+        launches=dict(Counter(ops.launch_counts) - launches),
+        tally=Counter(engine.collective_counts) - counts,
+        coll_s=sum((Counter(engine.collective_seconds) - secs).values()))
+
+
+def f_rank(world, data_path: str) -> dict:
+    """What each of path f's spawned ranks runs (see F_RANKS)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.utils import comm_audit
+
+    data = np.load(data_path)
+    g4 = meshlib.sub_group(world, range(4))
+    g2 = meshlib.sub_group(world, range(F_SERVE["k"]))
+    xp, xm = data["xp0"], data["xm0"]
+    out = {"k20": f_solve(world, xp, xm, F_RANKS, num_iters=F_K20_STEPS,
+                          record_every=F_K20_STEPS,
+                          idx_schedule=data["sched0"]),
+           "k20 audit": comm_audit.audit_runner(
+               world, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=0.0)}
+    if g4 is not None:
+        for label, i, kw in F_K4:
+            xp, xm, nu = data[f"xp{i}"], data[f"xm{i}"], float(data[f"nu{i}"])
+            out[label] = f_solve(g4, xp, xm, 4, nu=nu, **kw)
+            out[label + " audit"] = comm_audit.audit_runner(
+                g4, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=nu)
+    if g2 is not None:
+        lanes = [(data[f"sxp{i}"], data[f"sxm{i}"])
+                 for i in range(F_SERVE["lanes"])]
+        for placement in ("points", "lanes"):
+            out[placement] = f_serve_run(
+                torch, g2, placement, f_serve_batch(torch, lanes, g2.device))
+            n = F_SERVE["ns"][-1]
+            out[placement + " audit"] = comm_audit.audit_serve(
+                g2, placement=placement, num_slots=F_SERVE["lanes"],
+                n1=n // 2, n2=n - n // 2, d=F_SERVE["d"], nu=0.0,
+                chunk_steps=8)
+        out["dropped"] = f_serve_run(
+            torch, g2, "points", f_serve_batch(torch, lanes, g2.device),
+            drop=F_SERVE["drop"])
+    return out
+
+
+def f_check_run(label, runs, steps: int, want_colls: dict, diff: float,
+                tol: float) -> None:
+    """A run on several ranks: ``diff`` (its largest difference from the
+    reference) within ``tol``, 2 packed launches a step on every rank, the
+    tally equal to the model; prints ms a step and the collectives' host
+    time."""
+    wall = max(r["wall"] for r in runs)
+    coll = max(r["coll_s"] for r in runs)
+    ncoll = sum(want_colls.values())
+    each = coll / max(ncoll, 1) * 1e3
+    print(f"path f {label}: {len(runs)} ranks, {wall / steps * 1e3:.4f} ms "
+          f"a step ({wall:.3f} s, {steps} steps); collectives' host time "
+          f"{coll / steps * 1e3:.4f} ms a step ({each:.4f} ms each, "
+          f"{ncoll} calls); max|w - reference| {diff:.3e} (tol {tol:g})")
+    for r in runs:
+        require(r["launches"] == {k: steps for k in PACKED},
+                f"path f {label}: launches {r['launches']}, want {steps} "
+                "of each packed kernel")
+        require(r["tally"] == Counter(want_colls),
+                f"path f {label}: tallied {dict(r['tally'])}, model "
+                f"{want_colls}")
+    require(diff <= tol, f"path f {label}: w differs from the reference")
+
+
+def f_check_audit(label, rec, want_count: int | None) -> None:
+    print(f"  audit {label}: backend {rec['backend']}, measured "
+          f"{rec['measured']} an iteration, "
+          f"{rec.get('measured_per_chunk', rec.get('runner_per_chunk'))} a "
+          f"chunk, match {rec['match']}")
+    require(rec["match"] is True and rec["hooks_agree"] is True,
+            f"path f {label}: the profiler's collectives differ from the "
+            "model or the hooks")
+    require(rec.get("runner_match", True) is True
+            and rec.get("runner_matches_step", True) is True,
+            f"path f {label}: the runner chunk differs from the step")
+    if want_count is not None:
+        require(rec["per_iteration_count"] == want_count,
+                f"path f {label}: {rec['per_iteration_count']} collectives "
+                f"an iteration, want {want_count}")
+
+
+def model_colls(k: int, nu: float, steps: int, chunks: int, d: int) -> dict:
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import projections
+
+    comm = dist.CommModel(k=k, nu_rounds_per_iter=(
+        float(projections.BISECT_ROUNDS_SOLVER) if nu > 0 else 0.0))
+    want = Counter({key: n * steps
+                    for key, n in comm.collective_multiset().items()})
+    want["all-reduce", "add", d] += chunks
+    return dict(want)
+
+
+def collectives_path(torch, dist_fits) -> None:
+    """Path f: the references on the card, NCCL at world size 1 here, then
+    the spawned gloo ranks; counts reset just before and read after."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import preprocess as pp
+    from repro_torch.core import saddle
+    from repro_torch.core.svm import split_classes
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.utils import comm_audit
+
+    t_path = time.perf_counter()
+    ops.launch_counts.clear()
+    arrays = {"sched0": dist_fits[0]["sched"][:F_K20_STEPS]}
+    for i, spec in enumerate(DIST_FITS):
+        xp, xm, nu = dist_problem(spec)
+        pre = pp.preprocess(xp, xm,
+                            generator=torch.Generator().manual_seed(0),
+                            device="cuda")
+        arrays.update({f"xp{i}": pre.xp.cpu().numpy(),
+                       f"xm{i}": pre.xm.cpu().numpy(), f"nu{i}": nu})
+    lanes = []
+    for i, n in enumerate(F_SERVE["ns"]):
+        ds = synthetic.separable(n, F_SERVE["d"], seed=100 + i)
+        pre = pp.preprocess(*split_classes(ds.x, ds.y),
+                            generator=torch.Generator().manual_seed(i),
+                            device="cuda")
+        lanes.append((pre.xp.cpu().numpy(), pre.xm.cpu().numpy()))
+        arrays[f"sxp{i}"], arrays[f"sxm{i}"] = lanes[-1]
+
+    # the references, on the card
+    xp, xm = arrays["xp0"], arrays["xm0"]
+    sims = {label: dist.solve_distributed(
+        arrays[f"xp{i}"], arrays[f"xm{i}"], k=4, nu=arrays[f"nu{i}"],
+        device="cuda", **kw) for label, i, kw in F_K4}
+    sim20 = dist.solve_distributed(xp, xm, k=F_RANKS,
+                                   num_iters=F_K20_STEPS,
+                                   record_every=F_K20_STEPS,
+                                   idx_schedule=arrays["sched0"],
+                                   device="cuda")
+    serial_kw = F_K4[0][2]
+    serial = saddle.solve(xp, xm, device="cuda", **serial_kw)
+    whole = f_serve_run(torch, None, None,
+                        f_serve_batch(torch, lanes, torch.device("cuda")))
+
+    # NCCL at world size 1 in this process, then the spawned gloo ranks
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_f_"))
+    try:
+        g1 = meshlib.init_client_group(
+            backend="nccl", init_method=f"file://{tmp / 'nccl'}", rank=0,
+            world_size=1, device="cuda", timeout_s=F_TIMEOUT_S)
+        try:
+            # NCCL sets its communicator up at the first collective: do
+            # that before the timed solve
+            torch.distributed.all_reduce(torch.zeros(1, device=g1.device))
+            nccl = f_solve(g1, xp, xm, 1, **serial_kw)
+            nccl_audit = comm_audit.audit_runner(
+                g1, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=0.0)
+        finally:
+            torch.distributed.destroy_process_group()
+        np.savez(tmp / "data.npz", **arrays)
+        t0 = time.perf_counter()
+        ranks = meshlib.spawn_clients(f_rank, F_RANKS, backend="gloo",
+                                      device="cuda", timeout_s=F_TIMEOUT_S,
+                                      args=(str(tmp / "data.npz"),))
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = serial_kw["num_iters"]
+    f_check_run("NCCL k=1 vs serial", [nccl], steps,
+                model_colls(1, 0.0, steps,
+                            -(-steps // serial_kw["record_every"]),
+                            xp.shape[1]),
+                float(abs(nccl["w"] - serial.state.w.cpu().numpy()).max()),
+                0.0)
+    require(np.array_equal(serial.state.log_eta.cpu().numpy(),
+                           nccl["log_eta"][0])
+            and [(m, o) for m, _, o in nccl["history"]] == serial.history,
+            "path f NCCL k=1: duals or history differ from the serial solve")
+    f_check_audit("NCCL k=1", nccl_audit, 3)
+    print(f"path f: {F_RANKS} gloo ranks on the card, {spawn_s:.2f} s from "
+          "spawn to the last result")
+    d = xp.shape[1]
+
+    def w_diff(runs, ref):
+        return max(float(abs(r["w"] - ref.state.w.cpu().numpy()).max())
+                   for r in runs)
+
+    runs = [r["k20"] for r in ranks]
+    f_check_run(f"Figure 3 k={F_RANKS}", runs, F_K20_STEPS,
+                model_colls(F_RANKS, 0.0, F_K20_STEPS, 1, d),
+                w_diff(runs, sim20), FIT_ATOL)
+    f_check_audit(f"Figure 3 k={F_RANKS}", ranks[0]["k20 audit"], 3)
+    for label, i, kw in F_K4:
+        nu = arrays[f"nu{i}"]
+        chunks = -(-kw["num_iters"] // kw["record_every"])
+        runs = [r[label] for r in ranks[:4]]
+        f_check_run(label, runs, kw["num_iters"],
+                    model_colls(4, nu, kw["num_iters"], chunks,
+                                arrays[f"xp{i}"].shape[1]),
+                    w_diff(runs, sims[label]), FIT_ATOL)
+        f_check_audit(label, ranks[0][label + " audit"], 29 if nu else 3)
+
+    # the serving chunk's placements
+    steps = F_SERVE["chunks"] * F_SERVE["chunk_steps"]
+    s, k, m = F_SERVE["lanes"], F_SERVE["k"], F_SERVE["n_pad"] // F_SERVE["k"]
+    serve_model = dist.ServeCommModel(k=k, num_slots=s, nu_rounds_per_iter=0)
+    want = Counter({key: n * steps for key, n in
+                    serve_model.collective_multiset().items()})
+    for key, n in serve_model.per_chunk_multiset(F_SERVE["d"]).items():
+        want[key] += n * F_SERVE["chunks"]
+    pts = [r["points"] for r in ranks[:k]]
+    weights = np.concatenate([p["weights"] for p in pts], axis=1)
+    u = np.concatenate([p["u"] for p in pts], axis=1)
+    errs = {"w": max(float(abs(p["w"] - whole["w"]).max()) for p in pts),
+            "dual weights": float(abs(weights - whole["weights"]).max()),
+            "u": float(abs(u - whole["u"]).max())}
+    print(f"  points vs unsharded: max differences {errs}")
+    f_check_run("serving chunk, points", pts, steps, dict(want),
+                max(errs.values()), REF_ATOL)
+    f_check_audit("serving points", ranks[0]["points audit"],
+                  serve_model.collectives_per_iteration())
+    lanes_ = [r["lanes"] for r in ranks[:k]]
+    same = {f: np.array_equal(np.concatenate([q[f] for q in lanes_]),
+                              whole[f])
+            for f in ("w", "weights", "u", "healthy")}
+    same["obj"] = np.array_equal(
+        np.concatenate([q["obj"] for q in lanes_], axis=1), whole["obj"])
+    print(f"  lanes vs unsharded, bit for bit: {same}")
+    f_check_run("serving chunk, lanes", lanes_, steps, {},
+                0.0 if all(same.values()) else math.inf, 0.0)
+    f_check_audit("serving lanes", ranks[0]["lanes audit"], 0)
+    drop = [r["dropped"] for r in ranks[:k]]
+    lane, shard = F_SERVE["drop"]
+    mates = [i for i in range(s) if i != lane]
+    dw = np.concatenate([q["weights"] for q in drop], axis=1)
+    kept = (np.array_equal(drop[0]["w"][mates], pts[0]["w"][mates])
+            and np.array_equal(dw[mates], weights[mates])
+            and np.array_equal(drop[0]["obj"][:, mates],
+                               pts[0]["obj"][:, mates]))
+    print(f"  drop_slot_shard lane {lane} shard {shard}: batch-mates "
+          f"bit-equal {kept}; the lane's dropped weights all 0 "
+          f"{bool((dw[lane, shard * m:(shard + 1) * m] == 0).all())}")
+    require(kept and (dw[lane, shard * m:(shard + 1) * m] == 0).all(),
+            "path f drop_slot_shard")
+
+    counts = dict(ops.launch_counts)
+    print(f"path f launches here {counts} ({time.perf_counter() - t_path:.2f} "
+          "s in all)")
+    for name in ("fwht",) + PACKED:
+        require(counts.get(name, 0) > 0, f"path f: {name} never launched")
+
+
 def serial_vs_dist(torch, fits):
     """Each distributed fit refit serially on the coordinates it drew."""
     from repro_torch.core import saddle
@@ -2273,6 +2641,7 @@ def main() -> int:
     fits += wide_path(torch, recs[3])
     serve = service_path(torch, recs[4])
     serve_vs_solo(torch, serve)
+    collectives_path(torch, dist_fits)
     serial_vs_dist(torch, dist_fits)
     profiles(torch, dist_fits, serve)
     entries = check_kernels(torch, Timer(torch), recs)

@@ -25,8 +25,11 @@ Both produce the iterates of the serial solver, because summing per-client
 partial dot products and normalizers over the round-robin shards is the
 serial sum regrouped; k = 1 is the serial step bit for bit.
 
-The JAX package's real-mesh runner (``shard_map``) is not ported: see
-``ROADMAP.md``.
+The JAX package's real-mesh runner (``shard_map``, one client a device) is
+:func:`sharded_run_fn` here: one client a process of a
+``launch.mesh.ClientGroup``, each holding its own shard, whose hooks are
+the group's ``all_reduce`` calls (``engine.group_hooks``), behind
+``solve_distributed(mesh=...)``.
 """
 
 from __future__ import annotations
@@ -121,6 +124,54 @@ class CommModel(NamedTuple):
     def payload_elements_per_iteration(self, block_size: int = 1) -> int:
         """All-reduce elements per client per iteration: O(B + rounds),
         independent of n."""
+        return sum(elems * cnt for (_, _, elems), cnt
+                   in self.collective_multiset(block_size).items())
+
+
+class ServeCommModel(NamedTuple):
+    """Collectives of the POINT-SHARDED serving chunk
+    (``engine.run_chunk_slots_sharded(placement="points")``).
+
+    Every round of the step is one all-reduce of all ``num_slots`` lanes'
+    payloads, so the multiset is :class:`CommModel`'s with each payload
+    times ``num_slots``: the count stays 3 for HM-Saddle and 5 +
+    BISECT_ROUNDS for nu-Saddle, whatever the number of lanes.
+    ``num_slots`` is the lanes one rank steps (all of them for the points
+    placement).  The lanes placement makes no collective at all."""
+    k: int
+    num_slots: int
+    nu_rounds_per_iter: float   # 0 for HM-Saddle; else BISECT_ROUNDS
+
+    def collective_multiset(self, block_size: int = 1) -> dict:
+        """Per-iteration all-reduces keyed (op, reduce kind, elements);
+        payloads that coincide (S*B and 4S when B == 4) share a key."""
+        s = self.num_slots
+        ms: dict = {}
+
+        def bump(kind, elems, cnt=1):
+            key = ("all-reduce", kind, elems)
+            ms[key] = ms.get(key, 0) + cnt
+
+        bump("add", s * block_size)      # momentum delta   (S, B)
+        bump("max", 2 * s)               # normalizer max   (S, 2)
+        bump("add", 2 * s)               # normalizer sum   (S, 2)
+        if self.nu_rounds_per_iter:
+            bump("max", 2 * s)           # feasibility max  (S, 2)
+            bump("add", 2 * s, int(self.nu_rounds_per_iter))  # bisection
+            bump("add", 4 * s)           # cap-set stats    (S, 4)
+        return ms
+
+    def per_chunk_multiset(self, d: int) -> dict:
+        """The chunk boundary's two all-reduces: the objective's (S, d)
+        sum and the health agreement's (S,) sum."""
+        s = self.num_slots
+        return {("all-reduce", "add", s * d): 1,
+                ("all-reduce", "add", s): 1}
+
+    def collectives_per_iteration(self, block_size: int = 1) -> int:
+        return sum(self.collective_multiset(block_size).values())
+
+    def payload_elements_per_iteration(self, block_size: int = 1) -> int:
         return sum(elems * cnt for (_, _, elems), cnt
                    in self.collective_multiset(block_size).items())
 
@@ -238,6 +289,67 @@ def run_chunk_sim_packed(state: engine.PackedState, x_t: torch.Tensor,
                                     clients=True)
 
 
+def sharded_run_fn(group, *, params: saddle.SaddleParams,
+                   chunk_steps: int):
+    """The packed chunk of ONE client on its rank of the client group
+    ``group`` (a ``launch.mesh.ClientGroup``): ``run(state, x_t, sign,
+    idx) -> (state, obj)`` with this rank's (1, ...) state, (1, d, m_pad)
+    ``x_t`` and (1, m_pad) ``sign``, and the server's blocks ``idx``
+    (num_steps, b), num_steps <= ``chunk_steps``, the same on every rank.
+    The objective (1,) is the group-summed one."""
+    def run(state, x_t, sign, idx):
+        if idx.shape[0] > chunk_steps:
+            raise ValueError(f"{idx.shape[0]} steps exceed chunk_steps="
+                             f"{chunk_steps}")
+        return engine.chunk_body_packed(state, x_t, sign, params,
+                                        idx.shape[0], idx=idx,
+                                        group=group.group)
+    return run
+
+
+def make_sharded_runner(group):
+    """The runner of the client group ``group``: ``run(state, x_t, sign,
+    idx, *, params, chunk_steps)`` (see :func:`sharded_run_fn`)."""
+    def run(state, x_t, sign, idx, *, params, chunk_steps):
+        return sharded_run_fn(group, params=params,
+                              chunk_steps=chunk_steps)(state, x_t, sign, idx)
+    return run
+
+
+def _gather_clients(state: engine.PackedState,
+                    group) -> engine.PackedState:
+    """Every rank's (1, ...) client state stacked into the (k, ...)
+    state of the whole group, on every rank (one all_gather a field)."""
+    def gather(x):
+        parts = [torch.empty_like(x) for _ in range(group.size)]
+        torch.distributed.all_gather(parts, x.contiguous(),
+                                     group=group.group)
+        return torch.cat(parts)
+    return engine.PackedState(*(gather(f) for f in state))
+
+
+def drop_slot_shard(state: engine.SlotState, sign: torch.Tensor, slot: int,
+                    shard: int, *, num_shards: int):
+    """:func:`_apply_client_drop` for ONE point-sharded serving lane: the
+    lost shard's sign range goes to 0 and its dual weights to NEG_INF, its
+    u to 0, so its points leave every masked reduction of that lane while
+    the other lanes' rows are untouched bit for bit.  Shards are
+    CONTIGUOUS (``engine.shard_slot_batch``): shard s owns columns
+    [s m, (s + 1) m), m = n_pad / num_shards.  The next iteration's
+    normalizer round rescales each class's surviving mass to 1.  Works on
+    the whole batch; returns new (state, sign)."""
+    n_pad = sign.shape[-1]
+    m = n_pad // num_shards
+    cols = (torch.arange(n_pad, device=sign.device) // m) == shard
+    rows = torch.arange(sign.shape[0], device=sign.device) == slot
+    drop = rows[:, None] & cols[None, :]
+    return state._replace(
+        log_lam=torch.where(drop, NEG_INF, state.log_lam),
+        log_lam_prev=torch.where(drop, NEG_INF, state.log_lam_prev),
+        u=torch.where(drop, 0.0, state.u),
+    ), torch.where(drop, 0.0, sign)
+
+
 def _apply_client_drop(state: engine.PackedState, sign: torch.Tensor,
                        client: int):
     """Remove one client from the simulation without changing any shape:
@@ -270,14 +382,23 @@ def solve_distributed(xp, xm, *, k: int = 20, eps: float = 1e-3,
                       idx_schedule=None,
                       device: str | torch.device | None = None
                       ) -> DistSolveResult:
-    """Run Saddle-DSVC with k clients simulated on one device.
+    """Run Saddle-DSVC with k clients, simulated on one device or, with
+    ``mesh``, one client a rank of a process group.
 
     Data must already be preprocessed (Algorithm 3 runs WD per client with
     the same shared D, which is the same as transforming up front).
 
     Args:
       xp, xm: (n1, d), (n2, d) transformed point matrices.
-      mesh: the JAX package's real-mesh mode; not ported (raises).
+      mesh: a ``launch.mesh.ClientGroup`` of k ranks (the JAX package's
+        device mesh).  Every rank calls this with the same arguments;
+        rank r keeps round-robin shard r and runs
+        :func:`sharded_run_fn`, its reductions the group's all-reduces,
+        on ``mesh.device`` (whose type must be ``device``'s).  Each rank
+        draws the server's blocks from its own generator seeded with
+        ``seed`` (or reads ``idx_schedule``), so the draws agree with no
+        broadcast.  At the end one all_gather a state field gives every
+        rank the simulation's (k, ...) result.
       drop_client: ``(c, at_iter)`` removes client c at iteration
         ``at_iter`` (see :func:`_apply_client_drop`); the solve goes on
         over the k - 1 survivors.
@@ -292,11 +413,15 @@ def solve_distributed(xp, xm, *, k: int = 20, eps: float = 1e-3,
     if drop_client is not None and mesh is not None:
         raise ValueError("drop_client injection is simulation-only "
                          "(mesh=None)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "the real-collective runner (mesh=) is not ported yet; see "
-            "ROADMAP.md")
     dev = resolve_device(device)
+    if mesh is not None:
+        if k != mesh.size:
+            raise ValueError(f"k={k} clients on a group of {mesh.size} "
+                             "ranks: the runner runs one client a rank")
+        if mesh.device.type != dev.type:
+            raise ValueError(f"device {dev} but the group's ranks are on "
+                             f"{mesh.device}")
+        dev = mesh.device
     xp = convert.to_numpy_array(xp).astype(np.float32)
     xm = convert.to_numpy_array(xm).astype(np.float32)
     n1, d = xp.shape
@@ -309,8 +434,11 @@ def solve_distributed(xp, xm, *, k: int = 20, eps: float = 1e-3,
     xp_sh, mask_p = shard_points(xp, k)
     xm_sh, mask_m = shard_points(xm, k)
     m1, m2 = mask_p.shape[1], mask_m.shape[1]
-    x_t, sign = (torch.as_tensor(a, device=dev)
-                 for a in pack_shards(xp_sh, mask_p, xm_sh, mask_m))
+    x_t, sign = pack_shards(xp_sh, mask_p, xm_sh, mask_m)
+    if mesh is not None:           # this rank's client row only
+        rows = slice(mesh.rank, mesh.rank + 1)
+        x_t, sign = x_t[rows], sign[rows]
+    x_t, sign = (torch.as_tensor(a, device=dev) for a in (x_t, sign))
     state = engine.init_packed_state(sign, n1, n2, d)
     chunk = min(record_every or num_iters, num_iters)
 
@@ -331,10 +459,17 @@ def solve_distributed(xp, xm, *, k: int = 20, eps: float = 1e-3,
     nu_rounds = float(projections.BISECT_ROUNDS_SOLVER) if nu > 0 else 0.0
     comm = CommModel(k=k, nu_rounds_per_iter=nu_rounds)
 
-    def run(st, idx):
-        # ``sign`` is read when the chunk runs, so a drop takes effect
-        return run_chunk_sim_packed(st, x_t, sign, idx.shape[0],
-                                    params=params, idx=idx)
+    if mesh is not None:
+        runner = make_sharded_runner(mesh)
+
+        def run(st, idx):
+            return runner(st, x_t, sign, idx, params=params,
+                          chunk_steps=chunk)
+    else:
+        def run(st, idx):
+            # ``sign`` is read when the chunk runs, so a drop takes effect
+            return run_chunk_sim_packed(st, x_t, sign, idx.shape[0],
+                                        params=params, idx=idx)
 
     event = None
     if drop_client is not None:
@@ -348,6 +483,8 @@ def solve_distributed(xp, xm, *, k: int = 20, eps: float = 1e-3,
 
         event = (max(0, min(int(drop_at), num_iters)), drop)
     state, hist = engine.drive(state, num_iters, chunk, run, draw, event)
+    if mesh is not None:
+        state = _gather_clients(state, mesh)
     history = [(done, comm.total(done), obj) for done, obj in hist]
     return DistSolveResult(state=unpack_sharded_state(state, m1, m2),
                            history=history, comm=comm,

@@ -27,7 +27,10 @@ axis: k clients are S = k slots of one problem, the server's coordinate
 block is one draw expanded to (k, b), and every cross-client reduction is
 a hook (:func:`_all_sum` / :func:`_all_max`, an explicit sum or max over
 the client dimension) that the serial step replaces by the identity.
-Each client hook call is tallied in :data:`collective_counts`, keyed as
+Across processes (the JAX package's ``shard_map``), each rank holds its
+own client's rows and the hooks are ``all_reduce`` calls on a process
+group (:func:`group_hooks`).  Each client hook call is tallied in
+:data:`collective_counts`, keyed as
 ``repro.core.distributed.CommModel.collective_multiset`` keys its
 all-reduces, so the collectives of a run can be counted.
 
@@ -50,12 +53,16 @@ from __future__ import annotations
 
 import collections
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import projections
+from repro_torch.core import preprocess as pp
+from repro_torch.core.preprocess import LANE
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30     # log weight of padding points (exp() == 0 exactly)
@@ -67,8 +74,17 @@ NEG_INF = -1e30     # log weight of padding points (exp() == 0 exactly)
 trace_counts: collections.Counter = collections.Counter()
 
 # Client reductions by (op, reduce kind, elements per client): one count
-# per call of _all_sum / _all_max on a client axis.
+# per call of a client hook (a client axis or a process group).
 collective_counts: collections.Counter = collections.Counter()
+
+# Host seconds spent in the group hooks' all_reduce calls, by the same
+# keys (gloo on a CUDA tensor copies it to the host and waits).
+collective_seconds: collections.Counter = collections.Counter()
+
+# While a list, each group hook appends (kind, elements, bytes per
+# element) in the order it issues its all_reduce (utils.comm_audit reads
+# it beside the profiler's events, which do not name the reduce op).
+collective_log: list | None = None
 
 # Rows of uniforms drawn at once per slot: bounds the sampler's scratch to
 # 16 MiB whatever the chunk length.
@@ -114,6 +130,31 @@ def client_hooks(clients: bool):
     """(all_sum, all_max): the client reductions, or the identity for a
     serial step."""
     return (_all_sum, _all_max) if clients else (_identity, _identity)
+
+
+def group_hooks(group):
+    """(all_sum, all_max) over the ranks of a torch process group: each an
+    ``all_reduce`` (SUM / MAX) of a copy of its input, tallied under
+    ("all-reduce", kind, x.numel()) -- the rank's whole payload, which
+    for one client row is the simulation's ``x[0].numel()``."""
+    def reduce(x, kind, op):
+        key = ("all-reduce", kind, x.numel())
+        collective_counts[key] += 1
+        if collective_log is not None:
+            collective_log.append((kind, x.numel(), x.element_size()))
+        out = x.clone(memory_format=torch.contiguous_format)
+        t0 = time.perf_counter()
+        dist.all_reduce(out, op=op, group=group)
+        collective_seconds[key] += time.perf_counter() - t0
+        return out
+
+    def _group_sum(x: torch.Tensor) -> torch.Tensor:
+        return reduce(x, "add", dist.ReduceOp.SUM)
+
+    def _group_max(x: torch.Tensor) -> torch.Tensor:
+        return reduce(x, "max", dist.ReduceOp.MAX)
+
+    return _group_sum, _group_max
 
 
 def draw_blocks(generator: torch.Generator, d: int, b: int, steps: int,
@@ -431,17 +472,21 @@ def chunk_body_packed(state: PackedState, x_t: torch.Tensor,
                       sign: torch.Tensor, params, num_steps: int, *,
                       idx: torch.Tensor | None = None,
                       generator: torch.Generator | None = None,
-                      clients: bool = False):
+                      clients: bool = False, group=None):
     """Packed chunk of ONE problem over the S rows of ``state``, ``x_t``
-    (S, d, n_pad) and ``sign`` (S, n_pad): S = 1 serially, or the k
-    clients of Algorithm 4 with ``clients``.  Every row takes the same
-    step scalars and each step's block ``idx[i]`` (b,) (drawn from
-    ``generator`` when ``idx`` is not given).  Returns (state, objective
-    (S,))."""
+    (S, d, n_pad) and ``sign`` (S, n_pad): S = 1 serially, the k clients
+    of Algorithm 4 with ``clients``, or this rank's one client row with a
+    process ``group`` (the reductions are then the group's all-reduces).
+    Every row takes the same step scalars and each step's block ``idx[i]``
+    (b,) (drawn from ``generator`` when ``idx`` is not given).  Returns
+    (state, objective (S,))."""
+    if clients and group is not None:
+        raise ValueError("clients= and group= are exclusive")
     rows = x_t.shape[0]
     d, b = params.d, params.block_size
     sc = stack_slot_params([slot_params_row(params)] * rows, x_t.device)
-    all_sum, all_max = client_hooks(clients)
+    all_sum, all_max = (client_hooks(clients) if group is None
+                        else group_hooks(group))
     if idx is None:
         idx = draw_blocks(generator, d, b, num_steps, x_t.device)
     for i in range(num_steps):
@@ -542,6 +587,27 @@ def admit_into_slot(state: SlotState, slot: int, pstate: PackedState,
     return state
 
 
+def fresh_slot_batch(problems, n_pad: int, d: int, rows: list[SlotParams],
+                     seeds: list[int], max_t: int, device: torch.device):
+    """A slot batch whose lane i holds ``problems[i] = (xp, xm)``
+    (preprocessed float32 tensors on ``device``) freshly initialised, with
+    step scalars ``rows[i]`` (:func:`slot_params_row`), a sampler seeded
+    with ``seeds[i]`` and the budget ``max_t``.  Returns (state, x_t
+    (S, d, n_pad), sign (S, n_pad), sp)."""
+    s = len(problems)
+    state = init_slot_state(s, n_pad, d, device)
+    x_t = torch.zeros((s, d, n_pad), dtype=torch.float32, device=device)
+    sign = torch.zeros((s, n_pad), dtype=torch.float32, device=device)
+    for lane, (xp, xm) in enumerate(problems):
+        pts = pp.pack_points_to(xp, xm, n_pad, d)
+        x_t[lane], sign[lane] = pts.x_t, pts.sign
+        admit_into_slot(state, lane,
+                        init_packed_state(pts.sign, pts.n1, pts.n2, d),
+                        torch.Generator(device=device).manual_seed(
+                            seeds[lane]), max_t)
+    return state, x_t, sign, stack_slot_params(rows, device)
+
+
 def deactivate_slot(state: SlotState, slot: int) -> SlotState:
     """Freeze one lane, IN PLACE (the cancellation path); its buffers are
     left as they are."""
@@ -573,17 +639,24 @@ def saddle_gap_packed(w: torch.Tensor, x_t: torch.Tensor, sign: torch.Tensor,
 
 
 def slot_trace_key(num_slots: int, n_pad: int, d: int, block_size: int,
-                   chunk_steps: int, project: bool,
-                   check_gap: bool) -> tuple:
-    """The ``trace_counts`` key of one slot-chunk configuration."""
-    return ("slots", num_slots, n_pad, d, block_size, chunk_steps, project,
-            check_gap)
+                   chunk_steps: int, project: bool, check_gap: bool,
+                   point_shards: int | None = None) -> tuple:
+    """The ``trace_counts`` key of one slot-chunk configuration, at the
+    shapes one rank runs; ``point_shards`` is the group size of a
+    point-sharded chunk (the JAX package's point-axis ``axis_name``),
+    None for the collective-free kinds."""
+    key = ("slots", num_slots, n_pad, d, block_size, chunk_steps, project,
+           check_gap)
+    if point_shards is not None:
+        key += ("points", point_shards)
+    return key
 
 
 def chunk_body_slots(state: SlotState, x_t: torch.Tensor, sign: torch.Tensor,
                      sp: SlotParams, num_steps: int, *, chunk_steps: int,
                      d: int, block_size: int, project: bool,
-                     check_gap: bool, idx: torch.Tensor | None = None):
+                     check_gap: bool, idx: torch.Tensor | None = None,
+                     group=None):
     """One slot-batched chunk of ``num_steps`` (<= ``chunk_steps``) packed
     iterations over every lane.
 
@@ -599,25 +672,42 @@ def chunk_body_slots(state: SlotState, x_t: torch.Tensor, sign: torch.Tensor,
     gap; a slot that is done (budget spent, unhealthy, or relative gap
     below its ``gap_tol``) goes inactive.
 
+    Under a process ``group`` (the point-sharded serving placement) every
+    lane's POINT axis is this rank's shard: the step runs the same
+    Theorem-8 rounds as the distributed solve, each one all-reduce of
+    every lane's payload ((S, b), (S, 2), ...), and the chunk boundary
+    adds exactly two: the objective's (S, d) sum and a health agreement
+    (S,) sum, so that one shard's overflow deactivates the lane on every
+    shard.  ``check_gap`` is refused there: the gap's water-filling sorts
+    the whole point axis.
+
     Returns (new_state, obj (S,), healthy (S,) bool).
     """
+    if check_gap and group is not None:
+        raise ValueError(
+            "check_gap is not supported for point-sharded slot chunks "
+            "(saddle_gap_packed sorts the full point axis); submit "
+            "sharded fits with gap_tol=0")
     if not 0 <= num_steps <= chunk_steps:
         raise ValueError(f"num_steps={num_steps} must be in "
                          f"[0, chunk_steps={chunk_steps}]")
     key = slot_trace_key(state.num_slots, x_t.shape[-1], d, block_size,
-                         chunk_steps, project, check_gap)
+                         chunk_steps, project, check_gap,
+                         None if group is None else dist.get_world_size(group))
     if key not in trace_counts:
         trace_counts[key] += 1
     if idx is None:
         idx = sample_blocks(state.generators, d, block_size, num_steps,
                             x_t.device)
+    all_sum, all_max = ((_identity, _identity) if group is None
+                        else group_hooks(group))
 
     ps = PackedState(w=state.w, log_lam=state.log_lam,
                      log_lam_prev=state.log_lam_prev, u=state.u, t=state.t)
     for i in range(num_steps):
         new = _step_packed_core(ps, x_t, sign, sp, d=d,
                                 block_size=block_size, project=project,
-                                idx=idx[i])
+                                idx=idx[i], all_sum=all_sum, all_max=all_max)
         do = state.active & (ps.t < state.max_t)            # (S,)
         col = do[:, None]
         ps = PackedState(
@@ -630,12 +720,16 @@ def chunk_body_slots(state: SlotState, x_t: torch.Tensor, sign: torch.Tensor,
     state = state._replace(w=ps.w, log_lam=ps.log_lam,
                            log_lam_prev=ps.log_lam_prev, u=ps.u, t=ps.t)
 
-    obj = objective_from_duals(state.log_lam, x_t, sign)
+    obj = objective_from_duals(state.log_lam, x_t, sign, all_sum)
     healthy = (torch.isfinite(state.w).all(dim=-1)
                & torch.isfinite(state.u).all(dim=-1)
                & ~torch.isnan(state.log_lam).any(dim=-1)
                & ~torch.isposinf(state.log_lam).any(dim=-1)
                & torch.isfinite(obj))
+    if group is not None:
+        # u / log_lam health is shard-local: agree across the point shards
+        # so that ``active`` stays the same on every rank
+        healthy = all_sum(torch.where(healthy, 0.0, 1.0)) == 0.0
     done = (state.t >= state.max_t) | ~healthy
     if check_gap:
         gap = saddle_gap_packed(state.w, x_t, sign, sp.nu)
@@ -648,6 +742,121 @@ def chunk_body_slots(state: SlotState, x_t: torch.Tensor, sign: torch.Tensor,
 # The serving entry point: in eager PyTorch the chunk body runs as it is
 # (the JAX package jits it with the state donated).
 run_chunk_slots = chunk_body_slots
+
+
+# --------------------------------------------------------------------------
+# Process-group slot chunk: the SAME chunk body on each rank of a client
+# group, in one of two placements (the JAX package's ``shard_map`` with
+# ``slot_axes`` or ``point_axes``; one group gives one axis):
+#
+#   "lanes"   rank r holds S/k whole lanes and steps them alone: no
+#             collectives at all.
+#   "points"  every lane's n_pad points are split contiguously, m = n_pad
+#             / k a rank, and the step runs the Theorem-8 rounds over the
+#             group; w, t, max_t, the samplers, active and the step
+#             scalars are the same on every rank.
+#
+# Each rank passes its own shard (what ``shard_map`` hands its body):
+# :func:`shard_slot_batch` cuts it from the whole batch.
+# --------------------------------------------------------------------------
+
+PLACEMENTS = ("lanes", "points")
+
+
+def _check_placement(placement: str) -> None:
+    if placement not in PLACEMENTS:
+        raise ValueError(f"placement must be one of {PLACEMENTS}, got "
+                         f"{placement!r}")
+
+
+def _check_point_shard(m: int, k: int) -> None:
+    if m % LANE:
+        raise ValueError(
+            f"a point-sharded lane needs each of its k={k} shards to hold a "
+            f"multiple of {LANE} points (the packed kernels refuse other "
+            f"widths); got {m}")
+
+
+def shard_slot_batch(mesh, placement: str, state: SlotState,
+                     x_t: torch.Tensor, sign: torch.Tensor, sp: SlotParams):
+    """This rank's shard of a whole slot batch, for ``placement`` on the
+    client group ``mesh`` (a ``launch.mesh.ClientGroup``): lanes
+    [r S/k, (r+1) S/k), or every lane's points [r m, (r+1) m) with the
+    per-lane rows (w, t, max_t, samplers, active, sp) kept whole.
+    Returns (state, x_t, sign, sp)."""
+    _check_placement(placement)
+    k, r = mesh.size, mesh.rank
+    s, n_pad = sign.shape
+    if placement == "lanes":
+        if s % k:
+            raise ValueError(f"the lanes placement needs k | num_slots, got "
+                             f"{s} lanes over k={k}")
+        part = slice(r * (s // k), (r + 1) * (s // k))
+        state = state._replace(
+            **{f: getattr(state, f)[part] for f in SlotState._fields})
+        return (state, x_t[part], sign[part],
+                SlotParams(*(v[part] for v in sp)))
+    if n_pad % k:
+        raise ValueError(f"n_pad={n_pad} does not split over k={k}")
+    m = n_pad // k
+    _check_point_shard(m, k)
+    cols = slice(r * m, (r + 1) * m)
+    state = state._replace(**{f: getattr(state, f)[:, cols].contiguous()
+                              for f in ("log_lam", "log_lam_prev", "u")})
+    return state, x_t[..., cols].contiguous(), sign[:, cols].contiguous(), sp
+
+
+def sharded_slot_run_fn(mesh, *, placement: str, chunk_steps: int, d: int,
+                        block_size: int, project: bool,
+                        check_gap: bool = False):
+    """The slot chunk of one rank of ``mesh`` in ``placement``:
+    ``run(state, x_t, sign, sp, num_steps, idx=None) -> (state, obj,
+    healthy)`` on this rank's shard (see :func:`shard_slot_batch`).  The
+    lanes placement returns its own lanes' rows; the points placement
+    every lane's objective and agreed health flag."""
+    _check_placement(placement)
+    group = mesh.group if placement == "points" else None
+
+    def run(state, x_t, sign, sp, num_steps, idx=None):
+        if group is not None:
+            _check_point_shard(x_t.shape[-1], mesh.size)
+        return chunk_body_slots(
+            state, x_t, sign, sp, num_steps, chunk_steps=chunk_steps, d=d,
+            block_size=block_size, project=project, check_gap=check_gap,
+            idx=idx, group=group)
+
+    return run
+
+
+def run_chunk_slots_sharded(state: SlotState, x_t: torch.Tensor,
+                            sign: torch.Tensor, sp: SlotParams,
+                            num_steps: int, *, mesh, placement: str,
+                            chunk_steps: int, d: int, block_size: int,
+                            project: bool, check_gap: bool = False,
+                            idx: torch.Tensor | None = None):
+    """:func:`run_chunk_slots` on this rank's shard of a slot batch placed
+    over the client group ``mesh``: same return contract, at the rank's
+    shapes."""
+    run = sharded_slot_run_fn(mesh, placement=placement,
+                              chunk_steps=chunk_steps, d=d,
+                              block_size=block_size, project=project,
+                              check_gap=check_gap)
+    return run(state, x_t, sign, sp, num_steps, idx)
+
+
+def sharded_slot_trace_key(num_slots: int, n_pad: int, d: int,
+                           block_size: int, chunk_steps: int, project: bool,
+                           check_gap: bool, mesh, placement: str) -> tuple:
+    """:func:`slot_trace_key` of a chunk placed over ``mesh``, from the
+    WHOLE batch's shapes: the lanes placement divides the slot count by
+    the group size, the points placement the point count."""
+    _check_placement(placement)
+    k = mesh.size
+    if placement == "lanes":
+        return slot_trace_key(num_slots // k, n_pad, d, block_size,
+                              chunk_steps, project, check_gap)
+    return slot_trace_key(num_slots, n_pad // k, d, block_size, chunk_steps,
+                          project, check_gap, k)
 
 
 def run_solve_slots(state: SlotState, x_t: torch.Tensor, sign: torch.Tensor,

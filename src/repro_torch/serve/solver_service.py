@@ -23,9 +23,10 @@ scheduler.
 
 Every entry point runs on ``device``: ``cuda`` (the default: the
 hand-written kernels) or ``cpu`` (their plain PyTorch versions).  A
-``mesh`` (lane-parallel or point-sharded groups over several cards) is not
-ported yet: it needs the real-collective runner (see ROADMAP.md), and
-asking for it raises.
+``mesh`` (lane-parallel or point-sharded groups over several processes)
+is not ported yet: the chunk it would run is
+(``engine.run_chunk_slots_sharded``), the service that drives one a rank
+is not (see ROADMAP.md), and asking for it raises.
 
 Streaming updates (warm starts)
 -------------------------------
@@ -353,9 +354,9 @@ class SolverService:
                  device: str | torch.device | None = None):
         if mesh is not None or shard_points_above is not None:
             raise NotImplementedError(
-                "mesh-sharded serving (mesh=, shard_points_above=) needs "
-                "the real-collective runner, which is not ported yet; see "
-                "ROADMAP.md")
+                "mesh-sharded serving (mesh=, shard_points_above=) is not "
+                "ported yet: the chunk is (engine.run_chunk_slots_sharded), "
+                "the service over a process group is not; see ROADMAP.md")
         self.device = resolve_device(device)
         self.num_slots = num_slots
         self.chunk_steps = chunk_steps

@@ -473,13 +473,6 @@ def test_drop_client_rejects_mesh_mode(problem):
                                mesh="not-none", drop_client=(0, 5))
 
 
-def test_mesh_mode_is_not_ported(problem):
-    xp, xm = problem
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dist.solve_distributed(xp, xm, k=2, num_iters=10, device=CPU,
-                               mesh="not-none")
-
-
 # ------------------------------------------------ communication
 @pytest.mark.parametrize("k", [1, 5, 20, 64])
 @pytest.mark.parametrize("nu_rounds", [
