@@ -65,7 +65,12 @@ no CPU fallback):
           launches a step on every rank, the tallied collectives equal
           to ``CommModel`` / ``ServeCommModel``, the same from the
           profiler's events (``utils.comm_audit``), ms a step and the
-          collectives' host time printed.
+          collectives' host time printed (each all-reduce between two
+          device synchronisations, so NCCL's is timed to its end; the
+          first NCCL run is not timed so, for its ms a step).  The
+          packed calls here are recorded by shape as on every path, and
+          rank 0 records its own and copies one step's arguments of each
+          run to the host, for phase 5.
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -82,7 +87,11 @@ no CPU fallback):
                    recorded calls (8 lanes with their own blocks and
                    scalars, free lanes, a NaN lane after the poison: held
                    on the live lanes, whose bits must equal a call on
-                   them alone); its time, its device-only time (one
+                   them alone); path f's too: its references' and NCCL
+                   run's shapes here, and rank 0's (one client of k = 20
+                   and of k = 4 on Figures 3 and 4, the 8 lanes' point
+                   shards, its 4 placed lanes), on their operands with
+                   fresh duals and on each run's copied step; its time, its device-only time (one
                    profiler session per group), the plain version's, a
                    one-call PyTorch yardstick and its bound, and the
                    device launches of one call (exactly 1 for a packed
@@ -309,9 +318,11 @@ class PathRecorder:
     ``repro_torch.kernels.ops`` that the solver calls; the wrappers
     underneath still count their own launches."""
 
-    def __init__(self, name: str, keep: bool = True):
+    def __init__(self, name: str, keep: bool = True,
+                 on_device: bool = False):
         self.name = name
         self.keep = keep           # keep operands and blocks (device refs)
+        self.on_device = on_device  # capture to device copies (host_copy)
         self.calls = Counter()     # (kernel, shape) -> calls
         self.operands = {}         # (S, d, n_pad, b) -> (x_t, sign)
         self.unpacked = {}         # (kernel, shape) -> first call's args
@@ -327,8 +338,43 @@ class PathRecorder:
     def _capture(self, name, args) -> None:
         host = self.captured[-1].setdefault("host", {})
         self.captured[-1][name] = tuple(
-            host.setdefault(a.data_ptr(), a.cpu())
+            host.setdefault(a.data_ptr(),
+                            a.clone() if self.on_device else a.cpu())
             if hasattr(a, "data_ptr") else a for a in args)
+
+    def host_copy(self) -> dict:
+        """What the parent needs to hold this recorder's calls (from a
+        spawned rank, whose results travel pickled): the calls by shape
+        and the captures as numpy arrays, each tensor copied once."""
+        memo = {}
+        return dict(calls=dict(self.calls), captured=[
+            {key: tuple(memo.setdefault(id(a), a.cpu().numpy())
+                        if hasattr(a, "cpu") else a for a in val)
+             if key in PACKED else val for key, val in cap.items()}
+            for cap in self.captured])
+
+    @classmethod
+    def from_host_copy(cls, name: str, copy: dict) -> "PathRecorder":
+        """A rank's recorder in the parent: its calls and captures (host
+        tensors again), and each captured shape's (x_t, sign) on the card
+        as its operands."""
+        import numpy as np
+        import torch
+
+        rec = cls(name, keep=False)
+        rec.calls = Counter(copy["calls"])
+        memo = {}
+        rec.captured = [
+            {key: tuple(memo.setdefault(id(a), torch.from_numpy(a))
+                        if isinstance(a, np.ndarray) else a for a in val)
+             if key in PACKED else val for key, val in cap.items()}
+            for cap in copy["captured"]]
+        dev = {}
+        for cap in rec.captured:
+            x_t, *_, sign, _theta = cap["momentum_dot_packed"]
+            rec.operands.setdefault(cap["shape"], tuple(
+                dev.setdefault(id(a), a.cuda()) for a in (x_t, sign)))
+        return rec
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -1145,9 +1191,10 @@ def serve_replay_cpu(torch, serve):
 
 
 def check_service_calls(torch, timer, rec) -> list:
-    """Path e's copied packed calls (S = 8 lanes, a block and step
-    scalars each, free lanes, and after the poison a NaN lane) on the
-    card: each kernel against its plain version on the live lanes (a
+    """A path's copied packed calls (path e's: S = 8 lanes, a block and
+    step scalars each, free lanes, and after the poison a NaN lane; path
+    f's: one step of each run, here and on rank 0) on the card: each
+    kernel against its plain version on the live lanes (a
     lane with a point and finite duals, u and dw) at the packed
     tolerances, the MWU's (m, s) also against the plain merge of its own
     log_new, the live lanes' bits equal to a call on the live lanes
@@ -1169,7 +1216,7 @@ def check_service_calls(torch, timer, rec) -> list:
         s, d, n_pad = x_t.shape
         b = idx.shape[1]
         shape = (s, d, n_pad, b)
-        label = (f"[S={s},d={d},n_pad={n_pad},b={b},path e "
+        label = (f"[S={s},d={d},n_pad={n_pad},b={b},path {rec.name} "
                  f"{cap['label']}]")
         real = sign != 0
 
@@ -1258,22 +1305,26 @@ F_SERVE = dict(k=2, lanes=8, n_pad=8192, d=256, chunk_steps=64, chunks=2,
 F_TIMEOUT_S = 600
 
 
-def f_solve(group, xp, xm, k, **kw) -> dict:
-    """One solve on this rank with its launches, tallied collectives and
-    their host seconds, each counted from just before it."""
+def f_solve(group, xp, xm, k, timed: bool = True, **kw) -> dict:
+    """One solve on this rank with its launches and tallied collectives,
+    each counted from just before it, and with ``timed`` the host time of
+    its collectives (each between two device synchronisations: a
+    ``comm_audit.Recorder`` on the group)."""
     import torch
 
     from repro_torch.core import distributed as dist
     from repro_torch.core import engine
     from repro_torch.kernels import ops
+    from repro_torch.utils import comm_audit
 
+    rec = comm_audit.Recorder()
     launches = Counter(ops.launch_counts)
     counts = Counter(engine.collective_counts)
-    secs = Counter(engine.collective_seconds)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = dist.solve_distributed(xp, xm, k=k, mesh=group, device="cuda",
-                                 **kw)
+    res = dist.solve_distributed(
+        xp, xm, k=k, mesh=group._replace(recorder=rec) if timed else group,
+        device="cuda", **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return dict(
@@ -1281,17 +1332,18 @@ def f_solve(group, xp, xm, k, **kw) -> dict:
         log_eta=res.state.log_eta.cpu().numpy(),
         launches=dict(Counter(ops.launch_counts) - launches),
         tally=Counter(engine.collective_counts) - counts,
-        coll_s=sum((Counter(engine.collective_seconds) - secs).values()))
+        coll_s=rec.seconds if timed else None)
 
 
 def f_serve_batch(torch, lanes, dev):
     """Path f's serving bucket (F_SERVE) from the preprocessed lanes."""
     from repro_torch.core import engine, saddle
+    from repro_torch.utils import comm_audit
 
     rows = [engine.slot_params_row(saddle.make_params(
         len(xp) + len(xm), F_SERVE["d"], 1e-3, 0.1, block_size=1))
         for xp, xm in lanes]
-    return engine.fresh_slot_batch(
+    return comm_audit.fresh_slot_batch(
         [(torch.as_tensor(xp, device=dev), torch.as_tensor(xm, device=dev))
          for xp, xm in lanes], F_SERVE["n_pad"], F_SERVE["d"], rows,
         [100 + i for i in range(len(lanes))], 1 << 20, dev)
@@ -1303,8 +1355,10 @@ def f_serve_run(torch, group, placement, batch, drop=None) -> dict:
     from repro_torch.core import distributed as dist
     from repro_torch.core import engine
     from repro_torch.kernels import ops
+    from repro_torch.utils import comm_audit
 
     state, x_t, sign, sp = batch
+    rec = comm_audit.Recorder()
     if drop is not None:
         state, sign = dist.drop_slot_shard(state, sign, *drop,
                                            num_shards=group.size)
@@ -1315,7 +1369,6 @@ def f_serve_run(torch, group, placement, batch, drop=None) -> dict:
               block_size=1, project=False, check_gap=False)
     launches = Counter(ops.launch_counts)
     counts = Counter(engine.collective_counts)
-    secs = Counter(engine.collective_seconds)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     objs = []
@@ -1325,8 +1378,8 @@ def f_serve_run(torch, group, placement, batch, drop=None) -> dict:
                 state, x_t, sign, sp, F_SERVE["chunk_steps"], **kw)
         else:
             state, obj, healthy = engine.run_chunk_slots_sharded(
-                state, x_t, sign, sp, F_SERVE["chunk_steps"], mesh=group,
-                placement=placement, **kw)
+                state, x_t, sign, sp, F_SERVE["chunk_steps"],
+                mesh=group._replace(recorder=rec), placement=placement, **kw)
         objs.append(obj)
     torch.cuda.synchronize()
     return dict(
@@ -1336,46 +1389,70 @@ def f_serve_run(torch, group, placement, batch, drop=None) -> dict:
         healthy=healthy.cpu().numpy(),
         launches=dict(Counter(ops.launch_counts) - launches),
         tally=Counter(engine.collective_counts) - counts,
-        coll_s=sum((Counter(engine.collective_seconds) - secs).values()))
+        coll_s=rec.seconds)
 
 
 def f_rank(world, data_path: str) -> dict:
-    """What each of path f's spawned ranks runs (see F_RANKS)."""
+    """What each of path f's spawned ranks runs (see F_RANKS).  Rank 0
+    records its packed calls by shape and copies one step's arguments of
+    each run (on the card during the run, to the host after it), which the
+    parent holds against the plain versions."""
+    import contextlib
+
     import numpy as np
     import torch
 
+    from repro_torch.kernels import ops
     from repro_torch.launch import mesh as meshlib
     from repro_torch.utils import comm_audit
 
     data = np.load(data_path)
     g4 = meshlib.sub_group(world, range(4))
     g2 = meshlib.sub_group(world, range(F_SERVE["k"]))
-    xp, xm = data["xp0"], data["xm0"]
-    out = {"k20": f_solve(world, xp, xm, F_RANKS, num_iters=F_K20_STEPS,
-                          record_every=F_K20_STEPS,
-                          idx_schedule=data["sched0"]),
-           "k20 audit": comm_audit.audit_runner(
-               world, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=0.0)}
-    if g4 is not None:
-        for label, i, kw in F_K4:
-            xp, xm, nu = data[f"xp{i}"], data[f"xm{i}"], float(data[f"nu{i}"])
-            out[label] = f_solve(g4, xp, xm, 4, nu=nu, **kw)
-            out[label + " audit"] = comm_audit.audit_runner(
-                g4, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=nu)
-    if g2 is not None:
-        lanes = [(data[f"sxp{i}"], data[f"sxm{i}"])
-                 for i in range(F_SERVE["lanes"])]
-        for placement in ("points", "lanes"):
-            out[placement] = f_serve_run(
-                torch, g2, placement, f_serve_batch(torch, lanes, g2.device))
-            n = F_SERVE["ns"][-1]
-            out[placement + " audit"] = comm_audit.audit_serve(
-                g2, placement=placement, num_slots=F_SERVE["lanes"],
-                n1=n // 2, n2=n - n // 2, d=F_SERVE["d"], nu=0.0,
-                chunk_steps=8)
-        out["dropped"] = f_serve_run(
-            torch, g2, "points", f_serve_batch(torch, lanes, g2.device),
-            drop=F_SERVE["drop"])
+    rec = (PathRecorder("f rank 0", keep=False, on_device=True)
+           if world.rank == 0 else None)
+
+    def arm(label):
+        if rec is not None:
+            rec.arm(label)
+
+    ops.launch_counts.clear()
+    out = {}
+    with rec if rec is not None else contextlib.nullcontext():
+        xp, xm = data["xp0"], data["xm0"]
+        arm(f"Figure 3 k={F_RANKS}")
+        out["k20"] = f_solve(world, xp, xm, F_RANKS, num_iters=F_K20_STEPS,
+                             record_every=F_K20_STEPS,
+                             idx_schedule=data["sched0"])
+        out["k20 audit"] = comm_audit.audit_runner(
+            world, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=0.0)
+        if g4 is not None:
+            for label, i, kw in F_K4:
+                xp, xm = data[f"xp{i}"], data[f"xm{i}"]
+                nu = float(data[f"nu{i}"])
+                arm(label)
+                out[label] = f_solve(g4, xp, xm, 4, nu=nu, **kw)
+                out[label + " audit"] = comm_audit.audit_runner(
+                    g4, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=nu)
+        if g2 is not None:
+            lanes = [(data[f"sxp{i}"], data[f"sxm{i}"])
+                     for i in range(F_SERVE["lanes"])]
+            for placement in ("points", "lanes"):
+                arm(f"serving {placement}")
+                out[placement] = f_serve_run(
+                    torch, g2, placement,
+                    f_serve_batch(torch, lanes, g2.device))
+                n = F_SERVE["ns"][-1]
+                out[placement + " audit"] = comm_audit.audit_serve(
+                    g2, placement=placement, num_slots=F_SERVE["lanes"],
+                    n1=n // 2, n2=n - n // 2, d=F_SERVE["d"], nu=0.0,
+                    chunk_steps=8)
+            out["dropped"] = f_serve_run(
+                torch, g2, "points", f_serve_batch(torch, lanes, g2.device),
+                drop=F_SERVE["drop"])
+    if rec is not None:
+        out["rec"] = rec.host_copy()
+        out["rec"]["counts"] = dict(ops.launch_counts)
     return out
 
 
@@ -1386,13 +1463,16 @@ def f_check_run(label, runs, steps: int, want_colls: dict, diff: float,
     tally equal to the model; prints ms a step and the collectives' host
     time."""
     wall = max(r["wall"] for r in runs)
-    coll = max(r["coll_s"] for r in runs)
     ncoll = sum(want_colls.values())
-    each = coll / max(ncoll, 1) * 1e3
+    if any(r["coll_s"] is None for r in runs):
+        timed = "collectives not timed"
+    else:
+        coll = max(r["coll_s"] for r in runs)
+        timed = (f"collectives' host time {coll / steps * 1e3:.4f} ms a step "
+                 f"({coll / max(ncoll, 1) * 1e3:.4f} ms each)")
     print(f"path f {label}: {len(runs)} ranks, {wall / steps * 1e3:.4f} ms "
-          f"a step ({wall:.3f} s, {steps} steps); collectives' host time "
-          f"{coll / steps * 1e3:.4f} ms a step ({each:.4f} ms each, "
-          f"{ncoll} calls); max|w - reference| {diff:.3e} (tol {tol:g})")
+          f"a step ({wall:.3f} s, {steps} steps); {timed}, {ncoll} calls; "
+          f"max|w - reference| {diff:.3e} (tol {tol:g})")
     for r in runs:
         require(r["launches"] == {k: steps for k in PACKED},
                 f"path f {label}: launches {r['launches']}, want {steps} "
@@ -1432,9 +1512,31 @@ def model_colls(k: int, nu: float, steps: int, chunks: int, d: int) -> dict:
     return dict(want)
 
 
-def collectives_path(torch, dist_fits) -> None:
+def collectives_path(torch, dist_fits, rec: PathRecorder) -> PathRecorder:
     """Path f: the references on the card, NCCL at world size 1 here, then
-    the spawned gloo ranks; counts reset just before and read after."""
+    the spawned gloo ranks; counts reset just before and read after, the
+    calls here recorded by ``rec``.  Returns rank 0's recorder."""
+    from repro_torch.kernels import ops
+
+    t_path = time.perf_counter()
+    ops.launch_counts.clear()
+    with rec:
+        ranks, spawn_s, arrays, refs = f_parent(torch, dist_fits, rec)
+    counts = dict(ops.launch_counts)
+    print(f"path f launches here {counts}")
+    rec.check_counts(counts, ("fwht",) + PACKED)
+    rank0 = PathRecorder.from_host_copy("f rank 0", ranks[0]["rec"])
+    print(f"path f launches on rank 0 {ranks[0]['rec']['counts']}")
+    rank0.check_counts(ranks[0]["rec"]["counts"], PACKED)
+    f_check(ranks, spawn_s, arrays, refs)
+    print(f"path f: {time.perf_counter() - t_path:.2f} s in all")
+    return rank0
+
+
+def f_parent(torch, dist_fits, rec):
+    """Path f's data, its references on the card and the NCCL runs here,
+    then the spawn; returns (the ranks' results, the spawn's seconds, the
+    data, the references)."""
     import shutil
     import tempfile
 
@@ -1445,12 +1547,9 @@ def collectives_path(torch, dist_fits) -> None:
     from repro_torch.core import saddle
     from repro_torch.core.svm import split_classes
     from repro_torch.data import synthetic
-    from repro_torch.kernels import ops
     from repro_torch.launch import mesh as meshlib
     from repro_torch.utils import comm_audit
 
-    t_path = time.perf_counter()
-    ops.launch_counts.clear()
     arrays = {"sched0": dist_fits[0]["sched"][:F_K20_STEPS]}
     for i, spec in enumerate(DIST_FITS):
         xp, xm, nu = dist_problem(spec)
@@ -1491,9 +1590,12 @@ def collectives_path(torch, dist_fits) -> None:
             world_size=1, device="cuda", timeout_s=F_TIMEOUT_S)
         try:
             # NCCL sets its communicator up at the first collective: do
-            # that before the timed solve
+            # that before the timed solves; the first one's ms a step has
+            # no device synchronisation around its collectives
             torch.distributed.all_reduce(torch.zeros(1, device=g1.device))
-            nccl = f_solve(g1, xp, xm, 1, **serial_kw)
+            nccl = [f_solve(g1, xp, xm, 1, timed=False, **serial_kw)]
+            rec.arm("NCCL k=1")
+            nccl.append(f_solve(g1, xp, xm, 1, **serial_kw))
             nccl_audit = comm_audit.audit_runner(
                 g1, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=0.0)
         finally:
@@ -1506,18 +1608,35 @@ def collectives_path(torch, dist_fits) -> None:
         spawn_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    refs = dict(sims=sims, sim20=sim20, serial=serial, whole=whole,
+                nccl=nccl, nccl_audit=nccl_audit)
+    return ranks, spawn_s, arrays, refs
+
+
+def f_check(ranks, spawn_s, arrays, refs) -> None:
+    """Path f's holds: every run against its reference and the models."""
+    import numpy as np
+
+    from repro_torch.core import distributed as dist
+
+    sims, sim20, serial, whole = (refs[k] for k in ("sims", "sim20",
+                                                    "serial", "whole"))
+    xp = arrays["xp0"]
+    serial_kw = F_K4[0][2]
     steps = serial_kw["num_iters"]
-    f_check_run("NCCL k=1 vs serial", [nccl], steps,
-                model_colls(1, 0.0, steps,
-                            -(-steps // serial_kw["record_every"]),
-                            xp.shape[1]),
-                float(abs(nccl["w"] - serial.state.w.cpu().numpy()).max()),
-                0.0)
-    require(np.array_equal(serial.state.log_eta.cpu().numpy(),
-                           nccl["log_eta"][0])
-            and [(m, o) for m, _, o in nccl["history"]] == serial.history,
-            "path f NCCL k=1: duals or history differ from the serial solve")
-    f_check_audit("NCCL k=1", nccl_audit, 3)
+    for nccl, label in zip(refs["nccl"], ("", ", collectives timed")):
+        f_check_run(f"NCCL k=1 vs serial{label}", [nccl], steps,
+                    model_colls(1, 0.0, steps,
+                                -(-steps // serial_kw["record_every"]),
+                                xp.shape[1]),
+                    float(abs(nccl["w"] - serial.state.w.cpu().numpy()
+                              ).max()), 0.0)
+        require(np.array_equal(serial.state.log_eta.cpu().numpy(),
+                               nccl["log_eta"][0])
+                and [(m, o) for m, _, o in nccl["history"]]
+                == serial.history, "path f NCCL k=1: duals or history "
+                "differ from the serial solve")
+    f_check_audit("NCCL k=1", refs["nccl_audit"], 3)
     print(f"path f: {F_RANKS} gloo ranks on the card, {spawn_s:.2f} s from "
           "spawn to the last result")
     d = xp.shape[1]
@@ -1583,12 +1702,6 @@ def collectives_path(torch, dist_fits) -> None:
           f"{bool((dw[lane, shard * m:(shard + 1) * m] == 0).all())}")
     require(kept and (dw[lane, shard * m:(shard + 1) * m] == 0).all(),
             "path f drop_slot_shard")
-
-    counts = dict(ops.launch_counts)
-    print(f"path f launches here {counts} ({time.perf_counter() - t_path:.2f} "
-          "s in all)")
-    for name in ("fwht",) + PACKED:
-        require(counts.get(name, 0) > 0, f"path f: {name} never launched")
 
 
 def serial_vs_dist(torch, fits):
@@ -2370,10 +2483,10 @@ def jax_test_shapes(torch, timer, g):
 
 def fwht_shapes(rec) -> set:
     """The FWHT shapes of a path held against the plain version: all of
-    them, but for path e (two class matrices a request) the longest class
-    matrix and the recovery's vector of each d."""
+    them, but for paths e and f (two class matrices a problem) the longest
+    class matrix and the recovery's vector of each d."""
     shapes = {shape for (name, shape) in rec.calls if name == "fwht"}
-    if rec.name != "e":
+    if rec.name not in ("e", "f"):
         return shapes
     return {max(sh for sh in shapes if sh[1] == d) for _, d in shapes} | {
         sh for sh in shapes if sh[0] == 1}
@@ -2634,14 +2747,14 @@ def main() -> int:
           f"{torch.version.cuda}")
 
     recs = [PathRecorder(name) for name in ("a", "b", "c", "d")]
-    recs.append(PathRecorder("e", keep=False))
+    recs += [PathRecorder("e", keep=False), PathRecorder("f")]
     fits = main_path(torch, recs[0])
     dist_fits = dist_path(torch, recs[1])
     reference_path(torch, recs[2], dist_fits[0])
     fits += wide_path(torch, recs[3])
     serve = service_path(torch, recs[4])
     serve_vs_solo(torch, serve)
-    collectives_path(torch, dist_fits)
+    recs.append(collectives_path(torch, dist_fits, recs[5]))
     serial_vs_dist(torch, dist_fits)
     profiles(torch, dist_fits, serve)
     entries = check_kernels(torch, Timer(torch), recs)

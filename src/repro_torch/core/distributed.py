@@ -302,17 +302,7 @@ def sharded_run_fn(group, *, params: saddle.SaddleParams,
             raise ValueError(f"{idx.shape[0]} steps exceed chunk_steps="
                              f"{chunk_steps}")
         return engine.chunk_body_packed(state, x_t, sign, params,
-                                        idx.shape[0], idx=idx,
-                                        group=group.group)
-    return run
-
-
-def make_sharded_runner(group):
-    """The runner of the client group ``group``: ``run(state, x_t, sign,
-    idx, *, params, chunk_steps)`` (see :func:`sharded_run_fn`)."""
-    def run(state, x_t, sign, idx, *, params, chunk_steps):
-        return sharded_run_fn(group, params=params,
-                              chunk_steps=chunk_steps)(state, x_t, sign, idx)
+                                        idx.shape[0], idx=idx, group=group)
     return run
 
 
@@ -460,11 +450,10 @@ def solve_distributed(xp, xm, *, k: int = 20, eps: float = 1e-3,
     comm = CommModel(k=k, nu_rounds_per_iter=nu_rounds)
 
     if mesh is not None:
-        runner = make_sharded_runner(mesh)
+        runner = sharded_run_fn(mesh, params=params, chunk_steps=chunk)
 
         def run(st, idx):
-            return runner(st, x_t, sign, idx, params=params,
-                          chunk_steps=chunk)
+            return runner(st, x_t, sign, idx)
     else:
         def run(st, idx):
             # ``sign`` is read when the chunk runs, so a drop takes effect

@@ -61,9 +61,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import projections
-from repro_torch.core import preprocess as pp
-from repro_torch.core.preprocess import LANE
 from repro_torch.kernels import ops
+from repro_torch.kernels.saddle_update import LANE
 
 NEG_INF = -1e30     # log weight of padding points (exp() == 0 exactly)
 
@@ -76,15 +75,6 @@ trace_counts: collections.Counter = collections.Counter()
 # Client reductions by (op, reduce kind, elements per client): one count
 # per call of a client hook (a client axis or a process group).
 collective_counts: collections.Counter = collections.Counter()
-
-# Host seconds spent in the group hooks' all_reduce calls, by the same
-# keys (gloo on a CUDA tensor copies it to the host and waits).
-collective_seconds: collections.Counter = collections.Counter()
-
-# While a list, each group hook appends (kind, elements, bytes per
-# element) in the order it issues its all_reduce (utils.comm_audit reads
-# it beside the profiler's events, which do not name the reduce op).
-collective_log: list | None = None
 
 # Rows of uniforms drawn at once per slot: bounds the sampler's scratch to
 # 16 MiB whatever the chunk length.
@@ -132,20 +122,35 @@ def client_hooks(clients: bool):
     return (_all_sum, _all_max) if clients else (_identity, _identity)
 
 
-def group_hooks(group):
-    """(all_sum, all_max) over the ranks of a torch process group: each an
-    ``all_reduce`` (SUM / MAX) of a copy of its input, tallied under
-    ("all-reduce", kind, x.numel()) -- the rank's whole payload, which
-    for one client row is the simulation's ``x[0].numel()``."""
+def group_hooks(mesh):
+    """(all_sum, all_max) over the ranks of the client group ``mesh`` (a
+    ``launch.mesh.ClientGroup``): each an ``all_reduce`` (SUM / MAX) of a
+    copy of its input, tallied under ("all-reduce", kind, x.numel()) --
+    the rank's whole payload, which for one client row is the
+    simulation's ``x[0].numel()``.
+
+    With ``mesh.recorder`` set, each call is also timed between two device
+    synchronisations (so an NCCL all-reduce, which returns once it is
+    queued, is timed to its end, as gloo's blocking one is) and reported
+    as ``recorder(kind, elements, bytes per element, seconds)`` in issue
+    order; without one nothing is timed."""
+    group, recorder = mesh.group, mesh.recorder
+
+    def sync(x):
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+
     def reduce(x, kind, op):
-        key = ("all-reduce", kind, x.numel())
-        collective_counts[key] += 1
-        if collective_log is not None:
-            collective_log.append((kind, x.numel(), x.element_size()))
+        collective_counts["all-reduce", kind, x.numel()] += 1
         out = x.clone(memory_format=torch.contiguous_format)
+        if recorder is None:
+            dist.all_reduce(out, op=op, group=group)
+            return out
+        sync(out)
         t0 = time.perf_counter()
         dist.all_reduce(out, op=op, group=group)
-        collective_seconds[key] += time.perf_counter() - t0
+        sync(out)
+        recorder(kind, x.numel(), x.element_size(), time.perf_counter() - t0)
         return out
 
     def _group_sum(x: torch.Tensor) -> torch.Tensor:
@@ -476,7 +481,8 @@ def chunk_body_packed(state: PackedState, x_t: torch.Tensor,
     """Packed chunk of ONE problem over the S rows of ``state``, ``x_t``
     (S, d, n_pad) and ``sign`` (S, n_pad): S = 1 serially, the k clients
     of Algorithm 4 with ``clients``, or this rank's one client row with a
-    process ``group`` (the reductions are then the group's all-reduces).
+    client ``group`` (a ``launch.mesh.ClientGroup``; the reductions are
+    then its all-reduces, :func:`group_hooks`).
     Every row takes the same step scalars and each step's block ``idx[i]``
     (b,) (drawn from ``generator`` when ``idx`` is not given).  Returns
     (state, objective (S,))."""
@@ -587,27 +593,6 @@ def admit_into_slot(state: SlotState, slot: int, pstate: PackedState,
     return state
 
 
-def fresh_slot_batch(problems, n_pad: int, d: int, rows: list[SlotParams],
-                     seeds: list[int], max_t: int, device: torch.device):
-    """A slot batch whose lane i holds ``problems[i] = (xp, xm)``
-    (preprocessed float32 tensors on ``device``) freshly initialised, with
-    step scalars ``rows[i]`` (:func:`slot_params_row`), a sampler seeded
-    with ``seeds[i]`` and the budget ``max_t``.  Returns (state, x_t
-    (S, d, n_pad), sign (S, n_pad), sp)."""
-    s = len(problems)
-    state = init_slot_state(s, n_pad, d, device)
-    x_t = torch.zeros((s, d, n_pad), dtype=torch.float32, device=device)
-    sign = torch.zeros((s, n_pad), dtype=torch.float32, device=device)
-    for lane, (xp, xm) in enumerate(problems):
-        pts = pp.pack_points_to(xp, xm, n_pad, d)
-        x_t[lane], sign[lane] = pts.x_t, pts.sign
-        admit_into_slot(state, lane,
-                        init_packed_state(pts.sign, pts.n1, pts.n2, d),
-                        torch.Generator(device=device).manual_seed(
-                            seeds[lane]), max_t)
-    return state, x_t, sign, stack_slot_params(rows, device)
-
-
 def deactivate_slot(state: SlotState, slot: int) -> SlotState:
     """Freeze one lane, IN PLACE (the cancellation path); its buffers are
     left as they are."""
@@ -672,7 +657,8 @@ def chunk_body_slots(state: SlotState, x_t: torch.Tensor, sign: torch.Tensor,
     gap; a slot that is done (budget spent, unhealthy, or relative gap
     below its ``gap_tol``) goes inactive.
 
-    Under a process ``group`` (the point-sharded serving placement) every
+    Under a client ``group`` (a ``launch.mesh.ClientGroup``: the
+    point-sharded serving placement) every
     lane's POINT axis is this rank's shard: the step runs the same
     Theorem-8 rounds as the distributed solve, each one all-reduce of
     every lane's payload ((S, b), (S, 2), ...), and the chunk boundary
@@ -693,7 +679,7 @@ def chunk_body_slots(state: SlotState, x_t: torch.Tensor, sign: torch.Tensor,
                          f"[0, chunk_steps={chunk_steps}]")
     key = slot_trace_key(state.num_slots, x_t.shape[-1], d, block_size,
                          chunk_steps, project, check_gap,
-                         None if group is None else dist.get_world_size(group))
+                         None if group is None else group.size)
     if key not in trace_counts:
         trace_counts[key] += 1
     if idx is None:
@@ -806,28 +792,6 @@ def shard_slot_batch(mesh, placement: str, state: SlotState,
     return state, x_t[..., cols].contiguous(), sign[:, cols].contiguous(), sp
 
 
-def sharded_slot_run_fn(mesh, *, placement: str, chunk_steps: int, d: int,
-                        block_size: int, project: bool,
-                        check_gap: bool = False):
-    """The slot chunk of one rank of ``mesh`` in ``placement``:
-    ``run(state, x_t, sign, sp, num_steps, idx=None) -> (state, obj,
-    healthy)`` on this rank's shard (see :func:`shard_slot_batch`).  The
-    lanes placement returns its own lanes' rows; the points placement
-    every lane's objective and agreed health flag."""
-    _check_placement(placement)
-    group = mesh.group if placement == "points" else None
-
-    def run(state, x_t, sign, sp, num_steps, idx=None):
-        if group is not None:
-            _check_point_shard(x_t.shape[-1], mesh.size)
-        return chunk_body_slots(
-            state, x_t, sign, sp, num_steps, chunk_steps=chunk_steps, d=d,
-            block_size=block_size, project=project, check_gap=check_gap,
-            idx=idx, group=group)
-
-    return run
-
-
 def run_chunk_slots_sharded(state: SlotState, x_t: torch.Tensor,
                             sign: torch.Tensor, sp: SlotParams,
                             num_steps: int, *, mesh, placement: str,
@@ -835,28 +799,19 @@ def run_chunk_slots_sharded(state: SlotState, x_t: torch.Tensor,
                             project: bool, check_gap: bool = False,
                             idx: torch.Tensor | None = None):
     """:func:`run_chunk_slots` on this rank's shard of a slot batch placed
-    over the client group ``mesh``: same return contract, at the rank's
-    shapes."""
-    run = sharded_slot_run_fn(mesh, placement=placement,
-                              chunk_steps=chunk_steps, d=d,
-                              block_size=block_size, project=project,
-                              check_gap=check_gap)
-    return run(state, x_t, sign, sp, num_steps, idx)
-
-
-def sharded_slot_trace_key(num_slots: int, n_pad: int, d: int,
-                           block_size: int, chunk_steps: int, project: bool,
-                           check_gap: bool, mesh, placement: str) -> tuple:
-    """:func:`slot_trace_key` of a chunk placed over ``mesh``, from the
-    WHOLE batch's shapes: the lanes placement divides the slot count by
-    the group size, the points placement the point count."""
+    over the client group ``mesh`` (see :func:`shard_slot_batch`): same
+    return contract, at the rank's shapes.  The lanes placement returns
+    its own lanes' rows; the points placement every lane's objective and
+    agreed health flag."""
     _check_placement(placement)
-    k = mesh.size
-    if placement == "lanes":
-        return slot_trace_key(num_slots // k, n_pad, d, block_size,
-                              chunk_steps, project, check_gap)
-    return slot_trace_key(num_slots, n_pad // k, d, block_size, chunk_steps,
-                          project, check_gap, k)
+    group = None
+    if placement == "points":
+        _check_point_shard(x_t.shape[-1], mesh.size)
+        group = mesh
+    return chunk_body_slots(
+        state, x_t, sign, sp, num_steps, chunk_steps=chunk_steps, d=d,
+        block_size=block_size, project=project, check_gap=check_gap,
+        idx=idx, group=group)
 
 
 def run_solve_slots(state: SlotState, x_t: torch.Tensor, sign: torch.Tensor,

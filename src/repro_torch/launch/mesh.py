@@ -42,11 +42,16 @@ BACKENDS = ("gloo", "nccl")
 
 class ClientGroup(NamedTuple):
     """One rank's view of a client group: the torch ``ProcessGroup``, this
-    process's rank in it, its size, and the device its tensors live on."""
+    process's rank in it, its size, and the device its tensors live on.
+    ``recorder``, when set (``group._replace(recorder=...)``), is called
+    by the group's hooks after each all-reduce they issue, with its kind,
+    its elements, their bytes and its seconds (``engine.group_hooks``);
+    ``utils.comm_audit.Recorder`` is one."""
     group: Any
     rank: int
     size: int
     device: torch.device
+    recorder: Callable | None = None
 
 
 def _client_device(device, rank: int) -> torch.device:
@@ -86,14 +91,13 @@ def init_client_group(*, backend: str, init_method: str, rank: int,
                        device=dev)
 
 
-def sub_group(parent: ClientGroup, ranks, *,
-              backend: str | None = None) -> ClientGroup | None:
+def sub_group(parent: ClientGroup, ranks) -> ClientGroup | None:
     """The client group of ``ranks`` (ranks of ``parent``, which must be
-    the default group), or None on a rank outside it.  Every rank of the
-    default group must call this, in the same order, for every subgroup
-    (``torch.distributed.new_group``'s rule)."""
+    the default group, whose backend it takes), or None on a rank outside
+    it.  Every rank of the default group must call this, in the same
+    order, for every subgroup (``torch.distributed.new_group``'s rule)."""
     ranks = sorted(ranks)
-    pg = dist.new_group(ranks, backend=backend)
+    pg = dist.new_group(ranks)
     if parent.rank not in ranks:
         return None
     return ClientGroup(group=pg, rank=ranks.index(parent.rank),
@@ -130,7 +134,9 @@ def spawn_clients(fn: Callable, k: int, *, backend: str, device,
     """Run ``fn(group, *args)`` on k spawned processes, one rank each, and
     return the k results in rank order.
 
-    Results and ``args`` are pickled: return numpy arrays or CPU tensors.
+    Results and ``args`` are pickled: return numpy arrays, not tensors
+    (torch shares a tensor through a file descriptor of its process, which
+    may have exited by the time the parent reads it).
     The first child that raises has its traceback re-raised here as a
     RuntimeError; a child that dies without a result raises too.  When
     ``timeout_s`` (start-up included) runs out, every child is killed and

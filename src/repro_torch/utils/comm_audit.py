@@ -8,11 +8,12 @@ inside ``torch.profiler.profile(record_shapes=True)``, and the audit
 counts the backend's collective events (``gloo:all_reduce`` /
 ``nccl:all_reduce``, and any other ``gloo:`` / ``nccl:`` collective) with
 their payload shapes.  The profiler does not name the reduce op, so each
-event is paired, in issue order, with the log the group hooks keep
-(``engine.collective_log``): a measurement agrees with the hooks only if
-every event is an all-reduce of the logged size, and the multiset equals
-the hooks' tally (``engine.collective_counts``).  An all-reduce issued
-outside the hooks therefore breaks ``match``.
+event is paired, in issue order, with what the group hooks report to the
+group's :class:`Recorder` (``ClientGroup.recorder``): a measurement
+agrees with the hooks only if every event is an all-reduce of the
+reported size, and the multiset equals the hooks' tally
+(``engine.collective_counts``).  An all-reduce issued outside the hooks
+therefore breaks ``match``.
 
 * :func:`audit_runner` -- ONE step of the packed client step and ONE
   chunk of the runner (``distributed.sharded_run_fn``) against
@@ -20,7 +21,7 @@ outside the hooks therefore breaks ``match``.
   ``chunk_steps`` steps less that of a chunk of none (which is the
   boundary's objective sum alone), divided by ``chunk_steps``.
 * :func:`audit_serve` -- the serving chunk in one placement
-  (``engine.sharded_slot_run_fn``): "lanes" must issue nothing at all,
+  (``engine.run_chunk_slots_sharded``): "lanes" must issue nothing at all,
   "points" exactly ``ServeCommModel``, per iteration and per chunk.
 * :func:`run_specs` / :func:`collect_audits` -- a batch of audits on
   subgroups of one group of spawned processes.
@@ -43,6 +44,7 @@ from repro_torch.core import preprocess as pp
 from repro_torch.launch import mesh as meshlib
 
 BACKEND_PREFIXES = ("gloo:", "nccl:")
+SEED = 0            # the audits' data and draws
 
 
 def _key_str(key: tuple) -> str:
@@ -52,6 +54,22 @@ def _key_str(key: tuple) -> str:
 
 def multiset_to_json(ms: dict) -> dict:
     return {_key_str(k): v for k, v in sorted(ms.items())}
+
+
+class Recorder:
+    """What the group hooks of a ``ClientGroup(recorder=...)`` report:
+    ``log``, each all-reduce's (kind, elements, bytes per element) in
+    issue order, and ``seconds``, their time between two device
+    synchronisations (``engine.group_hooks``), summed."""
+
+    def __init__(self):
+        self.log: list = []
+        self.seconds = 0.0
+
+    def __call__(self, kind: str, elements: int, size: int,
+                 seconds: float) -> None:
+        self.log.append((kind, elements, size))
+        self.seconds += seconds
 
 
 class Measured(NamedTuple):
@@ -85,22 +103,19 @@ class Measured(NamedTuple):
                 and self.multiset == self.tally)
 
 
-def measure(fn) -> Measured:
-    """Run ``fn()`` under the profiler and return its collectives."""
+def measure(group: meshlib.ClientGroup, fn) -> Measured:
+    """Run ``fn(g)`` under the profiler, ``g`` being ``group`` with a
+    fresh :class:`Recorder`, and return its collectives."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     before = collections.Counter(engine.collective_counts)
-    engine.collective_log = []
-    try:
-        with profile(activities=[ProfilerActivity.CPU],
-                     record_shapes=True) as prof:
-            fn()
-            if torch.cuda.is_available():
-                torch.cuda.synchronize()
-        log = engine.collective_log
-    finally:
-        engine.collective_log = None
+    rec = Recorder()
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn(group._replace(recorder=rec))
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
     tally = dict(collections.Counter(engine.collective_counts) - before)
     events = sorted(
         (ev.time_range.start, ev.name.split(":", 1)[1].replace("_", "-"),
@@ -108,7 +123,7 @@ def measure(fn) -> Measured:
         for ev in prof.events()
         if ev.device_type == DeviceType.CPU
         and ev.name.startswith(BACKEND_PREFIXES) and ev.input_shapes)
-    return Measured(events=[(op, e) for _, op, e in events], log=log,
+    return Measured(events=[(op, e) for _, op, e in events], log=rec.log,
                     tally=tally)
 
 
@@ -138,9 +153,31 @@ def _problem(n1: int, n2: int, d: int, seed: int):
             rng.normal(size=(n2, d)).astype(np.float32))
 
 
+def fresh_slot_batch(problems, n_pad: int, d: int,
+                     rows: list[engine.SlotParams], seeds: list[int],
+                     max_t: int, device: torch.device):
+    """A slot batch whose lane i holds ``problems[i] = (xp, xm)``
+    (preprocessed float32 tensors on ``device``) freshly initialised, with
+    step scalars ``rows[i]`` (``engine.slot_params_row``), a sampler
+    seeded with ``seeds[i]`` and the budget ``max_t``.  Returns (state,
+    x_t (S, d, n_pad), sign (S, n_pad), sp)."""
+    s = len(problems)
+    state = engine.init_slot_state(s, n_pad, d, device)
+    x_t = torch.zeros((s, d, n_pad), dtype=torch.float32, device=device)
+    sign = torch.zeros((s, n_pad), dtype=torch.float32, device=device)
+    for lane, (xp, xm) in enumerate(problems):
+        pts = pp.pack_points_to(xp, xm, n_pad, d)
+        x_t[lane], sign[lane] = pts.x_t, pts.sign
+        engine.admit_into_slot(
+            state, lane, engine.init_packed_state(pts.sign, pts.n1, pts.n2,
+                                                  d),
+            torch.Generator(device=device).manual_seed(seeds[lane]), max_t)
+    return state, x_t, sign, engine.stack_slot_params(rows, device)
+
+
 def audit_runner(group: meshlib.ClientGroup, *, n1: int, n2: int, d: int,
-                 nu: float, block_size: int = 1, chunk_steps: int = 8,
-                 seed: int = 0) -> dict:
+                 nu: float, block_size: int = 1,
+                 chunk_steps: int = 8) -> dict:
     """Measured collectives of one packed client step and of one runner
     chunk on ``group``, against ``CommModel`` (see the module doc)."""
     k, dev = group.size, group.device
@@ -149,7 +186,7 @@ def audit_runner(group: meshlib.ClientGroup, *, n1: int, n2: int, d: int,
     model = distributed.CommModel(k=k, nu_rounds_per_iter=_rounds(nu))
     predicted = model.collective_multiset(block_size)
 
-    xp, xm = _problem(n1, n2, d, seed)
+    xp, xm = _problem(n1, n2, d, SEED)
     xp_sh, mask_p = distributed.shard_points(xp, k)
     xm_sh, mask_m = distributed.shard_points(xm, k)
     x_t, sign = distributed.pack_shards(xp_sh, mask_p, xm_sh, mask_m)
@@ -157,18 +194,24 @@ def audit_runner(group: meshlib.ClientGroup, *, n1: int, n2: int, d: int,
     x_t = torch.as_tensor(x_t[rows], device=dev)
     sign = torch.as_tensor(sign[rows], device=dev)
     state = engine.init_packed_state(sign, n1, n2, d)
-    idx = engine.draw_blocks(torch.Generator(device=dev).manual_seed(seed),
+    idx = engine.draw_blocks(torch.Generator(device=dev).manual_seed(SEED),
                              d, block_size, chunk_steps, dev)
     sc = engine.stack_slot_params([engine.slot_params_row(params)], dev)
-    all_sum, all_max = engine.group_hooks(group.group)
 
-    step = measure(lambda: engine._step_packed_core(
-        state, x_t, sign, sc, d=d, block_size=block_size, project=nu > 0,
-        idx=idx[:1], all_sum=all_sum, all_max=all_max))
-    run = distributed.sharded_run_fn(group, params=params,
-                                     chunk_steps=chunk_steps)
-    none = measure(lambda: run(state, x_t, sign, idx[:0]))
-    chunk = measure(lambda: run(state, x_t, sign, idx))
+    def one_step(g):
+        all_sum, all_max = engine.group_hooks(g)
+        engine._step_packed_core(
+            state, x_t, sign, sc, d=d, block_size=block_size,
+            project=nu > 0, idx=idx[:1], all_sum=all_sum, all_max=all_max)
+
+    def run(steps):
+        return lambda g: distributed.sharded_run_fn(
+            g, params=params, chunk_steps=chunk_steps)(state, x_t, sign,
+                                                       idx[:steps])
+
+    step = measure(group, one_step)
+    none = measure(group, run(0))
+    chunk = measure(group, run(chunk_steps))
     runner_iter, _ = _per_step(chunk, none, chunk_steps)
     agrees = step.agrees and none.agrees and chunk.agrees
     return {
@@ -194,8 +237,7 @@ def audit_runner(group: meshlib.ClientGroup, *, n1: int, n2: int, d: int,
 
 def audit_serve(group: meshlib.ClientGroup, *, placement: str,
                 num_slots: int, n1: int, n2: int, d: int, nu: float,
-                block_size: int = 1, chunk_steps: int = 8,
-                seed: int = 0) -> dict:
+                block_size: int = 1, chunk_steps: int = 8) -> dict:
     """Measured collectives of one serving chunk of ``num_slots`` lanes
     (the whole batch) on ``group`` in ``placement``: none at all for
     "lanes"; ``ServeCommModel`` per iteration and per chunk for
@@ -207,17 +249,21 @@ def audit_serve(group: meshlib.ClientGroup, *, placement: str,
     params = saddle.make_params(n1 + n2, d, 1e-3, 0.1, nu=nu,
                                 block_size=block_size)
     problems = [tuple(torch.as_tensor(a, device=dev)
-                      for a in _problem(n1, n2, d, seed + lane))
+                      for a in _problem(n1, n2, d, SEED + lane))
                 for lane in range(num_slots)]
-    batch = engine.fresh_slot_batch(
+    batch = fresh_slot_batch(
         problems, n_pad, d, [engine.slot_params_row(params)] * num_slots,
-        [seed + lane for lane in range(num_slots)], 1 << 30, dev)
+        [SEED + lane for lane in range(num_slots)], 1 << 30, dev)
     local = engine.shard_slot_batch(group, placement, *batch)
-    run = engine.sharded_slot_run_fn(
-        group, placement=placement, chunk_steps=chunk_steps, d=d,
-        block_size=block_size, project=nu > 0)
-    none = measure(lambda: run(*local, 0))
-    chunk = measure(lambda: run(*local, chunk_steps))
+
+    def run(steps):
+        return lambda g: engine.run_chunk_slots_sharded(
+            *local, steps, mesh=g, placement=placement,
+            chunk_steps=chunk_steps, d=d, block_size=block_size,
+            project=nu > 0)
+
+    none = measure(group, run(0))
+    chunk = measure(group, run(chunk_steps))
     per_iter, nbytes = _per_step(chunk, none, chunk_steps)
     if placement == "points":
         model = distributed.ServeCommModel(k=k, num_slots=num_slots,
@@ -252,9 +298,9 @@ def audit_serve(group: meshlib.ClientGroup, *, placement: str,
 
 
 def audit_spec(group: meshlib.ClientGroup, spec: dict) -> dict:
-    """One audit from a spec: keys n1, n2, d, nu, block_size, chunk_steps,
-    seed; ``kind="serve"`` adds placement and num_slots (``k`` names the
-    group and is not passed on)."""
+    """One audit from a spec: keys n1, n2, d, nu, block_size, chunk_steps;
+    ``kind="serve"`` adds placement and num_slots (``k`` names the group
+    and is not passed on)."""
     kw = {key: v for key, v in spec.items() if key not in ("k", "kind")}
     if spec.get("kind") == "serve":
         return audit_serve(group, **kw)
@@ -275,11 +321,13 @@ def run_specs(world: meshlib.ClientGroup, specs: list[dict]) -> list:
             else audit_spec(groups[int(s["k"])], s) for s in specs]
 
 
-def collect_audits(specs: list[dict], *, backend: str = "gloo",
-                   device: str = "cpu", timeout_s: float = 300.0) -> list:
-    """Run a batch of audit specs on max(k) spawned ranks and return the
-    records of rank 0 (a member of every subgroup).  Raises if another
-    member's record of a spec differs from rank 0's."""
+def collect_audits(specs: list[dict], *, backend: str, device,
+                   timeout_s: float) -> list:
+    """Run a batch of audit specs on max(k) spawned ranks
+    (``launch.mesh.spawn_clients``, whose arguments ``backend``, ``device``
+    and ``timeout_s`` are) and return the records of rank 0 (a member of
+    every subgroup).  Raises if another member's record of a spec differs
+    from rank 0's."""
     if not specs:
         return []
     k = max(int(s["k"]) for s in specs)

@@ -15,6 +15,7 @@ import torch
 from repro_torch.core import distributed as dist
 from repro_torch.core import engine, saddle
 from repro_torch.launch import mesh as meshlib
+from repro_torch.utils import comm_audit
 
 CPU = "cpu"
 
@@ -38,7 +39,7 @@ def _serve_batch(problems, n_pad, d, nu, block_size):
         params = saddle.make_params(len(xp) + len(xm), d, 1e-2, 0.1, nu=nu,
                                     block_size=block_size)
         rows.append(engine.slot_params_row(params))
-    return engine.fresh_slot_batch(
+    return comm_audit.fresh_slot_batch(
         [(torch.as_tensor(xp), torch.as_tensor(xm)) for xp, xm in problems],
         n_pad, d, rows, [50 + i for i in range(len(problems))], 10_000,
         torch.device(CPU))

@@ -327,15 +327,6 @@ def test_point_shards_must_be_multiples_of_128():
         engine.shard_slot_batch(group, "rows", *batch)
 
 
-def test_sharded_slot_trace_key_from_whole_shapes():
-    g = meshlib.ClientGroup(None, 0, 4, torch.device(CPU))
-    args = (8, 512, 16, 2, 16, False, False)
-    assert engine.sharded_slot_trace_key(*args, g, "lanes") == \
-        engine.slot_trace_key(2, 512, 16, 2, 16, False, False)
-    assert engine.sharded_slot_trace_key(*args, g, "points") == \
-        engine.slot_trace_key(8, 128, 16, 2, 16, False, False, 4)
-
-
 # ------------------------------------------------ ServeCommModel
 @pytest.mark.parametrize("k", [1, 2, 8])
 @pytest.mark.parametrize("num_slots", [1, 4])

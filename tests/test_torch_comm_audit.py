@@ -48,7 +48,8 @@ def _specs():
 
 @pytest.fixture(scope="module")
 def all_audits():
-    recs = comm_audit.collect_audits(_specs(), device="cpu", timeout_s=240)
+    recs = comm_audit.collect_audits(_specs(), backend="gloo", device="cpu",
+                                     timeout_s=240)
     assert len(recs) == len(_specs()) and all(recs)
     return recs
 
@@ -213,18 +214,40 @@ def test_stray_all_reduce_breaks_the_match(one_rank):
     rec = comm_audit.audit_runner(one_rank, **BASE, nu=0.0)
     assert rec["match"] is True and rec["hooks_agree"] is True
     predicted = _model(1, 0.0).collective_multiset(BASE["block_size"])
-    all_sum, _ = engine.group_hooks(one_rank.group)
 
     def step(stray: bool):
-        all_sum(torch.ones(BASE["block_size"]))
-        all_sum(torch.ones(2))
-        if stray:
-            tdist.all_reduce(torch.ones(2))
+        def run(group):
+            all_sum, _ = engine.group_hooks(group)
+            all_sum(torch.ones(BASE["block_size"]))
+            all_sum(torch.ones(2))
+            if stray:
+                tdist.all_reduce(torch.ones(2))
+        return run
 
-    clean = comm_audit.measure(lambda: step(False))
+    clean = comm_audit.measure(one_rank, step(False))
     assert clean.agrees and len(clean.events) == 2
-    planted = comm_audit.measure(lambda: step(True))
+    planted = comm_audit.measure(one_rank, step(True))
     assert len(planted.events) == 3 and len(planted.log) == 2
     assert planted.agrees is False
     assert planted.multiset != predicted
     assert ("all-reduce", "unlogged", 2) in planted.multiset
+
+
+def test_recorder_sees_every_hook_call_and_changes_no_result(one_rank):
+    """The hooks report each all-reduce to the group's recorder (kind,
+    elements, bytes per element, seconds) in issue order, and only when
+    one is set; with or without it they return the same values."""
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    plain_sum, plain_max = engine.group_hooks(one_rank)
+    rec = comm_audit.Recorder()
+    rec_sum, rec_max = engine.group_hooks(one_rank._replace(recorder=rec))
+    before = dict(engine.collective_counts)
+    assert torch.equal(rec_sum(x), plain_sum(x))
+    assert torch.equal(rec_max(x[0]), plain_max(x[0]))
+    assert rec.log == [("add", 6, 4), ("max", 3, 4)]
+    assert rec.seconds > 0.0
+    after = engine.collective_counts
+    assert after["all-reduce", "add", 6] - before.get(
+        ("all-reduce", "add", 6), 0) == 2
+    assert after["all-reduce", "max", 3] - before.get(
+        ("all-reduce", "max", 3), 0) == 2
