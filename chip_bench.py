@@ -12,10 +12,13 @@ for device-only times) is this checkout's for every tree.  Printed, with
 the card's name and power limit:
 
   * the FWHT at the shapes of ``chip_smoke.py``'s path a (both classes and
-    the n = 1 recovery of each serial fit) and at d = 65,536 / 131,072:
+    the n = 1 recovery of each serial fit), at d = 65,536 (n = 195 and
+    path d's 747 / 753) and at d = 131,072:
     wrapper ms by events, kernel device ms a call, device launches a call,
     a copy of the same bytes (``out.copy_(x)``) and ``x @ H`` by the same
-    events, and the bound; a tree that refuses a shape says so;
+    events (``chip_smoke.fwht_library``: H built from Kronecker factors,
+    or the error that refused its allocation), and the bound; a tree that
+    refuses a shape says so;
   * the unpacked momentum dot at the reference step's shapes (path c) and
     the JAX kernel tests' shapes with 20 clients: wrapper ms by events,
     kernel device ms, device launches a call, ``cols.T @ mom`` by events;
@@ -210,7 +213,7 @@ def main() -> int:
     from repro_torch.core import preprocess as pp
     from repro_torch.core.svm import split_classes
     from repro_torch.data import synthetic
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, ops
 
     card = chip_smoke.card_line()
     build.build_all()
@@ -227,7 +230,7 @@ def main() -> int:
         xp, _ = split_classes(ds.x, ds.y)
         d = ds.x.shape[1]
         shapes += [(len(xp), d), (len(ds.y) - len(xp), d), (1, d)]
-    shapes += [(195, 65_536), (97, 131_072)]
+    shapes += [(195, 65_536), (747, 65_536), (753, 65_536), (97, 131_072)]
     jobs, rows = [], []
     for n, d in shapes:
         x = torch.randn((n, d), generator=g, device="cuda")
@@ -238,13 +241,11 @@ def main() -> int:
             out["fwht"].append(dict(n=n, d=d, refused=str(err)))
             continue
         copy = torch.empty_like(x)
-        lib = None
-        if d < 32_768:
-            had = ref.fwht_ref(torch.eye(d, device="cuda"))
-            lib = timer(lambda x=x, had=had: x @ had)
+        lib, lib_err = chip_smoke.fwht_library(torch, timer, x)
         row = dict(n=n, d=d, ms=timer(lambda x=x: ops.fwht(x)),
                    copy_ms=timer(lambda x=x, c=copy: c.copy_(x)),
-                   library_ms=lib, bound_ms=8 * n * d / HBM_BYTES_PER_S * 1e3)
+                   library_ms=lib, library_error=lib_err,
+                   bound_ms=8 * n * d / HBM_BYTES_PER_S * 1e3)
         rows.append(row)
         jobs.append((lambda x=x: ops.fwht(x), "fwht"))
 
@@ -299,8 +300,10 @@ def main() -> int:
               f"ms, device {row['device_ms']:.4f} ms a call "
               f"({row['device_launches']:.2f} device launches a call), copy "
               f"{row['copy_ms']:.4f} ms, x @ H "
-              f"{'null' if lib is None else f'{lib:.4f}'} ms, bound "
-              f"{row['bound_ms']:.4f} ms")
+              f"{'null' if lib is None else f'{lib:.4f}'} ms"
+              + (f" (H not allocated: {row['library_error']})"
+                 if row["library_error"] else "")
+              + f", bound {row['bound_ms']:.4f} ms")
     for row in dot_rows:
         print(f"  momentum_dot K={row['k']} n={row['n']} b={row['b']}: "
               f"wrapper {row['ms']:.4f} ms, kernel device "

@@ -8,7 +8,7 @@ no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- six paths, each driven with the launch counts reset
+  2. paths      -- seven paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -71,6 +71,34 @@ no CPU fallback):
           packed calls here are recorded by shape as on every path, and
           rank 0 records its own and copies one step's arguments of each
           run to the host, for phase 5.
+       g. the fit service over a process group:
+          ``SolverService(mesh=ClientGroup)``, one process a rank, rank 0
+          the front end, ``step``/``run`` collective.  On ranks 0-1 of
+          path f's spawn (gloo over the one card): path e's 12
+          hard-margin and 4 nu tenants lane-placed (4 whole lanes a rank)
+          beside two point-sharded fits above 9,000 points (hard margin
+          on separable(20000, 256), n_pad 32,768; nu on Figure 2's
+          non_separable(50000, 512), n_pad 65,536: columns [r m, (r+1)
+          m) a rank), budgets cut to 128-320 steps; run 1 cancels a lane
+          and the point-sharded nu fit once they run, run 2 poisons a
+          lane at its chunk 2 and the point-sharded hard margin at its
+          chunk 1.  Every other request bit-equal across the runs; lane
+          results within 1e-5 and point-sharded within 1e-4 of their
+          solo solves on the card (at the point-sharded bucket);
+          every rank's tallied all-reduces equal to ``ServeCommModel``
+          for its point-sharded chunks and none for the lane-placed, the
+          same from the profiler over one chunk a group
+          (``comm_audit.audit_service``), which also holds the service's
+          own calls (plan broadcasts, admission data, harvest gathers)
+          to its tally; no set-up in run 2; device memory back to its
+          base on both ranks; requests a second, ms a chunk, the
+          service's traffic and the chunks' all-reduces in host ms a
+          step, set-ups and memory printed per rank.  Each rank records
+          its packed calls by shape and copies one step of each
+          configuration's first chunk (rank 0 also the chunk after the
+          poison) for phase 5.  In the parent, a one-rank NCCL group's
+          service (one request point-sharded at k = 1) bit-equal to
+          path e on four of its requests.
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -91,9 +119,15 @@ no CPU fallback):
                    run's shapes here, and rank 0's (one client of k = 20
                    and of k = 4 on Figures 3 and 4, the 8 lanes' point
                    shards, its 4 placed lanes), on their operands with
-                   fresh duals and on each run's copied step; its time, its device-only time (one
+                   fresh duals and on each run's copied step; path g's:
+                   the NCCL service's calls here, and both ranks' lane
+                   and point shards (4 lanes of 4,096 / 8,192 x 256 and
+                   8,192 x 512; 2 lanes of 16,384 x 256 and 32,768 x
+                   512); its time, its device-only time (one
                    profiler session per group), the plain version's, a
-                   one-call PyTorch yardstick and its bound, and the
+                   one-call PyTorch yardstick (the FWHT's ``x @ H`` with
+                   H built from Kronecker factors, or the error that
+                   refused its allocation) and its bound, and the
                    device launches of one call (exactly 1 for a packed
                    wrapper and the unpacked dot and MWU, 1 or 2 passes
                    for the FWHT as its plan says).  The FWHT also prints its
@@ -354,10 +388,13 @@ class PathRecorder:
             for cap in self.captured])
 
     @classmethod
-    def from_host_copy(cls, name: str, copy: dict) -> "PathRecorder":
+    def from_host_copy(cls, name: str, copy: dict,
+                       operands: bool = True) -> "PathRecorder":
         """A rank's recorder in the parent: its calls and captures (host
-        tensors again), and each captured shape's (x_t, sign) on the card
-        as its operands."""
+        tensors again), and, with ``operands``, each captured shape's
+        (x_t, sign) on the card as its operands (for the fresh-dual
+        check, which needs both classes in every row: not so on a
+        service's point shards and free lanes)."""
         import numpy as np
         import torch
 
@@ -370,7 +407,7 @@ class PathRecorder:
              if key in PACKED else val for key, val in cap.items()}
             for cap in copy["captured"]]
         dev = {}
-        for cap in rec.captured:
+        for cap in rec.captured if operands else ():
             x_t, *_, sign, _theta = cap["momentum_dot_packed"]
             rec.operands.setdefault(cap["shape"], tuple(
                 dev.setdefault(id(a), a.cuda()) for a in (x_t, sign)))
@@ -557,7 +594,6 @@ def dist_problem(spec):
     """The two classes and nu of a distributed fit, as
     benchmarks/fig3_dist_hard_margin.py and fig4_dist_nusvm.py build
     them."""
-    from repro_torch.core import preprocess as pp
     from repro_torch.core.svm import split_classes
     from repro_torch.data import synthetic
 
@@ -907,9 +943,11 @@ def drive_mix(torch, svc, reqs, stream, cancel: bool):
 
 def workspace_bytes() -> int:
     """Bytes of the packed kernels' workspaces (grown on first use and
-    kept for the process, so left out of the memory check)."""
+    kept for the process, so left out of the memory check), as the CUDA
+    caching allocator counts them (in blocks of 512 bytes), so that a
+    workspace replaced by a larger one mid-run leaves the check exact."""
     from repro_torch.kernels import saddle_update as su
-    return sum(t.numel() * t.element_size()
+    return sum(-(-t.numel() * t.element_size() // 512) * 512
                for ws in su._workspace.values() for t in ws)
 
 
@@ -1081,6 +1119,37 @@ def service_path(torch, rec: PathRecorder):
     return dict(reqs=reqs, stream=stream, runs=runs)
 
 
+def serve_pre(torch, x, y, seed):
+    """A request's preprocessing on the card, seeded as the service seeds
+    it (``svm._preprocess_seed``)."""
+    from repro_torch.core import preprocess as pp
+    from repro_torch.core.svm import _preprocess_seed, split_classes
+
+    xp, xm = split_classes(x, y)
+    return pp.preprocess(xp, xm, generator=torch.Generator().manual_seed(
+        _preprocess_seed(seed)), device="cuda")
+
+
+def serve_solo(torch, pre, xp, xm, kw, bucket=None, warm=None, seed=None):
+    """The port's solo saddle.solve on the card at a request's seed,
+    bucket (default: the meshless service's) and chunk, and its (w, b)."""
+    from repro_torch.core import preprocess as pp
+    from repro_torch.core import saddle
+    from repro_torch.core.svm import recover_hyperplane
+
+    n_b, d_b = bucket or pp.bucket_shape(len(xp) + len(xm), xp.shape[1])
+    res = saddle.solve(xp, xm, nu=kw.get("nu", 0.0),
+                       num_iters=kw["num_iters"],
+                       seed=kw["seed"] if seed is None else seed,
+                       gap_tol=kw.get("gap_tol", 0.0),
+                       record_every=SERVE_CHUNK, n_pad=n_b, d_pad=d_b,
+                       warm_start=warm, device="cuda")
+    st = res.state
+    w, b, *_ = recover_hyperplane(pre, torch.exp(st.log_eta),
+                                  torch.exp(st.log_xi), xp, xm)
+    return res, w, b
+
+
 def serve_vs_solo(torch, serve):
     """Every completed request of path e against the port's solo
     saddle.solve on the card at its seed, bucket and chunk (w within
@@ -1089,27 +1158,6 @@ def serve_vs_solo(torch, serve):
     import numpy as np
 
     from repro_torch.core import preprocess as pp
-    from repro_torch.core import saddle
-    from repro_torch.core.svm import (_preprocess_seed, recover_hyperplane,
-                                      split_classes)
-
-    def pre_of(x, y, seed):
-        xp, xm = split_classes(x, y)
-        return pp.preprocess(xp, xm, generator=torch.Generator().manual_seed(
-            _preprocess_seed(seed)), device="cuda")
-
-    def solo(pre, xp, xm, kw, warm=None, seed=None):
-        n_b, d_b = pp.bucket_shape(len(xp) + len(xm), xp.shape[1])
-        res = saddle.solve(xp, xm, nu=kw.get("nu", 0.0),
-                           num_iters=kw["num_iters"],
-                           seed=kw["seed"] if seed is None else seed,
-                           gap_tol=kw.get("gap_tol", 0.0),
-                           record_every=SERVE_CHUNK, n_pad=n_b, d_pad=d_b,
-                           warm_start=warm, device="cuda")
-        st = res.state
-        w, b, *_ = recover_hyperplane(pre, torch.exp(st.log_eta),
-                                      torch.exp(st.log_xi), xp, xm)
-        return res, w, b
 
     t0 = time.perf_counter()
     one, two = (run["res"] for run in serve["runs"])
@@ -1117,8 +1165,8 @@ def serve_vs_solo(torch, serve):
     worst = 0.0
     for i, (label, ds, kw) in enumerate(serve["reqs"]):
         got = two[label] if i == SERVE_CANCEL else one[label]
-        pre = pre_of(ds.x, ds.y, kw["seed"])
-        res, w, b = solo(pre, pre.xp, pre.xm, kw)
+        pre = serve_pre(torch, ds.x, ds.y, kw["seed"])
+        res, w, b = serve_solo(torch, pre, pre.xp, pre.xm, kw)
         dw = float(np.abs(got.w - w).max())
         worst = max(worst, dw)
         require(dw <= SERVE_ATOL and got.iterations == res.history[-1][0],
@@ -1126,7 +1174,7 @@ def serve_vs_solo(torch, serve):
                 f"{got.iterations} vs {res.history[-1][0]} iterations")
     seed, iters, sizes = SERVE_STREAM
     stream = serve["stream"]
-    pre = pre_of(stream.x[:sizes[0]], stream.y[:sizes[0]], seed)
+    pre = serve_pre(torch, stream.x[:sizes[0]], stream.y[:sizes[0]], seed)
     xp, xm = pre.xp, pre.xm
     warm = None
     for k in range(len(sizes)):
@@ -1135,8 +1183,9 @@ def serve_vs_solo(torch, serve):
             x, y = stream.x[lo:hi], stream.y[lo:hi]
             xp = torch.cat([xp, pp.transform_like(pre, x[y > 0])])
             xm = torch.cat([xm, pp.transform_like(pre, x[y < 0])])
-        res, w, b = solo(pre, xp, xm, dict(num_iters=iters, seed=seed),
-                         warm=warm, seed=seed + 1000003 * k)
+        res, w, b = serve_solo(torch, pre, xp, xm,
+                               dict(num_iters=iters, seed=seed), warm=warm,
+                               seed=seed + 1000003 * k)
         warm = res.state
         got = one[f"stream round {k}"]
         dw = float(np.abs(got.w - w).max())
@@ -1193,7 +1242,8 @@ def serve_replay_cpu(torch, serve):
 def check_service_calls(torch, timer, rec) -> list:
     """A path's copied packed calls (path e's: S = 8 lanes, a block and
     step scalars each, free lanes, and after the poison a NaN lane; path
-    f's: one step of each run, here and on rank 0) on the card: each
+    f's: one step of each run, here and on rank 0; path g's: each rank's
+    lane and point shards) on the card: each
     kernel against its plain version on the live lanes (a
     lane with a point and finite duals, u and dw) at the packed
     tolerances, the MWU's (m, s) also against the plain merge of its own
@@ -1236,6 +1286,13 @@ def check_service_calls(torch, timer, rec) -> list:
                  real.any(-1) & finite(mwu[2], mwu[3], mwu[4]), None,
                  4 * s * (n_pad * (b + 5) + 2 * b + 6),
                  s * n_pad * (2 * b + 12))):
+            if not live.any():
+                # e.g. the chunk after the poison of a group whose only
+                # tenant was the poisoned lane: its shape is held by the
+                # group's first chunk
+                print(f"  {name}{label}: no live lane (the {s} lanes free "
+                      "or non-finite), nothing to hold")
+                continue
             kernel = getattr(ops, name)
             plain = getattr(ref, name + "_ref")
 
@@ -1251,9 +1308,8 @@ def check_service_calls(torch, timer, rec) -> list:
                                  real[live])
             if name == "mwu_update_packed":
                 merged = merged_partials(torch, got[0][live], sign[live])
-                errs["merge"] = ((got[2][live] + torch.log(got[3][live])
-                                  - merged[0] - torch.log(merged[1])
-                                  ).abs().max().item(), 1e-4)
+                errs["merge"] = (lse_error(torch, got[2][live],
+                                           got[3][live], *merged), 1e-4)
             require(all(e <= tol for e, tol in errs.values()),
                     f"{name}{label}: {errs}")
             alone = kernel(*(a[live].contiguous()
@@ -1453,6 +1509,8 @@ def f_rank(world, data_path: str) -> dict:
     if rec is not None:
         out["rec"] = rec.host_copy()
         out["rec"]["counts"] = dict(ops.launch_counts)
+    if g2 is not None:
+        out["g"] = g_rank(g2, g_requests() if g2.rank == 0 else [])
     return out
 
 
@@ -1512,43 +1570,104 @@ def model_colls(k: int, nu: float, steps: int, chunks: int, d: int) -> dict:
     return dict(want)
 
 
-def collectives_path(torch, dist_fits, rec: PathRecorder) -> PathRecorder:
-    """Path f: the references on the card, NCCL at world size 1 here, then
-    the spawned gloo ranks; counts reset just before and read after, the
-    calls here recorded by ``rec``.  Returns rank 0's recorder."""
-    from repro_torch.kernels import ops
-
+def collectives_path(torch, dist_fits, serve, rec: PathRecorder,
+                     rec_g: PathRecorder) -> list:
+    """Paths f and g: the references on the card, NCCL at world size 1
+    here (path f's solves, then path g's service), then the spawned gloo
+    ranks (path f, then path g on ranks 0-1); each path's counts reset
+    just before it and read after, here and on each rank, its calls here
+    recorded by ``rec`` / ``rec_g``.  Returns the ranks' recorders."""
     t_path = time.perf_counter()
-    ops.launch_counts.clear()
-    with rec:
-        ranks, spawn_s, arrays, refs = f_parent(torch, dist_fits, rec)
-    counts = dict(ops.launch_counts)
-    print(f"path f launches here {counts}")
-    rec.check_counts(counts, ("fwht",) + PACKED)
+    ranks, spawn_s, arrays, refs, counts = f_parent(torch, dist_fits, rec,
+                                                    rec_g, serve)
+    print(f"path f launches here {counts['f']}")
+    rec.check_counts(counts["f"], ("fwht",) + PACKED)
     rank0 = PathRecorder.from_host_copy("f rank 0", ranks[0]["rec"])
     print(f"path f launches on rank 0 {ranks[0]['rec']['counts']}")
     rank0.check_counts(ranks[0]["rec"]["counts"], PACKED)
     f_check(ranks, spawn_s, arrays, refs)
-    print(f"path f: {time.perf_counter() - t_path:.2f} s in all")
-    return rank0
+    print(f"path f: {time.perf_counter() - t_path:.2f} s in all (path g's "
+          "part of the spawn included)")
+    print(f"path g launches here {counts['g']}")
+    rec_g.check_counts(counts["g"], ("fwht",) + PACKED)
+    g_recs = []
+    for r in range(2):
+        g = ranks[r]["g"]
+        grec = PathRecorder.from_host_copy(f"g rank {r}", g["rec"],
+                                           operands=False)
+        print(f"path g launches on rank {r} {g['counts']}")
+        grec.check_counts(g["counts"], (("fwht",) if r == 0 else ())
+                          + PACKED)
+        g_recs.append(grec)
+    g_check(torch, [ranks[r]["g"] for r in range(2)], refs["g"])
+    return [rank0] + g_recs
 
 
-def f_parent(torch, dist_fits, rec):
+def f_parent(torch, dist_fits, rec, rec_g, serve):
     """Path f's data, its references on the card and the NCCL runs here,
-    then the spawn; returns (the ranks' results, the spawn's seconds, the
-    data, the references)."""
+    path g's NCCL service, then the spawn; returns (the ranks' results,
+    the spawn's seconds, the data, the references, the launches here of
+    paths f and g)."""
     import shutil
     import tempfile
 
     import numpy as np
 
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.utils import comm_audit
+
+    ops.launch_counts.clear()
+    with rec:
+        arrays, refs = f_references(torch, dist_fits)
+    counts = {}
+
+    # NCCL at world size 1 in this process, then the spawned gloo ranks
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_f_"))
+    try:
+        g1 = meshlib.init_client_group(
+            backend="nccl", init_method=f"file://{tmp / 'nccl'}", rank=0,
+            world_size=1, device="cuda", timeout_s=F_TIMEOUT_S)
+        try:
+            with rec:
+                # NCCL sets its communicator up at the first collective:
+                # do that before the timed solves; the first one's ms a
+                # step has no device synchronisation around its
+                # collectives
+                torch.distributed.all_reduce(
+                    torch.zeros(1, device=g1.device))
+                xp, xm = arrays["xp0"], arrays["xm0"]
+                serial_kw = F_K4[0][2]
+                nccl = [f_solve(g1, xp, xm, 1, timed=False, **serial_kw)]
+                rec.arm("NCCL k=1")
+                nccl.append(f_solve(g1, xp, xm, 1, **serial_kw))
+                refs.update(nccl=nccl, nccl_audit=comm_audit.audit_runner(
+                    g1, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=0.0))
+            counts["f"] = dict(ops.launch_counts)
+            ops.launch_counts.clear()
+            with rec_g:
+                refs["g"] = g_parent(torch, g1, serve, rec_g)
+            counts["g"] = dict(ops.launch_counts)
+        finally:
+            torch.distributed.destroy_process_group()
+        np.savez(tmp / "data.npz", **arrays)
+        t0 = time.perf_counter()
+        ranks = meshlib.spawn_clients(f_rank, F_RANKS, backend="gloo",
+                                      device="cuda", timeout_s=F_TIMEOUT_S,
+                                      args=(str(tmp / "data.npz"),))
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ranks, spawn_s, arrays, refs, counts
+
+
+def f_references(torch, dist_fits):
+    """Path f's data and its references on the card."""
     from repro_torch.core import distributed as dist
     from repro_torch.core import preprocess as pp
     from repro_torch.core import saddle
     from repro_torch.core.svm import split_classes
     from repro_torch.data import synthetic
-    from repro_torch.launch import mesh as meshlib
-    from repro_torch.utils import comm_audit
 
     arrays = {"sched0": dist_fits[0]["sched"][:F_K20_STEPS]}
     for i, spec in enumerate(DIST_FITS):
@@ -1581,36 +1700,7 @@ def f_parent(torch, dist_fits, rec):
     serial = saddle.solve(xp, xm, device="cuda", **serial_kw)
     whole = f_serve_run(torch, None, None,
                         f_serve_batch(torch, lanes, torch.device("cuda")))
-
-    # NCCL at world size 1 in this process, then the spawned gloo ranks
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_f_"))
-    try:
-        g1 = meshlib.init_client_group(
-            backend="nccl", init_method=f"file://{tmp / 'nccl'}", rank=0,
-            world_size=1, device="cuda", timeout_s=F_TIMEOUT_S)
-        try:
-            # NCCL sets its communicator up at the first collective: do
-            # that before the timed solves; the first one's ms a step has
-            # no device synchronisation around its collectives
-            torch.distributed.all_reduce(torch.zeros(1, device=g1.device))
-            nccl = [f_solve(g1, xp, xm, 1, timed=False, **serial_kw)]
-            rec.arm("NCCL k=1")
-            nccl.append(f_solve(g1, xp, xm, 1, **serial_kw))
-            nccl_audit = comm_audit.audit_runner(
-                g1, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=0.0)
-        finally:
-            torch.distributed.destroy_process_group()
-        np.savez(tmp / "data.npz", **arrays)
-        t0 = time.perf_counter()
-        ranks = meshlib.spawn_clients(f_rank, F_RANKS, backend="gloo",
-                                      device="cuda", timeout_s=F_TIMEOUT_S,
-                                      args=(str(tmp / "data.npz"),))
-        spawn_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    refs = dict(sims=sims, sim20=sim20, serial=serial, whole=whole,
-                nccl=nccl, nccl_audit=nccl_audit)
-    return ranks, spawn_s, arrays, refs
+    return arrays, dict(sims=sims, sim20=sim20, serial=serial, whole=whole)
 
 
 def f_check(ranks, spawn_s, arrays, refs) -> None:
@@ -1704,6 +1794,359 @@ def f_check(ranks, spawn_s, arrays, refs) -> None:
             "path f drop_slot_shard")
 
 
+# ---------------------------------------------------------------- path g
+# The fit service over a process group: SolverService(mesh=ClientGroup),
+# one process a rank, rank 0 the front end, step()/run() collective.  On
+# path f's 2-rank gloo subgroup (the ranks share the card): path e's
+# tenants, all lane-placed (4 whole lanes a rank), beside two point-sharded
+# fits above G_SHARD_ABOVE points (Figure 2's data, and hard margin at n =
+# 20,000); run 1 cancels a lane and the point-sharded nu fit once they
+# run, run 2 poisons a lane at its chunk 2 and the point-sharded hard
+# margin at its chunk 1.  Budgets cut from path e's 640-1,280 steps to
+# 128-320; widths as path e's and path a's.  In the parent, a one-rank
+# NCCL group's service on four of path e's tenants (one point-sharded at
+# k = 1), bit-equal to path e.
+G_SHARD_ABOVE = 9000
+G_HM = [(n, 100 + i, 192 + 64 * (i % 3))         # n, seed, budget
+        for i, n in enumerate((3000, 5000, 8000) * 4)]
+G_NU = [(200 + i, 128 + 64 * i) for i in range(4)]   # seed, budget
+G_POINTS = (("points hard-margin n=20000 d=256", "separable", (20_000, 256),
+             dict(seed=20_000), dict(seed=400, num_iters=256)),
+            ("points nu-SVM n=50000 d=512", "non_separable", (50_000, 512),
+             dict(beta2=0.2, seed=50_000), dict(seed=401, num_iters=128)))
+G_LANE = "hard-margin #{} n={} d=256".format
+G_CANCEL = {G_LANE(1, G_HM[1][0]): 2,          # label: running steps
+            G_POINTS[1][0]: 1}
+G_POISON = {G_LANE(4, G_HM[4][0]): 2,          # label: at_chunk
+            G_POINTS[0][0]: 1}
+G_NCCL = (0, 1, 2, 12)        # path e's requests run again at k = 1
+G_POINTS_ATOL = 1e-4          # point-sharded vs solo (tests/test_mesh_...)
+
+
+def g_requests():
+    """Path g's tenants in submission order: (label, data, FitRequest
+    keyword arguments)."""
+    from repro_torch.core.svm import split_classes
+    from repro_torch.data import synthetic
+
+    reqs = [(G_LANE(i, n), synthetic.separable(n, 256, seed=i),
+             dict(seed=seed, num_iters=iters))
+            for i, (n, seed, iters) in enumerate(G_HM)]
+    fig4 = synthetic.non_separable(6000, 512, beta2=0.25, seed=512)
+    xp, xm = split_classes(fig4.x, fig4.y)
+    nu = 1.0 / (0.85 * min(len(xp), len(xm)))
+    reqs += [(f"nu-SVM seed={seed} n=6000 d=512", fig4,
+              dict(seed=seed, num_iters=iters, nu=nu))
+             for seed, iters in G_NU]
+    for label, kind, shape, dkw, kw in G_POINTS:
+        ds = getattr(synthetic, kind)(*shape, **dkw)
+        if kind == "non_separable":
+            xp, xm = split_classes(ds.x, ds.y)
+            kw = dict(kw, nu=1.0 / (0.85 * min(len(xp), len(xm))))
+        reqs.append((label, ds, kw))
+    return reqs
+
+
+def g_drive(svc, reqs, cancel: dict) -> tuple:
+    """Rank 0: submit ``reqs``, step until the service has drained,
+    cancelling each request of ``cancel`` once it has been running for its
+    count of steps; then ``run`` (its last plan stops the other ranks).
+    Returns ({label: rid}, {label: outcome})."""
+    from repro_torch.serve.scheduler import Status
+    from repro_torch.serve.solver_service import FitRequest
+
+    rids = {label: svc.submit(FitRequest(x=ds.x, y=ds.y, **kw))
+            for label, ds, kw in reqs}
+    running, cancel = Counter(), dict(cancel)
+    while svc._sched.has_work():
+        svc.step()
+        for label in list(cancel):
+            if svc.status(rids[label]) is Status.RUNNING:
+                running[label] += 1
+                if running[label] == cancel[label]:
+                    require(svc.cancel(rids[label]),
+                            f"path g: cancel of {label} failed")
+                    del cancel[label]
+    require(not cancel, f"path g: {sorted(cancel)} never ran")
+    out = svc.run()
+    return rids, {label: out[rid] for label, rid in rids.items()}
+
+
+def g_rank(group, reqs) -> dict:
+    """What each rank of path g's 2-rank group runs: the two runs (each a
+    fresh service; counts reset just before the first and read after the
+    second) and a short profiled run of one chunk a group.  Every rank
+    records its packed calls by shape and copies the arguments of the
+    second step of each configuration's first chunk in run 2 in which it
+    holds a live lane (rank 0 also of the chunk after the poison) to the
+    host, for phase 5."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    from repro_torch.serve.faults import Fault, FaultInjector, FaultPlan
+    from repro_torch.serve.solver_service import SolverService
+    from repro_torch.utils import comm_audit
+
+    rec = PathRecorder(f"g rank {group.rank}", keep=False)
+    run_chunk = engine.run_chunk_slots_sharded
+    state = dict(seen=set(), fired=0, inj=None, chunk_s=[], arm=False)
+
+    def chunk(st, x_t, sign, sp, num_steps, **kw):
+        cfg = (tuple(x_t.shape), kw["placement"], kw["project"])
+        inj = state["inj"]
+        if state["arm"] and bool(st.active.any()):
+            if cfg not in state["seen"]:
+                state["seen"].add(cfg)
+                rec.arm(f"first chunk of {kw['placement']} "
+                        f"n_pad={x_t.shape[2]},d={x_t.shape[1]}"
+                        f"{',nu' if kw['project'] else ''}")
+            elif inj is not None and len(inj.fired) > state["fired"]:
+                rec.arm("chunk after the poison")
+            state["fired"] = 0 if inj is None else len(inj.fired)
+        t = time.perf_counter()
+        out = run_chunk(st, x_t, sign, sp, num_steps, **kw)
+        state["chunk_s"].append((cfg, time.perf_counter() - t))
+        return out
+
+    def service(mesh, injector=None):
+        return SolverService(num_slots=SERVE_SLOTS, chunk_steps=SERVE_CHUNK,
+                             mesh=mesh, shard_points_above=G_SHARD_ABOVE,
+                             shard_num_slots=2, fault_injector=injector)
+
+    runs = []
+    ops.launch_counts.clear()
+    engine.run_chunk_slots_sharded = chunk
+    try:
+        with rec:
+            for poison in (False, True):
+                inj = None
+                if poison:
+                    rids = runs[0]["rids"] if group.rank == 0 else {}
+                    inj = FaultInjector(FaultPlan(seed=0, faults=tuple(
+                        Fault("poison", rid=rids.get(label, -1),
+                              at_chunk=at) for label, at in
+                        G_POISON.items())))
+                state.update(inj=inj, fired=0, chunk_s=[], arm=poison)
+                audit = comm_audit.Recorder()
+                keys = set(engine.trace_counts)
+                tally = Counter(engine.collective_counts)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated() - workspace_bytes()
+                svc = service(group._replace(recorder=audit), inj)
+                t0 = time.perf_counter()
+                if group.rank == 0:
+                    rids, res = g_drive(svc, reqs, {} if poison
+                                        else G_CANCEL)
+                else:
+                    rids, res = {}, svc.run()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                mem = torch.cuda.memory_allocated() - workspace_bytes()
+                runs.append(dict(
+                    rids=rids, res=res, secs=secs, stats=svc.rank_stats,
+                    new_keys=sorted(map(str, set(engine.trace_counts)
+                                        - keys)),
+                    tally=dict(Counter(engine.collective_counts) - tally),
+                    coll_s=audit.seconds, mem=(base, mem),
+                    chunk_s=state["chunk_s"],
+                    fired=None if inj is None else len(inj.fired)))
+                del svc
+    finally:
+        engine.run_chunk_slots_sharded = run_chunk
+    counts = dict(ops.launch_counts)
+
+    # one chunk of two lane-placed and one point-sharded hard-margin fit
+    # under the profiler: all-reduces and the service's own calls
+    short = [r for r in reqs if r[0].startswith("hard-margin #")][:2] + [
+        r for r in reqs if r[0] == G_POINTS[0][0]]
+
+    def profiled(g):
+        svc = service(g)
+        if g.rank == 0:
+            g_drive(svc, [(lb, ds, dict(kw, num_iters=SERVE_CHUNK))
+                          for lb, ds, kw in short], {})
+        else:
+            svc.run()
+        return svc
+
+    audit = comm_audit.audit_service(group, profiled)
+    for run in runs:
+        run["model"] = comm_audit.service_model(run["stats"]["keys"])
+        run["points_chunks"] = sum(
+            v for k, v in run["stats"]["keys"].items()
+            if k[-2:-1] == ("points",))
+        run["stats"]["keys"] = {str(k): v
+                                for k, v in run["stats"]["keys"].items()}
+    return dict(runs=runs, audit=audit, counts=counts,
+                rec=rec.host_copy())
+
+
+def g_parent(torch, g1, serve, rec) -> dict:
+    """Path g in the parent: a one-rank NCCL group's service (lanes, and
+    point-sharded above 6,000 points with 8 lanes, whose bucket at k = 1
+    is the meshless one) on path e's requests G_NCCL, each bit-equal to
+    path e's result (run 2's where run 1 cancelled it)."""
+    import numpy as np
+
+    from repro_torch.serve.solver_service import FitRequest, SolverService
+
+    reqs, _ = serve_requests()
+    picked = [reqs[i] for i in G_NCCL]
+    svc = SolverService(num_slots=SERVE_SLOTS, chunk_steps=SERVE_CHUNK,
+                        mesh=g1, shard_points_above=6000,
+                        shard_num_slots=SERVE_SLOTS)
+    rec.arm("NCCL k=1 service")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = {label: svc.submit(FitRequest(x=ds.x, y=ds.y, **kw))
+            for label, ds, kw in picked}
+    out = svc.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = svc.rank_stats
+    same = {}
+    for label, _, _ in picked:
+        run = serve["runs"][1 if label == reqs[SERVE_CANCEL][0] else 0]
+        a, b = run["res"][label], out[rids[label]]
+        same[label] = (np.array_equal(a.w, b.w)
+                       and (a.b, a.objective, a.iterations, a.history)
+                       == (b.b, b.objective, b.iterations, b.history))
+    points = sorted(str(k) for k in st["keys"] if k[-2:] == ("points", 1))
+    print(f"path g NCCL k=1 ({card_line()}): {len(out)} requests in "
+          f"{secs:.3f} s ({len(out) / secs:.3f} requests/s), "
+          f"{st['chunk_calls']} chunks, set-ups {st['compiles']}, "
+          f"point-sharded configurations {points}; bit-equal to path e: "
+          f"{same}")
+    require(all(same.values()) and points, "path g NCCL k=1: the service "
+            "differs from the meshless one")
+    return dict(secs=secs, stats=st)
+
+
+def g_check(torch, ranks, nccl) -> None:
+    """Path g's holds, from both ranks' records (see g_rank)."""
+    import numpy as np
+
+    from repro_torch.core import preprocess as pp
+    from repro_torch.serve.scheduler import RequestFailure, Status
+
+    card = card_line()
+    reqs = g_requests()
+    first, second = (ranks[0]["runs"][i]["res"] for i in range(2))
+    for i in range(2):
+        kind = "cancels" if i == 0 else "poisons"
+        done = [r for r in ranks[0]["runs"][i]["res"].values()
+                if not isinstance(r, RequestFailure)]
+        secs = ranks[0]["runs"][i]["secs"]
+        print(f"path g run {i + 1} ({kind}, {card}): {len(done)} of "
+              f"{len(reqs)} requests completed in {secs:.3f} s, "
+              f"{len(done) / secs:.3f} requests/s")
+        for r, rank in enumerate(ranks):
+            run = rank["runs"][i]
+            st = run["stats"]
+            calls = st["chunk_calls"]
+            steps = calls * SERVE_CHUNK
+            pts = max(run["points_chunks"], 1) * SERVE_CHUNK
+            per_cfg = {}
+            for cfg, t in run["chunk_s"]:
+                per_cfg.setdefault(cfg, []).append(t)
+            traffic = ", ".join(
+                f"{k} {v['seconds'] / steps * 1e3:.4f} ms a step "
+                f"({v['calls']} calls, {v['bytes']} bytes)"
+                for k, v in st["traffic"].items())
+            chunk_ms = run["secs"] / calls * 1e3
+            print(f"  rank {r}: {calls} chunks, {chunk_ms:.3f} ms a chunk "
+                  "of wall; the chunk call (host, no sync) "
+                  + ", ".join(f"{c[1]} n_pad={c[0][2]},d={c[0][1]}"
+                              f"{',nu' if c[2] else ''}: "
+                              f"{statistics.fmean(v) * 1e3:.3f} x {len(v)}"
+                              for c, v in sorted(per_cfg.items()))
+                  + f"; the service's traffic: {traffic}; the chunks' "
+                  f"all-reduces {run['coll_s'] / steps * 1e3:.4f} ms a step "
+                  f"of host, {run['coll_s'] / pts * 1e3:.4f} ms a "
+                  f"point-sharded step ({sum(run['tally'].values())} calls); "
+                  f"set-ups "
+                  f"{st['compiles']} (new keys {len(run['new_keys'])}); "
+                  f"device memory (workspace left out) {run['mem'][0]} "
+                  f"bytes before, {run['mem'][1]} after the drain, held "
+                  f"{st['held_bytes']}")
+            require(run["mem"][0] == run["mem"][1] and not st["held_bytes"],
+                    f"path g run {i + 1} rank {r}: device memory not back "
+                    "to its base after the drain")
+            require(Counter(run["tally"]) == Counter(run["model"]),
+                    f"path g run {i + 1} rank {r}: tallied "
+                    f"{run['tally']}, ServeCommModel {run['model']}")
+            require(st["compiles"] == len(run["new_keys"]),
+                    f"path g rank {r}: set-ups and new keys disagree")
+            if i:
+                require(not run["new_keys"] and not st["compiles"],
+                        f"path g run 2 rank {r}: new set-ups "
+                        f"{run['new_keys']}")
+    for r, rank in enumerate(ranks):
+        a = rank["audit"]
+        print(f"  audit rank {r} (one chunk a group, profiled): all-reduces "
+              f"{a['measured']} (model {a['predicted']}), match {a['match']}"
+              f", hooks agree {a['hooks_agree']}; the service's calls "
+              f"{a['service_calls']} (tallied {a['service_tally']})")
+        require(a["match"] and a["hooks_agree"] and a["service_match"],
+                f"path g rank {r}: the profiler's calls differ from the "
+                "models")
+    for label in G_CANCEL:
+        res = first[label]
+        require(isinstance(res, RequestFailure)
+                and res.status is Status.CANCELLED
+                and "running" in res.reason,
+                f"path g: {label} was not cancelled while running: {res}")
+    require(ranks[0]["runs"][1]["fired"] == len(G_POISON),
+            "path g: a poison never fired")
+    for label in G_POISON:
+        res = second[label]
+        require(isinstance(res, RequestFailure)
+                and res.status is Status.FAILED
+                and "non-finite" in res.reason,
+                f"path g: {label} was not quarantined: {res}")
+    mates = [label for label, _, _ in reqs
+             if label not in G_CANCEL and label not in G_POISON]
+    for label in mates:
+        a, b = first[label], second[label]
+        require(np.array_equal(a.w, b.w)
+                and (a.b, a.objective, a.iterations, a.history)
+                == (b.b, b.objective, b.iterations, b.history),
+                f"path g: {label} differs between the runs")
+    print(f"  {len(mates)} requests bit-equal in both runs: the cancelled "
+          f"and the poisoned lanes (lane-placed and point-sharded) left "
+          "their batch-mates alone")
+
+    t0 = time.perf_counter()
+    worst = {"lanes": 0.0, "points": 0.0}
+    for label, ds, kw in reqs:
+        got = first[label] if not isinstance(first[label], RequestFailure) \
+            else second[label]
+        pre = serve_pre(torch, ds.x, ds.y, kw["seed"])
+        n = len(ds.y)
+        points = n > G_SHARD_ABOVE
+        bucket = ((2 * pp.bucket_length(-(-n // 2)), pre.xp.shape[1])
+                  if points else None)
+        res, w, b = serve_solo(torch, pre, pre.xp, pre.xm, kw, bucket)
+        dw = float(np.abs(got.w - w).max())
+        kind = "points" if points else "lanes"
+        worst[kind] = max(worst[kind], dw)
+        tol = G_POINTS_ATOL if points else SERVE_ATOL
+        if points:
+            print(f"  {label}: bucket {got.bucket}, max|dw| {dw:.3e}, |db| "
+                  f"{abs(got.b - b):.3e} vs its solo solve at the bucket")
+            require(abs(got.b - b) <= tol and got.bucket == bucket,
+                    f"path g: {label}: b or bucket")
+        require(dw <= tol and got.iterations == res.history[-1][0],
+                f"path g: {label} vs its solo solve: max|dw| {dw:.3e}, "
+                f"{got.iterations} vs {res.history[-1][0]} iterations")
+    print(f"path g vs solo solves on the card ({len(reqs)} requests, "
+          f"{time.perf_counter() - t0:.1f} s): lane-placed max|dw| "
+          f"{worst['lanes']:.3e} (tol {SERVE_ATOL}), point-sharded "
+          f"{worst['points']:.3e} (tol {G_POINTS_ATOL}); NCCL k=1 service "
+          f"{nccl['secs']:.3f} s")
+
+
 def serial_vs_dist(torch, fits):
     """Each distributed fit refit serially on the coordinates it drew."""
     from repro_torch.core import saddle
@@ -1731,10 +2174,9 @@ def serial_vs_dist(torch, fits):
 # ---------------------------------------------------------------- phase 3
 def check_fwht(torch, timer, g, n, d, launches, path):
     """The FWHT at (n, d) against its plain version (1e-4; bit-equality
-    printed), with its times beside ``x @ H`` (H the normalized Hadamard
-    matrix, where it fits: d < 32,768) and a copy of the same bytes under
-    the same events; one call must be as many device launches as its plan
-    has passes."""
+    printed), with its times beside ``x @ H`` (``fwht_library``) and a
+    copy of the same bytes under the same events; one call must be as many
+    device launches as its plan has passes."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fwht import fwht_plan
 
@@ -1746,11 +2188,7 @@ def check_fwht(torch, timer, g, n, d, launches, path):
             f"version: {err}")
     require(torch.equal(out, ops.fwht(x)), "fwht is not deterministic")
     plan = fwht_plan(d)
-    library = None
-    if d < 32_768:
-        had = ref.fwht_ref(torch.eye(d, device="cuda"))   # normalized H
-        library = timer(lambda: x @ had)
-        del had
+    library, lib_err = fwht_library(torch, timer, x)
     copy = torch.empty_like(x)
     copy_ms = timer(lambda: copy.copy_(x))
     e = entry("fwht", f"fwht[n={n},d={d},path {path}]", err,
@@ -1762,8 +2200,35 @@ def check_fwht(torch, timer, g, n, d, launches, path):
           f"{err:.3e}, bit-equal to the plain version "
           f"{torch.equal(out, want)}; wrapper {e['ms']:.4f} ms, copy of the "
           f"same bytes {copy_ms:.4f} ms, bound {e['bound_ms']:.4f} ms, "
-          f"x @ H {'null' if library is None else f'{library:.4f}'} ms")
+          f"x @ H {'null' if library is None else f'{library:.4f}'} ms"
+          + (f" (H not allocated: {lib_err})" if lib_err else ""))
     return e, lambda: ops.fwht(x), "fwht_", plan.device_launches
+
+
+def fwht_library(torch, timer, x) -> tuple:
+    """``x @ H`` by events, H the normalized Hadamard matrix of x's width
+    built on the card in float32 (TF32 off) as the Kronecker product of
+    two of order <= 512 -- not as the plain transform of a (d, d)
+    identity, which copies the whole matrix at every stage -- and freed
+    after.  Returns (ms, None), or (None, the error) where H cannot be
+    allocated (d = 131,072: 64 GiB)."""
+    from repro_torch.kernels import ref
+
+    d = x.shape[-1]
+    a = 1 << (d.bit_length() - 1) // 2
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    had = None
+    try:
+        had = torch.kron(ref.fwht_ref(torch.eye(a, device="cuda")),
+                         ref.fwht_ref(torch.eye(d // a, device="cuda")))
+        return timer(lambda: x @ had), None
+    except torch.cuda.OutOfMemoryError as err:
+        return None, f"{type(err).__name__}: {str(err).splitlines()[0]}"
+    finally:
+        del had
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def step_inputs(torch, g, x_t, sign, b, main_path: bool = True):
@@ -1781,8 +2246,11 @@ def step_inputs(torch, g, x_t, sign, b, main_path: bool = True):
     ll = torch.where(sign > 0, -math.log(n1) + noise,
                      torch.where(sign < 0, -math.log(n2) + noise,
                                  torch.full_like(noise, -1e30)))
-    lp = ll + 0.05 * torch.randn((rows, n_pad), generator=g,
-                                 device=dev) * (sign != 0)
+    # the previous weights 50 % apart from these, so that the momentum
+    # term is of the order of delta and a kernel that drops it (the
+    # planted theta = 0) shows on a single-row sum too
+    lp = ll + 0.5 * torch.randn((rows, n_pad), generator=g,
+                                device=dev) * (sign != 0)
     u = 0.1 * torch.randn((rows, n_pad), generator=g, device=dev)
     if main_path:
         sp = engine.stack_slot_params([engine.slot_params_row(
@@ -1812,19 +2280,35 @@ def step_inputs(torch, g, x_t, sign, b, main_path: bool = True):
                 mwu_dot=mwu_dot, d_eff=d_eff, idx=idx, dw=dw)
 
 
+def lse_error(torch, m, s, m_want, s_want) -> float:
+    """The largest difference of the per-class lse = m + log(s) from the
+    wanted one over the (row, class) pairs that hold a point (s_want > 0);
+    a class without a point in a row (a point shard may hold one class
+    only, a free lane none) must give the wanted (NEG, 0) exactly, else
+    the error is infinite."""
+    present = s_want > 0
+    if not torch.equal(torch.where(present, 0.0, m), torch.where(
+            present, 0.0, m_want)) or (s[~present] != 0).any():
+        return math.inf
+    if not present.any():
+        return 0.0
+    lse = (m + torch.log(s))[present]
+    return (lse - (m_want + torch.log(s_want))[present]).abs().max().item()
+
+
 def packed_errors(torch, name, got, want, real) -> dict:
     """{output: (error, tolerance)} of a packed kernel's result: delta
     within 1e-4 of its largest value (and 1e-4 at most); log_new on real
-    points and each class's lse = m + log(s) within 1e-4, u within 1e-5
-    (tests/test_kernels.py)."""
+    points and each class's lse = m + log(s) within 1e-4 (``lse_error``),
+    u within 1e-5 (tests/test_kernels.py)."""
     if name == "momentum_dot_packed":
         scale = want.abs().max().item()
         return {"delta": ((got - want).abs().max().item(),
                           min(1e-4, 1e-4 * scale))}
-    lse = [r[2] + torch.log(r[3]) for r in (got, want)]
     return {"log_new": ((got[0][real] - want[0][real]).abs().max().item(),
                         1e-4),
-            "lse": ((lse[0] - lse[1]).abs().max().item(), 1e-4),
+            "lse": (lse_error(torch, got[2], got[3], want[2], want[3]),
+                    1e-4),
             "u": ((got[1] - want[1]).abs().max().item(), 1e-5)}
 
 
@@ -2098,9 +2582,8 @@ def check_packed(torch, timer, g, x_t, sign, b, launches,
             require((got[0][~real] < -1e20).all().item(),
                     f"{name}{label}: padding lanes not below -1e20")
             merged = merged_partials(torch, got[0], sign)
-            merge_err = (got[2] + torch.log(got[3]) - merged[0]
-                         - torch.log(merged[1])).abs().max().item()
-            errs["merge"] = (merge_err, 1e-4)
+            errs["merge"] = (lse_error(torch, got[2], got[3], *merged),
+                             1e-4)
         require(all(e <= tol for e, tol in errs.values()),
                 f"{name}{label}: {errs}")
         again = fn()
@@ -2483,10 +2966,10 @@ def jax_test_shapes(torch, timer, g):
 
 def fwht_shapes(rec) -> set:
     """The FWHT shapes of a path held against the plain version: all of
-    them, but for paths e and f (two class matrices a problem) the longest
+    them, but for paths e-g (two class matrices a problem) the longest
     class matrix and the recovery's vector of each d."""
     shapes = {shape for (name, shape) in rec.calls if name == "fwht"}
-    if rec.name not in ("e", "f"):
+    if rec.name[0] not in "efg":
         return shapes
     return {max(sh for sh in shapes if sh[1] == d) for _, d in shapes} | {
         sh for sh in shapes if sh[0] == 1}
@@ -2747,14 +3230,15 @@ def main() -> int:
           f"{torch.version.cuda}")
 
     recs = [PathRecorder(name) for name in ("a", "b", "c", "d")]
-    recs += [PathRecorder("e", keep=False), PathRecorder("f")]
+    recs += [PathRecorder("e", keep=False), PathRecorder("f"),
+             PathRecorder("g", keep=False)]
     fits = main_path(torch, recs[0])
     dist_fits = dist_path(torch, recs[1])
     reference_path(torch, recs[2], dist_fits[0])
     fits += wide_path(torch, recs[3])
     serve = service_path(torch, recs[4])
     serve_vs_solo(torch, serve)
-    recs.append(collectives_path(torch, dist_fits, recs[5]))
+    recs += collectives_path(torch, dist_fits, serve, recs[5], recs[6])
     serial_vs_dist(torch, dist_fits)
     profiles(torch, dist_fits, serve)
     entries = check_kernels(torch, Timer(torch), recs)

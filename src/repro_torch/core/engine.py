@@ -814,6 +814,23 @@ def run_chunk_slots_sharded(state: SlotState, x_t: torch.Tensor,
         idx=idx, group=group)
 
 
+def sharded_slot_trace_key(num_slots: int, n_pad: int, d: int,
+                           block_size: int, chunk_steps: int, project: bool,
+                           check_gap: bool, mesh, placement: str) -> tuple:
+    """:func:`slot_trace_key` of one rank's chunk of a slot batch placed
+    over the client group ``mesh``, from the WHOLE batch's shapes: the
+    lanes placement runs num_slots / k lanes of n_pad points, the points
+    placement every lane at n_pad / k points (and keys its group size),
+    the key :func:`chunk_body_slots` sets up on that rank."""
+    _check_placement(placement)
+    k = mesh.size
+    if placement == "lanes":
+        return slot_trace_key(num_slots // k, n_pad, d, block_size,
+                              chunk_steps, project, check_gap)
+    return slot_trace_key(num_slots, n_pad // k, d, block_size, chunk_steps,
+                          project, check_gap, point_shards=k)
+
+
 def run_solve_slots(state: SlotState, x_t: torch.Tensor, sign: torch.Tensor,
                     sp: SlotParams, num_iters: int, *, chunk_steps: int,
                     num_chunks: int, d: int, block_size: int, project: bool,

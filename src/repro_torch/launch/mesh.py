@@ -18,12 +18,25 @@ start method, ``file://`` rendezvous in a temporary directory, so no
 port is needed) and returns what each rank returned.  The function is
 pickled by its import path, so it must live in a module the children
 can import, not in a ``__main__`` they cannot see or inside a test.
+
+The SPMD fit service (``serve.solver_service.SolverService(mesh=)``) moves
+its own traffic with three helpers: :func:`broadcast_object` (rank 0's
+plan to every rank), :func:`send_objects` / :func:`recv_object` (rank 0's
+admission data to the ranks that hold the lane) and
+:func:`gather_objects` (every rank's harvest rows to rank 0).  Each
+pickles its object into a byte tensor (on the card for NCCL, on the host
+for gloo), waits at most the group's ``timeout_s`` for every backend call
+it makes, and tallies each call in :data:`traffic_counts` under the name
+the profiler gives it ("broadcast", "send", "recv"), apart from the
+solver's all-reduces (``engine.collective_counts``).
 """
 
 from __future__ import annotations
 
+import collections
 import datetime
 import multiprocessing
+import pickle
 import queue
 import shutil
 import tempfile
@@ -32,12 +45,17 @@ import traceback
 from pathlib import Path
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
 BACKENDS = ("gloo", "nccl")
+
+# The service helpers' backend calls by op (one count a call, on the rank
+# that makes it), as the profiler names them ("gloo:broadcast", ...).
+traffic_counts: collections.Counter = collections.Counter()
 
 
 class ClientGroup(NamedTuple):
@@ -46,12 +64,14 @@ class ClientGroup(NamedTuple):
     ``recorder``, when set (``group._replace(recorder=...)``), is called
     by the group's hooks after each all-reduce they issue, with its kind,
     its elements, their bytes and its seconds (``engine.group_hooks``);
-    ``utils.comm_audit.Recorder`` is one."""
+    ``utils.comm_audit.Recorder`` is one.  ``timeout_s`` bounds each call
+    of the service helpers below (None: the backend's own timeout)."""
     group: Any
     rank: int
     size: int
     device: torch.device
     recorder: Callable | None = None
+    timeout_s: float | None = None
 
 
 def _client_device(device, rank: int) -> torch.device:
@@ -83,25 +103,129 @@ def init_client_group(*, backend: str, init_method: str, rank: int,
             raise ValueError("the nccl backend needs device='cuda'")
         if not dist.is_nccl_available():
             raise RuntimeError("this torch build has no NCCL backend")
-    kw = {} if timeout_s is None else {
-        "timeout": datetime.timedelta(seconds=timeout_s)}
     dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world_size, **kw)
+                            world_size=world_size, **_timeout_kw(timeout_s))
     return ClientGroup(group=dist.group.WORLD, rank=rank, size=world_size,
-                       device=dev)
+                       device=dev, timeout_s=timeout_s)
+
+
+def _timeout_kw(timeout_s: float | None) -> dict:
+    return {} if timeout_s is None else {
+        "timeout": datetime.timedelta(seconds=timeout_s)}
 
 
 def sub_group(parent: ClientGroup, ranks) -> ClientGroup | None:
     """The client group of ``ranks`` (ranks of ``parent``, which must be
-    the default group, whose backend it takes), or None on a rank outside
-    it.  Every rank of the default group must call this, in the same
-    order, for every subgroup (``torch.distributed.new_group``'s rule)."""
+    the default group, whose backend and timeout it takes), or None on a
+    rank outside it.  Every rank of the default group must call this, in
+    the same order, for every subgroup (``torch.distributed.new_group``'s
+    rule)."""
     ranks = sorted(ranks)
-    pg = dist.new_group(ranks)
+    pg = dist.new_group(ranks, **_timeout_kw(parent.timeout_s))
     if parent.rank not in ranks:
         return None
     return ClientGroup(group=pg, rank=ranks.index(parent.rank),
-                       size=len(ranks), device=parent.device)
+                       size=len(ranks), device=parent.device,
+                       timeout_s=parent.timeout_s)
+
+
+# ------------------------------------------------------------------------
+# The SPMD service's own traffic: picklable objects between rank 0 and the
+# other ranks of a group.  A group of one rank moves nothing.
+# ------------------------------------------------------------------------
+
+def _wait(work, group: ClientGroup, op: str) -> None:
+    traffic_counts[op] += 1
+    if group.timeout_s is None:
+        work.wait()
+    else:
+        work.wait(timeout=datetime.timedelta(seconds=group.timeout_s))
+
+
+def _byte_device(group: ClientGroup) -> torch.device:
+    """Where a group's byte tensors live: the card for NCCL, else the
+    host (gloo would copy a CUDA tensor to the host and back)."""
+    if dist.get_backend(group.group) == "nccl":
+        return group.device
+    return torch.device("cpu")
+
+
+def _to_bytes(obj, device) -> torch.Tensor:
+    buf = np.frombuffer(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL),
+                        dtype=np.uint8)
+    return torch.from_numpy(buf.copy()).to(device)
+
+
+def _from_bytes(data: torch.Tensor):
+    return pickle.loads(data.cpu().numpy().tobytes())
+
+
+def _send(group: ClientGroup, obj, dst: int) -> int:
+    dev = _byte_device(group)
+    data = _to_bytes(obj, dev)
+    size = torch.tensor([data.numel()], dtype=torch.int64, device=dev)
+    peer = dist.get_global_rank(group.group, dst)
+    _wait(dist.isend(size, peer, group=group.group), group, "send")
+    _wait(dist.isend(data, peer, group=group.group), group, "send")
+    return data.numel()
+
+
+def _recv(group: ClientGroup, src: int) -> tuple[Any, int]:
+    dev = _byte_device(group)
+    size = torch.zeros(1, dtype=torch.int64, device=dev)
+    peer = dist.get_global_rank(group.group, src)
+    _wait(dist.irecv(size, peer, group=group.group), group, "recv")
+    data = torch.empty(int(size.item()), dtype=torch.uint8, device=dev)
+    _wait(dist.irecv(data, peer, group=group.group), group, "recv")
+    return _from_bytes(data), data.numel()
+
+
+def broadcast_object(group: ClientGroup, obj=None) -> tuple[Any, int]:
+    """Rank 0's ``obj`` on every rank of ``group`` (other ranks pass
+    nothing): its pickle's length, then its bytes, two broadcasts.
+    Returns (the object, its pickle's bytes)."""
+    if group.size == 1:
+        return obj, 0
+    dev = _byte_device(group)
+    root = dist.get_global_rank(group.group, 0)
+    if group.rank == 0:
+        data = _to_bytes(obj, dev)
+        size = torch.tensor([data.numel()], dtype=torch.int64, device=dev)
+    else:
+        size = torch.zeros(1, dtype=torch.int64, device=dev)
+    _wait(dist.broadcast(size, root, group=group.group, async_op=True),
+          group, "broadcast")
+    if group.rank != 0:
+        data = torch.empty(int(size.item()), dtype=torch.uint8, device=dev)
+    _wait(dist.broadcast(data, root, group=group.group, async_op=True),
+          group, "broadcast")
+    return (obj if group.rank == 0 else _from_bytes(data)), data.numel()
+
+
+def send_objects(group: ClientGroup, objs: dict) -> int:
+    """From rank 0: ``objs[r]`` to each rank r of ``objs`` (r != 0), which
+    must call :func:`recv_object`.  Returns the bytes sent."""
+    if group.rank != 0:
+        raise RuntimeError("send_objects is called on rank 0")
+    return sum(_send(group, obj, dst) for dst, obj in sorted(objs.items()))
+
+
+def recv_object(group: ClientGroup) -> tuple[Any, int]:
+    """The object rank 0 sent this rank with :func:`send_objects`, and
+    its pickle's bytes."""
+    return _recv(group, 0)
+
+
+def gather_objects(group: ClientGroup, obj) -> tuple[list | None, int]:
+    """Every rank's ``obj`` on rank 0, in rank order (None elsewhere):
+    each other rank sends its pickle to rank 0.  Returns (the list or
+    None, the bytes this rank sent or received)."""
+    if group.size == 1:
+        return [obj], 0
+    if group.rank != 0:
+        return None, _send(group, obj, 0)
+    got = [_recv(group, src) for src in range(1, group.size)]
+    return [obj] + [o for o, _ in got], sum(n for _, n in got)
 
 
 def _client_main(fn, rank, k, backend, device, init_method, timeout_s,

@@ -1,7 +1,7 @@
 """Multi-tenant SVM fit serving: continuous batching over the
 slot-batched saddle engine, in PyTorch.
 
-The port of ``repro.serve.solver_service`` without its mesh placements.
+The port of ``repro.serve.solver_service``.
 The paper's per-iteration work is tiny -- O(B + n) after preprocessing
 (Theorem 6) -- so a single fit request cannot fill the card.  At serving
 scale the unit of work is therefore MANY independent small problems: this
@@ -14,7 +14,7 @@ lanes as they free up mid-run.
 Scheduling is delegated to the latency-aware core
 (:class:`repro_torch.serve.scheduler.Scheduler`): the service is a thin
 WORKLOAD ADAPTER that owns only the device side -- per-bucket slot
-buffers (:class:`_Batch`), engine chunk dispatch, and harvest through
+buffers (:class:`_plan.Batch`), engine chunk dispatch, and harvest through
 the svm.py recovery path.  Queue ordering (arrival / priority /
 deadline urgency), cross-bucket policy (``oldest`` default,
 ``round_robin``), admission into freed slots, idle-batch eviction,
@@ -22,11 +22,52 @@ queue-to-result latency stamps and set-up accounting all live in the
 scheduler.
 
 Every entry point runs on ``device``: ``cuda`` (the default: the
-hand-written kernels) or ``cpu`` (their plain PyTorch versions).  A
-``mesh`` (lane-parallel or point-sharded groups over several processes)
-is not ported yet: the chunk it would run is
-(``engine.run_chunk_slots_sharded``), the service that drives one a rank
-is not (see ROADMAP.md), and asking for it raises.
+hand-written kernels) or ``cpu`` (their plain PyTorch versions).
+
+Serving over a process group (SPMD)
+-----------------------------------
+
+Constructed with ``mesh=`` (a :class:`repro_torch.launch.mesh.
+ClientGroup` of k ranks) the service runs one process a rank: every
+rank constructs it with the same arguments.  The JAX package's service
+is single-controller (one process, ``shard_map`` over its devices);
+here rank 0 is the FRONT END -- ``submit``, ``submit_update``,
+``cancel``, ``close_stream``, ``status``, ``result``, ``fit``, ``stats``
+and the latencies are rank-0 calls and raise ``RuntimeError`` elsewhere
+-- and ``step``/``run`` are COLLECTIVE.  Each step, rank 0 sheds
+expired deadlines, picks the group, works out the admissions, cancels,
+evictions, poison-due lanes and injected blocks, and broadcasts them as
+one plan (:class:`_plan.Plan`); every rank applies the plan to its shard of
+the group's buffers and runs the same
+:func:`~repro_torch.core.engine.run_chunk_slots_sharded`.  ``run``
+returns the results on rank 0 and ``{}`` elsewhere; it ends on every
+rank when rank 0's last plan says that the service has drained (a rank
+other than 0 may call ``run`` once for any number of rank-0 ``step``
+calls followed by its ``run``).
+
+Placement follows the JAX service: ordinary requests land in
+LANE-PARALLEL groups of ``num_slots`` lanes (a multiple of k), rank r
+holding lanes [r S/k, (r+1) S/k) whole -- its chunk issues no
+collective; requests of more than ``shard_points_above`` points land in
+POINT-SHARDED groups of ``shard_num_slots`` lanes whose bucket is
+``k * bucket_length(ceil(n / k))``, rank r holding every lane's points
+[r m, (r+1) m) -- its chunk runs Theorem 8's all-reduces
+(``distributed.ServeCommModel``).  The placement is part of the
+scheduler's group key.  Rank 0 preprocesses (Algorithm 1) and packs
+every admitted lane, then sends the whole lane to its owner, or each
+rank its columns; it reads the (S,) lifecycle vectors once a chunk (the
+points placement's are the same on every rank; the lanes placement
+gathers each rank's rows) and a finished lane's duals (and, for a
+streaming tenant, its ``w`` and dual momentum) only when it finishes,
+then recovers the hyperplane.  Poison, quarantine, retry, cancel and
+eviction are decided on rank 0 and applied on every rank that holds the
+lane.  A point-sharded lane's sampler is seeded on every rank, so the
+ranks draw the same blocks; a lane-placed one lives on its owner.  The
+plan broadcast, the admission data and the harvest gathers are the
+service's own traffic (``launch.mesh`` helpers, each waiting at most the
+group's ``timeout_s``; ``rank_stats``), apart from the chunk's
+all-reduces.  A group of one rank moves nothing and reproduces the
+meshless service bit for bit.
 
 Streaming updates (warm starts)
 -------------------------------
@@ -89,10 +130,12 @@ Set-up discipline
 -----------------
 
 A chunk configuration is keyed by (S, bucket shape, block size,
-chunk_steps, project, check_gap) (``engine.slot_trace_key``); eager
-PyTorch compiles nothing, so ``engine.trace_counts`` records each key
-once, when it is first set up.  After a bucket's first chunk, no chunk,
-admission, fault or update adds a key (``SolverService.stats``).
+chunk_steps, project, check_gap) (``engine.slot_trace_key``; over a
+group, at the rank's own shapes, ``engine.sharded_slot_trace_key``);
+eager PyTorch compiles nothing, so ``engine.trace_counts`` records each
+key once, when it is first set up.  After a bucket's first chunk, no
+chunk, admission, fault or update adds a key (``SolverService.stats``;
+every rank's own in ``rank_stats``).
 
 Status contract & fault handling
 --------------------------------
@@ -132,8 +175,9 @@ workspace of ticket counters per device.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, replace as dc_replace
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -143,6 +187,8 @@ from repro_torch.core import preprocess as pp
 from repro_torch.core import saddle
 from repro_torch.core import svm as svm_mod
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as meshlib
+from repro_torch.serve import _plan
 from repro_torch.serve import faults as faults_mod
 from repro_torch.serve.scheduler import (RequestFailure, ResultNotReady,
                                          Scheduler, Status)
@@ -282,48 +328,6 @@ class _Slot(NamedTuple):
     history: list
 
 
-def _write_slot_data(batch: "_Batch", slot: int, x_t: torch.Tensor,
-                     sign: torch.Tensor) -> None:
-    """Copy one request's packed operand into lane ``slot`` of the batch
-    buffers, in place."""
-    batch.x_t[slot].copy_(x_t)
-    batch.sign[slot].copy_(sign)
-
-
-# a free lane's step scalars (its outputs are discarded by the mask)
-_FREE_ROW = engine.SlotParams(*(np.float32(v) for v in (
-    0.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0)))
-
-
-class _Batch:
-    """One bucket's DEVICE buffers: slot-batched engine state, the
-    (S, d, n) packed operands and the per-slot SlotParams rows (numpy
-    float32, mirrored on the device by ``engine.stack_slot_params`` when
-    an admission changed them).  The host-side queue and lane occupancy
-    live in the scheduler's Group (this object is that group's
-    ``payload``).
-
-    ``project``/``check_gap`` are FIXED at batch creation (hard-margin
-    and nu-SVM requests live in separate batches): a request's chunk
-    configuration -- and therefore its numeric trajectory -- is fully
-    determined by the request itself, never by which co-tenants happen
-    to share its bucket at admission time."""
-
-    def __init__(self, bucket: tuple[int, int], num_slots: int,
-                 project: bool, check_gap: bool, device: torch.device):
-        n_pad, d_pad = bucket
-        self.bucket = bucket
-        self.project = project
-        self.check_gap = check_gap
-        self.state = engine.init_slot_state(num_slots, n_pad, d_pad, device)
-        self.x_t = torch.zeros((num_slots, d_pad, n_pad), dtype=torch.float32,
-                               device=device)
-        self.sign = torch.zeros((num_slots, n_pad), dtype=torch.float32,
-                                device=device)
-        self.sp = [_FREE_ROW] * num_slots
-        self.sp_dev = None                      # device mirror of sp
-
-
 class SolverService:
     """Continuous-batching fit endpoint over the slot-batched engine.
 
@@ -338,9 +342,12 @@ class SolverService:
     or ``"round_robin"``.  Results are policy-invariant (see the module
     docstring); only queue latency changes.
 
-    ``device`` is ``"cuda"`` (the default) or ``"cpu"``.  ``mesh`` and
-    ``shard_points_above`` (the JAX package's multi-device placements)
-    raise NotImplementedError.
+    ``device`` is ``"cuda"`` (the default) or ``"cpu"``.  ``mesh`` (a
+    ``launch.mesh.ClientGroup``; its device is the service's) runs the
+    service SPMD over the group's ranks (see the module docstring):
+    ``num_slots`` must be a multiple of its size, and with
+    ``shard_points_above`` every request of more points lands in a
+    point-sharded group of ``shard_num_slots`` lanes.
 
     The service is host-driven between chunks (admission and harvest are
     O(S) scalar decisions); all per-iteration work stays inside the
@@ -351,13 +358,36 @@ class SolverService:
                  policy: str = "oldest", clock=None, fault_injector=None,
                  max_points: int = 1 << 20, max_dim: int = 1 << 14,
                  mesh=None, shard_points_above: int | None = None,
+                 shard_num_slots: int = 2,
                  device: str | torch.device | None = None):
-        if mesh is not None or shard_points_above is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving (mesh=, shard_points_above=) is not "
-                "ported yet: the chunk is (engine.run_chunk_slots_sharded), "
-                "the service over a process group is not; see ROADMAP.md")
-        self.device = resolve_device(device)
+        if mesh is None:
+            if shard_points_above is not None:
+                raise ValueError(
+                    "shard_points_above places requests over a process "
+                    "group: pass mesh= (a launch.mesh.ClientGroup)")
+            self.device = resolve_device(device)
+            self._rank = 0
+        else:
+            if not isinstance(mesh, meshlib.ClientGroup):
+                raise TypeError(f"mesh must be a launch.mesh.ClientGroup, "
+                                f"got {type(mesh).__name__}")
+            want = None if device is None else torch.device(device)
+            if want is not None and (want.type != mesh.device.type or (
+                    want.index is not None and want != mesh.device)):
+                raise ValueError(f"device={device} differs from the "
+                                 f"group's device {mesh.device}")
+            if num_slots % mesh.size:
+                raise ValueError(
+                    f"num_slots={num_slots} must be divisible by the "
+                    f"group's {mesh.size} ranks (whole lanes per rank)")
+            if shard_num_slots < 1:
+                raise ValueError(f"shard_num_slots={shard_num_slots} must "
+                                 "be >= 1")
+            self.device = mesh.device
+            self._rank = mesh.rank
+        self.mesh = mesh
+        self.shard_points_above = shard_points_above
+        self.shard_num_slots = shard_num_slots
         self.num_slots = num_slots
         self.chunk_steps = chunk_steps
         # Deadline semantics are OPT-IN: without a clock, deadlines are
@@ -374,11 +404,28 @@ class SolverService:
         self._tenants: dict[int, _Tenant] = {}   # streaming tenants
         self._rid_tenant: dict[int, int] = {}    # live rid -> tenant id
         self._next_id = 0
+        # over a group: rank 0's device ops since its last plan, the
+        # plans' count, the other ranks' shards by group key, and this
+        # rank's share of the service's own traffic
+        self._pending: list[tuple] = []
+        self._seq = 0
+        self._shards: dict[tuple, _plan.Batch] = {}
+        self._traffic = {kind: dict(calls=0, bytes=0, seconds=0.0)
+                        for kind in _plan.TRAFFIC}
+
+    def _front_end(self, what: str) -> None:
+        if self._rank:
+            raise RuntimeError(
+                f"{what} is a call of the front end, rank 0 of the group; "
+                f"this is rank {self._rank} (step() and run() are the "
+                "collective calls)")
 
     @property
     def _batches(self) -> dict:
-        """Bucket key -> device-buffer payload (for tests and
-        introspection; the scheduler owns the group table)."""
+        """Group key -> this rank's device buffers (for tests and
+        introspection; on rank 0 the scheduler owns the group table)."""
+        if self._rank:
+            return dict(self._shards)
         return {g.key: g.payload for g in self._sched.groups}
 
     # ------------------------------------------------------------ intake
@@ -396,6 +443,7 @@ class SolverService:
         mismatches, single-class ``y``, infeasible ``nu``, over-ladder
         shapes -- so one bad tenant is rejected at intake instead of
         poisoning a device lane."""
+        self._front_end("submit")
         x = np.asarray(req.x)
         y = np.asarray(req.y)
         if x.ndim != 2:
@@ -448,9 +496,9 @@ class SolverService:
                  d_pre: int, *, priority: int,
                  deadline: float | None):
         """Shared tail of ``submit``/``submit_update``: derive the
-        bucket group key and enqueue the ticket.  ONE derivation for
-        both intakes, so an update can never land beside a plain fit
-        under a different key discipline."""
+        bucket + placement group key and enqueue the ticket.  ONE
+        derivation for both intakes, so an update can never land beside
+        a plain fit under a different key discipline."""
         bucket = pp.bucket_shape(n1 + n2, d_pre)
         # everything that keys the chunk configuration also keys the
         # batch: block_size (shape), project (nu>0) and check_gap
@@ -458,12 +506,31 @@ class SolverService:
         # trajectory and the warm-up set is exactly the batch set
         project = req.nu > 0.0
         check_gap = req.gap_tol > 0.0
-        batch_key = bucket + (req.block_size, project, check_gap)
+        key = bucket + (req.block_size, project, check_gap)
+        num_slots = self.num_slots
+        if self.mesh is not None:
+            # over a group, the placement is part of the key: same
+            # bucket, another chunk (and another collective budget)
+            k = self.mesh.size
+            points = (self.shard_points_above is not None
+                      and n1 + n2 > self.shard_points_above)
+            if points and check_gap:
+                raise ValueError(
+                    "FitRequest.gap_tol > 0 is not supported for "
+                    "point-sharded fits (the duality gap's water-filling "
+                    "sorts the full point axis and does not distribute); "
+                    "submit with gap_tol=0 or below the shard threshold")
+            if points:
+                # the point axis splits into k whole lane-aligned shards:
+                # the per-shard pow-2 rung times k
+                key = (k * pp.bucket_length(-(-(n1 + n2) // k)),) + key[1:]
+                num_slots = self.shard_num_slots
+            key += ("points" if points else "lanes", k)
         ticket = self._sched.submit(
-            batch_key, rid, req, priority=priority, deadline=deadline,
-            payload_factory=lambda: _Batch(bucket, self.num_slots, project,
-                                           check_gap, self.device),
-            num_slots=self.num_slots)
+            key, rid, req, priority=priority, deadline=deadline,
+            payload_factory=lambda: _plan.Batch(key, num_slots,
+                                                self.device, self.mesh),
+            num_slots=num_slots)
         self._tickets[rid] = ticket
         return ticket
 
@@ -491,6 +558,7 @@ class SolverService:
         at the uniform level; replace mode carries ``w`` but resets all
         dual mass, since the old points no longer exist.  A tenant with
         no completed fit yet falls back to cold."""
+        self._front_end("submit_update")
         ten = self._tenants.get(ureq.tenant)
         if ten is None:
             raise KeyError(
@@ -612,14 +680,19 @@ class SolverService:
         running and its result stays claimable; it just no longer
         updates warm state at harvest.  Returns False on unknown
         tenants."""
+        self._front_end("close_stream")
         return self._tenants.pop(tenant, None) is not None
 
     # --------------------------------------------------------- admission
-    def _admit(self, group) -> None:
-        """Realize the scheduler's urgency-ordered lane assignments in
-        device state (between chunks), in place."""
+    def _admit(self, group) -> tuple[list[_plan.Admit], dict]:
+        """Realize the scheduler's urgency-ordered lane assignments
+        (between chunks): Algorithm 1's packed lane and its initial state
+        for each, written in place into this rank's shard where it holds
+        the lane.  Returns the plan's admissions and, by rank, the data
+        of the lanes other ranks hold (numpy)."""
         batch = group.payload
         n_pad, d_pad = batch.bucket
+        admits, payloads = [], {}
         for lane, ticket in self._sched.admit(group):
             req = ticket.payload
             adm = self._pre_cache.pop(ticket.rid)
@@ -637,7 +710,6 @@ class SolverService:
             num_iters = saddle.resolve_num_iters(
                 req.num_iters, d_pad, req.eps, req.beta, n1 + n2,
                 req.block_size)
-            _write_slot_data(batch, lane, pts.x_t, pts.sign)
             if adm.warm is not None:
                 # WARM admission: re-place the carried dual segments at
                 # the new class offsets (appended points seeded at the
@@ -659,38 +731,171 @@ class SolverService:
             else:
                 pstate = engine.init_packed_state(pts.sign, n1, n2,
                                                   d_pad)
-            gen = torch.Generator(device=self.device).manual_seed(req.seed)
-            engine.admit_into_slot(batch.state, lane, pstate, gen,
-                                   num_iters)
-            batch.sp[lane] = engine.slot_params_row(params, req.gap_tol)
-            batch.sp_dev = None                 # refresh device mirror
+            new = _plan.Admit(
+                lane=lane, sp=engine.slot_params_row(params, req.gap_tol),
+                seed=req.seed, num_iters=num_iters,
+                keep=adm.tenant is not None)
+            data = (pts.x_t, pts.sign, pstate.w, pstate.log_lam,
+                    pstate.log_lam_prev, pstate.u)
+            for rank, part in _plan.lane_parts(batch, lane, data,
+                                               self.mesh):
+                if rank == self._rank:
+                    _plan.write_lane(batch, new, part, self.device)
+                else:
+                    payloads.setdefault(rank, {})[lane] = tuple(
+                        t.cpu().numpy() for t in part)
+            admits.append(new)
             ticket.note = _Slot(request_id=ticket.rid, req=req, adm=adm,
                                 history=[])
+        return admits, payloads
 
-    def _chunk_blocks(self, group) -> torch.Tensor | None:
-        """The next chunk's (chunk_steps, S, b) coordinate blocks when a
-        lane replays an injected schedule, else None (every lane draws
-        from its own sampler inside the chunk).  A replaying lane takes
-        the rows of its schedule from its chunk index on (rows past its
-        budget are never applied); every other lane draws from its own
-        generator exactly as the chunk would."""
-        lanes = {lane: t.note for lane, t in group.slots.items()}
-        if all(slot.adm.schedule is None for slot in lanes.values()):
-            return None
-        batch = group.payload
-        d, c = batch.bucket[1], self.chunk_steps
-        b = next(iter(lanes.values())).req.block_size
-        cols = []
-        for lane, gen in enumerate(batch.state.generators):
-            slot = lanes.get(lane)
-            if slot is None or slot.adm.schedule is None:
-                cols.append(engine.sample_blocks([gen], d, b, c,
-                                                 self.device)[:, 0])
+    def _inject_rows(self, group) -> dict | None:
+        """The next chunk's rows of every lane that replays an injected
+        schedule (its rows from its chunk index on; rows past its budget
+        are never applied), None when no lane does."""
+        c = self.chunk_steps
+        rows = {lane: t.note.adm.schedule[len(t.note.history) * c:][:c]
+                .cpu().numpy() for lane, t in group.slots.items()
+                if t.note.adm.schedule is not None}
+        return rows or None
+
+    # ------------------------------------------------- device ops, plans
+    def _deactivate(self, group, lane: int) -> None:
+        """Freeze a running lane (cancel, supersede) on every rank that
+        holds it: here at once, elsewhere with the next plan."""
+        j = group.payload.local(lane)
+        if j is not None:
+            engine.deactivate_slot(group.payload.state, j)
+        if self.mesh is not None:
+            self._pending.append(("deactivate", group.key, lane))
+
+    def _evict(self, group) -> None:
+        """Idle-batch eviction: a drained group's device buffers (slot
+        state + the (S, d, n) operand) are released -- on the other ranks
+        with the next plan -- so varied request shapes do not hold device
+        memory."""
+        live = any(g is group for g in self._sched.groups)
+        if self._sched.evict_idle(group) and live and self.mesh is not None:
+            self._pending.append(("evict", group.key))
+
+    def _count(self, kind: str, nbytes: int, t0: float) -> None:
+        rec = self._traffic[kind]
+        rec["calls"] += 1
+        rec["bytes"] += nbytes
+        rec["seconds"] += time.perf_counter() - t0
+
+    def _publish(self, group=None, admits=(), poison=(), inject=None,
+                 payloads=None, stop: bool = False) -> _plan.Plan:
+        """Rank 0: number the step's plan, send it to every other rank of
+        the group with the admission data each needs, and return it."""
+        self._seq += 1
+        plan = _plan.Plan(seq=self._seq, ops=tuple(self._pending),
+                          group=group, admits=tuple(admits),
+                          poison=tuple(poison), inject=inject, stop=stop)
+        self._pending = []
+        if self.mesh is not None and self.mesh.size > 1:
+            t0 = time.perf_counter()
+            _, nbytes = meshlib.broadcast_object(self.mesh, plan)
+            self._count("plan", nbytes, t0)
+            if payloads:
+                t0 = time.perf_counter()
+                self._count("data", meshlib.send_objects(self.mesh,
+                                                         payloads), t0)
+        return plan
+
+    def _follow(self) -> _plan.Plan:
+        """A rank other than 0: receive rank 0's next plan and apply it to
+        this rank's shards (the ops, the admissions, the chunk and its
+        harvest gather)."""
+        t0 = time.perf_counter()
+        plan, nbytes = meshlib.broadcast_object(self.mesh)
+        self._count("plan", nbytes, t0)
+        if plan.seq != self._seq + 1:
+            raise RuntimeError(
+                f"rank {self._rank}: plan {plan.seq} after plan "
+                f"{self._seq}: the ranks' step()/run() calls disagree")
+        self._seq = plan.seq
+        for op in plan.ops:
+            if op[0] == "evict":
+                self._shards.pop(op[1], None)
                 continue
-            rows = slot.adm.schedule[len(slot.history) * c:][:c]
-            pad = torch.arange(b, dtype=rows.dtype, device=rows.device)
-            cols.append(torch.cat([rows, pad.expand(c - len(rows), b)]))
-        return torch.stack(cols, dim=1)
+            _, key, lane = op
+            batch = self._shards.get(key)
+            if batch is None:
+                raise RuntimeError(f"rank {self._rank}: plan {plan.seq} "
+                                   f"deactivates lane {lane} of group "
+                                   f"{key}, which this rank never ran")
+            j = batch.local(lane)
+            if j is not None:
+                engine.deactivate_slot(batch.state, j)
+        if plan.stop or plan.group is None:
+            return plan
+        key, num_slots = plan.group
+        batch = self._shards.get(key)
+        if batch is None:
+            batch = self._shards[key] = _plan.Batch(
+                key, num_slots, self.device, self.mesh)
+        mine = {a.lane: a for a in plan.admits
+                if batch.local(a.lane) is not None}
+        if mine:
+            t0 = time.perf_counter()
+            data, nbytes = meshlib.recv_object(self.mesh)
+            self._count("data", nbytes, t0)
+            if set(data) != set(mine):
+                raise RuntimeError(
+                    f"rank {self._rank}: admission data for lanes "
+                    f"{sorted(data)}, plan {plan.seq} admits "
+                    f"{sorted(mine)} here")
+            for lane, new in mine.items():
+                _plan.write_lane(batch, new, data[lane], self.device)
+        self._run(batch, plan)
+        return plan
+
+    def _trace_key(self, batch: _plan.Batch) -> tuple:
+        n_pad, d_pad = batch.bucket
+        args = (batch.num_slots, n_pad, d_pad, batch.block_size,
+                self.chunk_steps, batch.project, batch.check_gap)
+        if self.mesh is None:
+            return engine.slot_trace_key(*args)
+        return engine.sharded_slot_trace_key(*args, self.mesh,
+                                             batch.placement)
+
+    def _run(self, batch: _plan.Batch, plan: _plan.Plan):
+        """Every rank: the plan's poison and ONE chunk on this rank's
+        shard, then the harvest read (``_plan.collect``)."""
+        # Deterministic fault injection (tests/bench only): poison a
+        # targeted lane BEFORE its chunk, in place, on every rank that
+        # holds it; it adds no set-up key.
+        for lane in plan.poison:
+            j = batch.local(lane)
+            if j is not None:
+                faults_mod.poison_slot_state(batch.state, j)
+        if batch.sp_dev is None:
+            batch.sp_dev = engine.stack_slot_params(batch.sp, self.device)
+        idx = _plan.chunk_blocks(batch, plan.inject, self.chunk_steps,
+                                 self.device)
+        gathered = self.mesh is not None and self.mesh.size > 1
+        before = batch.state.active.clone() if gathered else None
+        kw = dict(chunk_steps=self.chunk_steps, d=batch.bucket[1],
+                  block_size=batch.block_size, project=batch.project,
+                  check_gap=batch.check_gap, idx=idx)
+        # Always run FULL chunks: a slot near its budget is frozen by
+        # the per-slot mask at exactly max_t, which keeps every slot's
+        # chunk/sampler schedule identical to a solo solve with
+        # record_every == chunk_steps (the parity contract).
+        with self._sched.stats.chunk(self._trace_key(batch),
+                                     engine.trace_counts):
+            if self.mesh is None:
+                batch.state, obj, healthy = engine.run_chunk_slots(
+                    batch.state, batch.x_t, batch.sign, batch.sp_dev,
+                    self.chunk_steps, **kw)
+            else:
+                batch.state, obj, healthy = engine.run_chunk_slots_sharded(
+                    batch.state, batch.x_t, batch.sign, batch.sp_dev,
+                    self.chunk_steps, mesh=self.mesh,
+                    placement=batch.placement, **kw)
+        return _plan.collect(batch, obj, healthy, before, self.mesh,
+                             self._count)
 
     # ----------------------------------------------------------- failure
     def _record_failure(self, ticket, status: Status, reason: str) -> None:
@@ -721,32 +926,28 @@ class SolverService:
         if hit is not None:
             g, t = hit
             self._record_failure(t, status, queued)
-            self._sched.evict_idle(g)
+            self._evict(g)
             return True
         for g in self._sched.groups:
             for lane, t in list(g.slots.items()):
                 if t.rid == rid:
-                    engine.deactivate_slot(g.payload.state, lane)
+                    self._deactivate(g, lane)
                     self._record_failure(t, status, running)
                     self._sched.release(g, lane, status)
-                    self._sched.evict_idle(g)
+                    self._evict(g)
                     return True
         return False
 
     # ----------------------------------------------------------- harvest
-    def _harvest(self, group, obj, healthy) -> list[FitResult]:
+    def _harvest(self, group, rows, lane_state: Callable) -> list[FitResult]:
         """Record per-slot history, QUARANTINE unhealthy slots (retry
         or structured FAILED -- batch-mates are untouched), extract
         every FINISHED healthy slot through the svm.py recovery path,
-        and free its lane."""
+        and free its lane.  ``rows`` are the chunk's (active, t,
+        objective, health) of every lane, ``lane_state(lane)`` a finished
+        lane's (log_lam, log_lam_prev, w) (``_plan.collect``)."""
         batch = group.payload
-        st = batch.state
-        # ONE device-to-host transfer per chunk for all (S,)-sized
-        # lifecycle vectors; the big per-slot state only moves for
-        # finished slots
-        active, t, obj, healthy = torch.stack([
-            v.to(torch.float64) for v in (st.active, st.t, obj, healthy)
-        ]).cpu().numpy()
+        active, t, obj, healthy = rows
         out = []
         for lane, ticket in list(group.slots.items()):
             slot = ticket.note
@@ -777,7 +978,7 @@ class SolverService:
             adm = slot.adm
             n1 = adm.xp_t.shape[0]
             n2 = adm.xm_t.shape[0]
-            lam = st.log_lam[lane]
+            lam, prev, w = lane_state(lane)
             if adm.tenant is not None:
                 # STREAMING harvest: host-retain the final saddle state
                 # (w + dual momentum) BEFORE the lane is freed --
@@ -786,10 +987,8 @@ class SolverService:
                 ten = self._tenants.get(adm.tenant)
                 if ten is not None and ten.live_rid == slot.request_id:
                     ten.warm = _WarmState(
-                        w=st.w[lane].cpu().numpy(),
-                        log_lam=lam.cpu().numpy(),
-                        log_lam_prev=st.log_lam_prev[lane].cpu().numpy(),
-                        n1=n1, n2=n2)
+                        w=w.cpu().numpy(), log_lam=lam.cpu().numpy(),
+                        log_lam_prev=prev.cpu().numpy(), n1=n1, n2=n2)
                     ten.live_rid = None
                 self._rid_tenant.pop(slot.request_id, None)
             eta = torch.exp(lam[:n1])
@@ -811,7 +1010,15 @@ class SolverService:
         """One scheduling round: shed expired deadlines -> policy pick
         -> admit -> one chunk -> harvest (quarantining unhealthy
         slots) -> evict-if-drained.  Returns the requests that
-        finished this round."""
+        finished this round.  Over a group every rank calls it: rank 0
+        decides and broadcasts the plan, the others apply it and return
+        ``[]``."""
+        if self._rank:
+            if self._follow().stop:
+                raise RuntimeError(
+                    f"rank {self._rank}: rank 0 ended its run() while this "
+                    "rank called step()")
+            return []
         # Deadline shedding FIRST (opt-in via clock): expired queued
         # tickets must neither drive the policy pick nor occupy a lane.
         if self._clock is not None:
@@ -820,55 +1027,42 @@ class SolverService:
                     ticket, Status.DEADLINE_EXCEEDED,
                     f"deadline {ticket.deadline} passed before "
                     f"admission")
-                self._sched.evict_idle(g)
+                self._evict(g)
         group = self._sched.next_group()
         if group is None:
+            self._publish()
             return []
-        self._admit(group)
+        admits, payloads = self._admit(group)
         if not group.slots:
+            self._publish()
             return []
-        batch = group.payload
-        n_pad, d_pad = batch.bucket
-        project, check_gap = batch.project, batch.check_gap
-        block_size = next(iter(group.slots.values())).payload.block_size
-        key = engine.slot_trace_key(group.num_slots, n_pad, d_pad,
-                                    block_size, self.chunk_steps, project,
-                                    check_gap)
-        # Always run FULL chunks: a slot near its budget is frozen by
-        # the per-slot mask at exactly max_t, which keeps every slot's
-        # chunk/sampler schedule identical to a solo solve with
-        # record_every == chunk_steps (the parity contract).
-        if batch.sp_dev is None:
-            batch.sp_dev = engine.stack_slot_params(batch.sp, self.device)
-        # Deterministic fault injection (tests/bench only): poison a
-        # targeted lane BEFORE its chunk, in place; it adds no set-up
-        # key.  A request's chunk index is the length of its history.
-        if self._injector is not None:
-            for lane, ticket in group.slots.items():
-                if self._injector.poison_due(ticket.rid,
-                                             len(ticket.note.history)):
-                    faults_mod.poison_slot_state(batch.state, lane)
-        idx = self._chunk_blocks(group)
-        with self._sched.stats.chunk(key, engine.trace_counts):
-            batch.state, obj, healthy = engine.run_chunk_slots(
-                batch.state, batch.x_t, batch.sign, batch.sp_dev,
-                self.chunk_steps, chunk_steps=self.chunk_steps, d=d_pad,
-                block_size=block_size, project=project,
-                check_gap=check_gap, idx=idx)
-        out = self._harvest(group, obj, healthy)
-        # Idle-batch eviction: a drained batch's device buffers (slot
-        # state + the (S, d, n) operand) are released, so varied request
-        # shapes do not hold device memory.
-        self._sched.evict_idle(group)
+        # A request's chunk index is the length of its history.
+        poison = () if self._injector is None else tuple(
+            lane for lane, ticket in group.slots.items()
+            if self._injector.poison_due(ticket.rid,
+                                         len(ticket.note.history)))
+        plan = self._publish((group.key, group.num_slots), admits, poison,
+                             self._inject_rows(group), payloads)
+        rows, lane_state = self._run(group.payload, plan)
+        out = self._harvest(group, rows, lane_state)
+        self._evict(group)
         return out
 
     def run(self) -> dict[int, FitResult]:
         """Drain every queue; returns (and RELEASES) every result
         completed since the last drain -- results are not retained
         service-side, so a long-running service stays O(active slots),
-        not O(requests served)."""
+        not O(requests served).  Over a group every rank calls it; rank
+        0's last plan tells the others that the service has drained,
+        and they return ``{}``."""
+        if self._rank:
+            while not self._follow().stop:
+                pass
+            return {}
         while self._sched.has_work():
             self.step()
+        if self.mesh is not None:
+            self._publish(stop=True)
         out, self._results = self._results, {}
         return out
 
@@ -878,6 +1072,7 @@ class SolverService:
         DEADLINE_EXCEEDED/SUPERSEDED once terminal (until its result is
         claimed), PENDING/RUNNING while live.  KeyError on unknown or
         claimed rids."""
+        self._front_end("status")
         res = self._results.get(rid)
         if res is not None:
             return (res.status if isinstance(res, RequestFailure)
@@ -890,6 +1085,7 @@ class SolverService:
         deadline-shed / superseded).  A KNOWN rid still in flight raises
         :class:`ResultNotReady`; an unknown (or already claimed) rid
         raises a bare ``KeyError``."""
+        self._front_end("result")
         if rid in self._results:
             return self._results.pop(rid)
         if rid in self._tickets:
@@ -903,6 +1099,7 @@ class SolverService:
         service is host-driven, so this is always between chunks).
         Returns True if cancelled; False for unknown/terminal rids.
         The outcome is a claimable CANCELLED :class:`RequestFailure`."""
+        self._front_end("cancel")
         if rid not in self._tickets:
             return False
         return self._terminate(rid, Status.CANCELLED,
@@ -914,6 +1111,7 @@ class SolverService:
         path).  Other requests completed by the drain stay claimable via
         ``result()``.  Raises ``RuntimeError`` if the request was
         quarantined past its retry budget."""
+        self._front_end("fit")
         rid = self.submit(FitRequest(x=x, y=y, **kw))
         out = self.run()
         res = out.pop(rid)
@@ -930,17 +1128,36 @@ class SolverService:
         """Set-up accounting (scheduler-tracked): ``compiles`` counts
         the chunk set-ups (new ``engine.trace_counts`` keys) observed
         during THIS service's chunk dispatches, ``cache_hits`` the chunk
-        calls that set up nothing.  After warm-up every call is a hit."""
+        calls that set up nothing.  After warm-up every call is a hit.
+        Over a group, rank 0's (every rank's own: ``rank_stats``)."""
+        self._front_end("stats")
         return self._sched.stats.as_dict()
+
+    @property
+    def rank_stats(self) -> dict:
+        """THIS rank's accounting, on any rank: its chunk calls and
+        set-ups (and the calls by ``engine.trace_counts`` key), the
+        bytes its shards hold on the device (0 once drained), and its
+        share of the service's own traffic over the group -- the plan
+        broadcasts, the admission data and the harvest gathers, each as
+        calls, pickled bytes and host seconds."""
+        return dict(self._sched.stats.as_dict(), rank=self._rank,
+                    keys=dict(self._sched.stats.chunk_calls),
+                    held_bytes=sum(b.nbytes
+                                   for b in self._batches.values()),
+                    traffic={kind: dict(v) for kind, v in
+                             self._traffic.items()})
 
     @property
     def latencies(self):
         """(request_id, queue-to-result seconds) per completed request
         -- stamped by the scheduler at submit and release (bounded
         sliding window)."""
+        self._front_end("latencies")
         return self._sched.latencies
 
     def latency_percentiles(self, *pcts: float) -> dict[float, float]:
         """Queue-to-result latency percentiles (seconds), e.g.
         ``svc.latency_percentiles(50.0, 95.0)``."""
+        self._front_end("latency_percentiles")
         return self._sched.latency_percentiles(*pcts)

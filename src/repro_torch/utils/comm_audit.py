@@ -23,6 +23,12 @@ therefore breaks ``match``.
 * :func:`audit_serve` -- the serving chunk in one placement
   (``engine.run_chunk_slots_sharded``): "lanes" must issue nothing at all,
   "points" exactly ``ServeCommModel``, per iteration and per chunk.
+* :func:`audit_service` -- a run of the SPMD fit service
+  (``SolverService(mesh=)``): its all-reduces against the hooks and
+  :func:`service_model` (``ServeCommModel`` for every point-sharded
+  chunk, nothing for a lane-placed one), and its other backend calls (the
+  plan broadcasts, admission data and harvest gathers) against the
+  service helpers' tally (``launch.mesh.traffic_counts``).
 * :func:`run_specs` / :func:`collect_audits` -- a batch of audits on
   subgroups of one group of spawned processes.
 
@@ -73,11 +79,13 @@ class Recorder:
 
 
 class Measured(NamedTuple):
-    """The collectives one call issued: the profiler's events and the
-    group hooks' log and tally over the same window."""
+    """The collectives one call issued: the profiler's all-reduce events,
+    the group hooks' log and tally over the same window, and the
+    backend's other calls by op."""
     events: list       # [(op, elements)] in issue order (profiler)
     log: list          # [(kind, elements, bytes per element)] (hooks)
     tally: dict        # engine.collective_counts over the window
+    other: dict = {}   # op -> calls of every other backend event
 
     @property
     def multiset(self) -> dict:
@@ -94,13 +102,18 @@ class Measured(NamedTuple):
         return sum(e * size for _, e, size in self.log)
 
     @property
-    def agrees(self) -> bool:
-        """Every event pairs with a hook call of its size, and the
+    def paired(self) -> bool:
+        """Every all-reduce pairs with a hook call of its size, and the
         measured multiset is the hooks' tally."""
         return (len(self.events) == len(self.log)
-                and all(op == "all-reduce" and e == le for (op, e), (_, le, _)
+                and all(e == le for (_, e), (_, le, _)
                         in zip(self.events, self.log))
                 and self.multiset == self.tally)
+
+    @property
+    def agrees(self) -> bool:
+        """:attr:`paired`, and the backend made no other call."""
+        return self.paired and not self.other
 
 
 def measure(group: meshlib.ClientGroup, fn) -> Measured:
@@ -123,8 +136,11 @@ def measure(group: meshlib.ClientGroup, fn) -> Measured:
         for ev in prof.events()
         if ev.device_type == DeviceType.CPU
         and ev.name.startswith(BACKEND_PREFIXES) and ev.input_shapes)
-    return Measured(events=[(op, e) for _, op, e in events], log=rec.log,
-                    tally=tally)
+    return Measured(
+        events=[(op, e) for _, op, e in events if op == "all-reduce"],
+        log=rec.log, tally=tally,
+        other=dict(collections.Counter(op for _, op, _ in events
+                                       if op != "all-reduce")))
 
 
 def _per_step(total: Measured, fixed: Measured, steps: int) -> tuple:
@@ -295,6 +311,52 @@ def audit_serve(group: meshlib.ClientGroup, *, placement: str,
         rec["model_payload_bytes"] = \
             4 * model.payload_elements_per_iteration(block_size)
     return rec
+
+
+def service_model(chunk_calls: dict) -> dict:
+    """The all-reduces ``ServeCommModel`` predicts for a service's chunks
+    on one rank, from its chunk calls by set-up key (``SolverService.
+    rank_stats["keys"]``): a point-sharded chunk of C steps issues C
+    steps' multiset and one chunk boundary's, any other chunk none."""
+    out = collections.Counter()
+    for key, calls in chunk_calls.items():
+        if key[-2:-1] != ("points",):
+            continue
+        _, s, _n, d, b, c, project, _gap, _, k = key
+        model = distributed.ServeCommModel(
+            k=k, num_slots=s, nu_rounds_per_iter=_rounds(float(project)))
+        for ms, times in ((model.collective_multiset(b), c * calls),
+                          (model.per_chunk_multiset(d), calls)):
+            for op, n in ms.items():
+                out[op] += n * times
+    return dict(out)
+
+
+def audit_service(group: meshlib.ClientGroup, fn) -> dict:
+    """Measured backend calls of ``fn(g)`` -- a run of the SPMD service
+    built on ``g``, ``group`` with a fresh :class:`Recorder`, that returns
+    the service -- on this rank: its all-reduces against the hooks and
+    :func:`service_model` of the run's chunks, and its other calls
+    against the service helpers' tally."""
+    before = collections.Counter(meshlib.traffic_counts)
+    out = {}
+
+    def run(g):
+        out["svc"] = fn(g)
+
+    m = measure(group, run)
+    traffic = dict(collections.Counter(meshlib.traffic_counts) - before)
+    want = service_model(out["svc"].rank_stats["keys"])
+    return {
+        "kind": "service", "k": group.size,
+        "backend": dist.get_backend(group.group),
+        "predicted": multiset_to_json(want),
+        "measured": multiset_to_json(m.multiset),
+        "hooks_agree": m.paired,
+        "match": m.paired and m.multiset == want,
+        "service_calls": m.other, "service_tally": traffic,
+        "service_match": m.other == traffic,
+    }
 
 
 def audit_spec(group: meshlib.ClientGroup, spec: dict) -> dict:

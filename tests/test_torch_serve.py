@@ -162,15 +162,17 @@ def test_infeasible_nu_rejected_at_submit(two_problems):
         svc.submit(FitRequest(x=ds1.x, y=ds1.y, nu=1.0 / 200))
 
 
-def test_service_runs_on_cuda_by_default_and_has_no_mesh(two_problems):
+def test_service_runs_on_cuda_by_default_and_validates_its_mesh(
+        two_problems):
     """The device contract: cuda unless the caller asks for the CPU (here,
-    without a card, asking for cuda raises), and the JAX package's mesh
-    placements raise instead of running meshless."""
+    without a card, asking for cuda raises); ``mesh=`` takes a process
+    group (``launch.mesh.ClientGroup``, whose device is the service's)
+    and ``shard_points_above`` needs one."""
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SolverService()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ClientGroup"):
         SolverService(device=CPU, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="pass mesh="):
         SolverService(device=CPU, shard_points_above=1000)
     assert _svc().device == torch.device("cpu")
 
