@@ -8,7 +8,7 @@ no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- seven paths, each driven with the launch counts reset
+  2. paths      -- eight paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -99,6 +99,33 @@ no CPU fallback):
           poison) for phase 5.  In the parent, a one-rank NCCL group's
           service (one request point-sharded at k = 1) bit-equal to
           path e on four of its requests.
+       h. the paper's comparisons (``repro_torch.baselines``), at the
+          full sizes of the JAX package's Table 1, Figure 1, Figure 3 and
+          Table 4 scripts, each timed and printed beside the card:
+          h1 Table 1: separable(10000, 512) through ``save_libsvm`` /
+          ``load_libsvm`` (bit-equal to the values the file states),
+          preprocessed, Saddle-SVC for 20,000 steps (depth cut: Theorem
+          6 gives 59,975; 20,000 is the JAX script's quick cap) against
+          Gilbert (20,000 iterations, tol 1e-6): Gilbert's history never
+          rises, its weights sum to 1 (1e-5) and give its z (1e-4), its
+          first 200 iterations replayed on the CPU (z within 1e-4).
+          h2 Figure 1: non_separable(20000, 128)'s training split, QP
+          nu-SVM (FISTA, 1,000 iterations; JAX 4,000 + 2,000) and
+          nu-Saddle-SVC (4,000 steps; JAX 12,000): the QP's duals in the
+          capped simplex, both objectives finite and below that of the
+          uniform duals both start from, the QP's first 20 iterations
+          replayed on the CPU (1e-5).  Every baseline is profiled (5 QP
+          iterations, 50 of each other one).  h3 Figure 3: distributed
+          Gilbert at k = 20 (1,500 iterations) within 1e-4 of serial
+          Gilbert, its 3kd scalars an iteration beside path b's
+          Saddle-DSVC; HOGWILD
+          (2,000 rounds, 2kd) at training accuracy >= 0.9, its draws
+          those of ``draw_schedule``, its first 200 rounds replayed on
+          the CPU (1e-4).  h4 Table 4: Pegasos (4,000 steps) on
+          sparse_non_separable(100000, 128) at nnz 12, 64, 115, test
+          accuracy printed, the first 200 steps replayed on the CPU
+          (1e-4).  h5: MDM and Gilbert on Table 1's (2000, 32) min-norm
+          problem within 2e-3.
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -123,7 +150,9 @@ no CPU fallback):
                    the NCCL service's calls here, and both ranks' lane
                    and point shards (4 lanes of 4,096 / 8,192 x 256 and
                    8,192 x 512; 2 lanes of 16,384 x 256 and 32,768 x
-                   512); its time, its device-only time (one
+                   512); path h's (S = 1, b = 1 at Table 1's d = 512 and
+                   Figure 1's d = 128; the FWHT at d = 512, 128, 256 and
+                   32); its time, its device-only time (one
                    profiler session per group), the plain version's, a
                    one-call PyTorch yardstick (the FWHT's ``x @ H`` with
                    H built from Kronecker factors, or the error that
@@ -2147,6 +2176,379 @@ def g_check(torch, ranks, nccl) -> None:
           f"{nccl['secs']:.3f} s")
 
 
+# ---------------------------------------------------------------- path h
+# The paper's comparisons, at the full sizes of the JAX package's figure
+# and table scripts (benchmarks/table1_hard_margin.py, fig1_nusvm_
+# convergence.py, fig3_dist_hard_margin.py, table4_density.py), with
+# depth cuts: Table 1's Saddle-SVC 20,000 steps (Theorem 6 gives 59,975;
+# 20,000 is the JAX script's quick cap), Figure 1's QP 1,000 iterations
+# (JAX: 4,000 + 2,000) and its Saddle-SVC 4,000 steps (JAX: 12,000).
+H_EPS, H_BETA, H_ALPHA = 1e-3, 0.1, 0.85
+H_TABLE1 = dict(n=10_000, d=512, seed=512, saddle_steps=20_000,
+                gilbert_iters=20_000, tol=1e-6, record_every=200)
+H_FIG1 = dict(n=20_000, d=128, beta2=0.2, qp_iters=1000, qp_every=200,
+              saddle_steps=4000, saddle_every=1000)
+H_FIG3 = dict(n=10_000, d=256, k=20, iters=1500, every=300,
+              hogwild_iters=2000)
+H_TABLE4 = dict(n=100_000, d=128, fracs=(0.1, 0.5, 0.9), lam=1e-4,
+                iters=4000, batch=32)
+H_MDM = dict(n=2000, d=32, iters=3000)
+H_REPLAY = 200           # steps replayed on the CPU (Gilbert, the SGDs)
+H_QP_REPLAY = 20
+H_PROFILE = 50           # iterations profiled (the QP's: 5)
+MDM_GAP = 2e-3           # MDM vs Gilbert (tests/test_baselines.py:64-70)
+
+
+def h_preprocess(torch, xp, xm):
+    """Algorithm 1 on the card (the FWHT kernel), signs from seed 0 as the
+    JAX scripts' jax.random.key(0)."""
+    from repro_torch.core import preprocess as pp
+    return pp.preprocess(xp, xm, generator=torch.Generator().manual_seed(0),
+                         device="cuda")
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def libsvm_round_trip(ds):
+    """``ds`` written by ``save_libsvm`` into a temporary directory and read
+    back by ``load_libsvm``: the labels come back equal and the points
+    equal, bit for bit, to the values the file states (the JAX package's
+    format: 6 significant digits a value)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.data import libsvm
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "table1.libsvm")
+        libsvm.save_libsvm(path, ds)
+        size = Path(path).stat().st_size
+        t1 = time.perf_counter()
+        back = libsvm.load_libsvm(path, n_features=ds.x.shape[1])
+    t2 = time.perf_counter()
+    stated = np.concatenate([
+        np.char.mod("%.6g", ds.x[i:i + 1000]).astype(np.float64).astype(
+            np.float32) for i in range(0, len(ds.x), 1000)])
+    rel = float((np.abs(back.x - ds.x) / np.abs(ds.x)).max())
+    print(f"  libsvm: {size} bytes written in {t1 - t0:.2f} s, read in "
+          f"{t2 - t1:.2f} s; the values as written differ from the data by "
+          f"{rel:.3e} relative at most")
+    require(back.x.dtype == np.float32 and back.x.shape == ds.x.shape
+            and np.array_equal(back.x, stated)
+            and np.array_equal(back.y, ds.y),
+            "path h: load_libsvm does not give the written array")
+    return back
+
+
+def h_table1(torch, card):
+    """h1, Table 1's full case: Saddle-SVC against Gilbert on
+    separable(10000, 512) after a LIBSVM round trip."""
+    from repro_torch.baselines import gilbert
+    from repro_torch.core import saddle
+    from repro_torch.core.svm import split_classes
+    from repro_torch.data import synthetic
+
+    c = H_TABLE1
+    ds = libsvm_round_trip(synthetic.separable(c["n"], c["d"],
+                                               seed=c["seed"]))
+    pre = h_preprocess(torch, *split_classes(ds.x, ds.y))
+    sad, sad_s = timed(torch, lambda: saddle.solve(
+        pre.xp, pre.xm, eps=H_EPS, beta=H_BETA, num_iters=c["saddle_steps"],
+        record_every=c["saddle_steps"] // 10, device="cuda"))
+    gil, gil_s = timed(torch, lambda: gilbert.solve(
+        pre.xp, pre.xm, num_iters=c["gilbert_iters"], tol=c["tol"],
+        record_every=c["record_every"], device="cuda"))
+    obj_s, obj_g = sad.history[-1][1], gil.history[-1][1]
+    iters_g = gil.history[-1][0]
+    print(f"h1 Table 1 n={c['n']} d={c['d']} ({card}): Saddle-SVC "
+          f"{sad_s:.3f} s ({sad_s / c['saddle_steps'] * 1e3:.4f} ms/step, "
+          f"{c['saddle_steps']} steps), objective {obj_s:.6g}; Gilbert "
+          f"{gil_s:.3f} s ({gil_s / iters_g * 1e3:.4f} ms/iteration, "
+          f"{iters_g} iterations, tol {c['tol']}), objective {obj_g:.6g}; "
+          f"objective ratio saddle/gilbert {obj_s / obj_g:.6f}, time ratio "
+          f"gilbert/saddle {gil_s / sad_s:.4f}")
+    print(f"  Saddle-SVC history {sad.history}")
+    print(f"  Gilbert history {gil.history}")
+    objs = [o for _, o in gil.history]
+    st = gil.state
+    z_w = st.eta @ pre.xp - st.xi @ pre.xm
+    sums = (st.eta.sum().item(), st.xi.sum().item())
+    dz = (z_w - st.z).abs().max().item()
+    print(f"  Gilbert: weight sums {sums}, max|z - (eta A - xi B)| {dz:.3e}")
+    require(all(math.isfinite(o) for o in objs + [obj_s]),
+            "h1: non-finite objective")
+    require(not any(b > a for a, b in zip(objs, objs[1:])),
+            "h1: Gilbert's objective rose")
+    require(all(abs(s - 1.0) <= 1e-5 for s in sums),
+            "h1: Gilbert's weights do not sum to 1")
+    require(dz <= 1e-4, "h1: Gilbert's z does not equal its weights' point")
+    card_g = gilbert.solve(pre.xp, pre.xm, num_iters=H_REPLAY,
+                           device="cuda").state.z
+    cpu_g = gilbert.solve(pre.xp.cpu(), pre.xm.cpu(), num_iters=H_REPLAY,
+                          device="cpu").state.z
+    dz = (card_g.cpu() - cpu_g).abs().max().item()
+    print(f"  Gilbert's first {H_REPLAY} iterations on the CPU: max|dz| "
+          f"{dz:.3e} (tol {FIT_ATOL})")
+    require(dz <= FIT_ATOL, "h1: Gilbert on the card and the CPU differ")
+
+
+def h_figure1(torch, card):
+    """h2, Figure 1's full size: FISTA on RC-Hull (the NuSVC stand-in)
+    against nu-Saddle-SVC on non_separable(20000, 128)'s training split;
+    then profiles of 5 QP and 50 Gilbert iterations."""
+    from repro_torch.baselines import gilbert, qp_nusvm
+    from repro_torch.core import saddle
+    from repro_torch.core.svm import split_classes
+    from repro_torch.data import synthetic
+
+    c = H_FIG1
+    tr, _te = synthetic.non_separable(c["n"], c["d"], beta2=c["beta2"],
+                                      seed=0).split(0.1, seed=0)
+    xp, xm = split_classes(tr.x, tr.y)
+    nu = 1.0 / (H_ALPHA * min(len(xp), len(xm)))
+    pre = h_preprocess(torch, xp, xm)
+    (qst, qhist), qp_s = timed(torch, lambda: qp_nusvm.solve(
+        pre.xp, pre.xm, nu=nu, num_iters=c["qp_iters"],
+        record_every=c["qp_every"], device="cuda"))
+    sad, sad_s = timed(torch, lambda: saddle.solve(
+        pre.xp, pre.xm, nu=nu, eps=H_EPS, beta=H_BETA,
+        num_iters=c["saddle_steps"], record_every=c["saddle_every"],
+        device="cuda"))
+    print(f"h2 Figure 1 n={len(tr.y)} d={c['d']} nu={nu:.6g} ({card}): QP "
+          f"{qp_s:.3f} s ({qp_s / c['qp_iters'] * 1e3:.4f} ms/iteration, "
+          f"{c['qp_iters']} iterations), objective {qhist[-1][1]:.6g}; "
+          f"nu-Saddle-SVC {sad_s:.3f} s "
+          f"({sad_s / c['saddle_steps'] * 1e3:.4f} ms/step, "
+          f"{c['saddle_steps']} steps), objective "
+          f"{sad.history[-1][1]:.6g}; time ratio QP/saddle "
+          f"{qp_s / sad_s:.4f}")
+    print(f"  QP history {qhist}")
+    print(f"  Saddle-SVC history {sad.history}")
+    for name, v in (("eta", qst.eta), ("xi", qst.xi)):
+        lo, hi, s = v.min().item(), v.max().item(), v.sum().item()
+        print(f"  QP {name}: in [{lo:.3e}, {hi:.6g}] (nu {nu:.6g}), sum {s}")
+        require(lo >= 0.0 and hi <= nu + 1e-6 and abs(s - 1.0) <= 1e-5,
+                f"h2: QP's {name} leaves the capped simplex")
+    # both begin at the uniform duals (the QP settles to float32 rounding
+    # before its first record)
+    start = 0.5 * (pre.xp.mean(dim=0) - pre.xm.mean(dim=0)).square().sum()
+    print(f"  objective at the uniform duals both begin at "
+          f"{start.item():.6g}")
+    for label, hist in (("QP", qhist), ("Saddle-SVC", sad.history)):
+        objs = [o for _, o in hist]
+        require(all(math.isfinite(o) for o in objs)
+                and objs[-1] < start.item(),
+                f"h2: {label}'s objective is not finite or does not fall")
+    # the QP minimises the same objective over the same capped simplex that
+    # holds nu-Saddle-SVC's duals, so a QP that stalled would end above it
+    q_end, s_end = qhist[-1][1], sad.history[-1][1]
+    print(f"  QP end {q_end:.8g} against nu-Saddle-SVC's {s_end:.8g}: "
+          f"{(s_end - q_end) / s_end:.4f} of it below")
+    require(q_end <= s_end, "h2: the QP ends above nu-Saddle-SVC")
+    lr = qp_nusvm.default_lr(pre.xp, pre.xm)
+    lr_cpu = qp_nusvm.default_lr(pre.xp.cpu(), pre.xm.cpu())
+    card_q, _ = qp_nusvm.solve(pre.xp, pre.xm, nu=nu, lr=lr,
+                               num_iters=H_QP_REPLAY, device="cuda")
+    cpu_q, _ = qp_nusvm.solve(pre.xp.cpu(), pre.xm.cpu(), nu=nu, lr=lr,
+                              num_iters=H_QP_REPLAY, device="cpu")
+    diff = max((a.cpu() - b).abs().max().item()
+               for a, b in ((card_q.eta, cpu_q.eta), (card_q.xi, cpu_q.xi)))
+    print(f"  QP's first {H_QP_REPLAY} iterations on the CPU at the card's "
+          f"lr {lr!r} (the CPU's own {lr_cpu!r}): max|d eta|, |d xi| "
+          f"{diff:.3e} (tol {REF_ATOL})")
+    require(diff <= REF_ATOL, "h2: QP on the card and the CPU differ")
+    eta0 = torch.full((len(xp),), 1.0 / len(xp), device="cuda")
+    xi0 = torch.full((len(xm),), 1.0 / len(xm), device="cuda")
+    q0 = qp_nusvm.QPState(eta0, xi0, eta0, xi0,
+                          torch.ones((), device="cuda"))
+    profile_window(torch, "h2 QP (steps = iterations)", 5,
+                   lambda: qp_nusvm.run_chunk(q0, pre.xp, pre.xm, nu, lr, 5))
+    g0 = gilbert.init_state(pre.xp, pre.xm)
+    profile_window(torch, "h2 Gilbert (steps = iterations)", H_PROFILE,
+                   lambda: gilbert.run_chunk(g0, pre.xp, pre.xm, H_PROFILE))
+
+
+def h_figure3(torch, card, dist_fit):
+    """h3, Figure 3: distributed Gilbert (3kd scalars an iteration)
+    against serial Gilbert and beside path b's Saddle-DSVC, then HOGWILD
+    (2kd) on the same points."""
+    from repro_torch.baselines import dist_gilbert, gilbert, hogwild, pegasos
+    from repro_torch.core.svm import split_classes
+    from repro_torch.data import synthetic
+
+    c = H_FIG3
+    k, d = c["k"], c["d"]
+    ds = synthetic.separable(c["n"], d, seed=0)
+    pre = h_preprocess(torch, *split_classes(ds.x, ds.y))
+    (_, hist, comm), dg_s = timed(torch, lambda: dist_gilbert.solve(
+        pre.xp, pre.xm, k=k, num_iters=c["iters"], record_every=c["every"],
+        device="cuda"))
+    ser, ser_s = timed(torch, lambda: gilbert.solve(
+        pre.xp, pre.xm, num_iters=c["iters"], record_every=c["every"],
+        device="cuda"))
+    unit = k * d
+
+    def units_to_5pct(h):
+        return next(s for _, s, o in h if o <= h[-1][2] * 1.05) / unit
+
+    dsvc = dist_fit["res"]
+    diff = abs(hist[-1][2] - ser.history[-1][1])
+    print(f"h3 Figure 3 k={k} n={c['n']} d={d} ({card}): distributed "
+          f"Gilbert {dg_s:.3f} s ({dg_s / c['iters'] * 1e3:.4f} ms/"
+          f"iteration), {comm.total(c['iters']) / unit:.1f} kd sent in "
+          f"{c['iters']} iterations ({units_to_5pct(hist):.1f} kd to within "
+          f"5 % of its end), objective {hist[-1][2]:.6g}; serial Gilbert "
+          f"{ser_s:.3f} s, objective {ser.history[-1][1]:.6g} (|diff| "
+          f"{diff:.3e}); Saddle-DSVC (path b) {dsvc.scalars_sent / unit:.3f} "
+          f"kd in {dsvc.history[-1][0]} steps "
+          f"({units_to_5pct(dsvc.history):.3f} kd to within 5 %), "
+          f"objective {dsvc.history[-1][2]:.6g}")
+    print(f"  distributed Gilbert history {hist}")
+    require(diff <= FIT_ATOL, "h3: distributed and serial Gilbert differ")
+    shards = dist_gilbert.shard_problem(pre.xp, pre.xm, k, pre.xp.device)
+    s0 = dist_gilbert.init_state(shards[0], shards[2])
+    profile_window(torch, "h3 distributed Gilbert (steps = iterations)",
+                   H_PROFILE, lambda: dist_gilbert.run_chunk(
+                       s0, *shards, H_PROFILE))
+    require(comm.scalars_per_iteration() == 3 * k * d,
+            "h3: distributed Gilbert's CommModel is not 3kd")
+
+    x = torch.cat([pre.xp, pre.xm])
+    y = torch.cat([torch.ones(len(pre.xp)), -torch.ones(len(pre.xm))]).to(x)
+    kw = dict(k=k, num_iters=c["hogwild_iters"])
+    (hst, hhist, hcomm), hw_s = timed(torch, lambda: hogwild.solve(
+        x, y, device="cuda", **kw))
+    draws = pegasos.draw_schedule(len(y), (c["hogwild_iters"], k, 8), 0,
+                                  "cuda")
+    again, _, _ = hogwild.solve(x, y, idx_schedule=draws, device="cuda", **kw)
+    print(f"  HOGWILD k={k}: {hw_s:.3f} s "
+          f"({hw_s / c['hogwild_iters'] * 1e3:.4f} ms/round), training "
+          f"accuracy {hhist[-1][2]:.4f}, "
+          f"{hcomm.total(c['hogwild_iters']) / unit:.1f} kd sent")
+    require(hhist[-1][2] >= 0.9, "h3: HOGWILD's training accuracy < 0.9")
+    require(hcomm.scalars_per_iteration() == 2 * k * d,
+            "h3: HOGWILD's CommModel is not 2kd")
+    require(all(torch.equal(a, b) for a, b in zip(hst, again)),
+            "h3: HOGWILD's draws are not draw_schedule's")
+    sgd_replay(torch, "h3 HOGWILD", hogwild.solve, x, y, draws,
+               dict(k=k))
+    h0 = hogwild.HogwildState(*(torch.zeros_like(v) for v in hst))
+    profile_window(torch, "h3 HOGWILD (steps = rounds)", H_PROFILE,
+                   lambda: hogwild.run_chunk(h0, draws[:H_PROFILE], x, y,
+                                             lam=1e-3, staleness=4))
+
+
+def sgd_replay(torch, label, solve, x, y, draws, kw):
+    """An SGD baseline's first H_REPLAY steps on the card and on the CPU
+    with the card's draws: w and b within FIT_ATOL."""
+    card = solve(x, y, num_iters=H_REPLAY, idx_schedule=draws[:H_REPLAY],
+                 device="cuda", **kw)[0]
+    cpu = solve(x.cpu(), y.cpu(), num_iters=H_REPLAY,
+                idx_schedule=draws[:H_REPLAY].cpu(), device="cpu", **kw)[0]
+    dw = (card.w.cpu() - cpu.w).abs().max().item()
+    db = abs(card.b.item() - cpu.b.item())
+    print(f"  {label}: first {H_REPLAY} steps on the CPU with the card's "
+          f"draws: max|dw| {dw:.3e}, |db| {db:.3e} (tol {FIT_ATOL}; |w| "
+          f"{card.w.abs().max().item():.4g}, |b| {abs(card.b.item()):.4g})")
+    require(max(dw, db) <= FIT_ATOL, f"{label}: card and CPU differ")
+
+
+def h_table4(torch, card):
+    """h4, Table 4's full size: Pegasos on sparse_non_separable(100000,
+    128) at three densities."""
+    import numpy as np
+
+    from repro_torch.baselines import pegasos
+    from repro_torch.data import synthetic
+
+    c = H_TABLE4
+    for frac in c["fracs"]:
+        nnz = int(c["d"] * frac)
+        t0 = time.perf_counter()
+        tr, te = synthetic.sparse_non_separable(
+            c["n"], c["d"], nnz=nnz, seed=nnz).split(0.1, seed=0)
+        data_s = time.perf_counter() - t0
+        x = torch.as_tensor(tr.x, device="cuda")
+        y = torch.as_tensor(tr.y, dtype=torch.float32, device="cuda")
+        kw = dict(lam=c["lam"], batch=c["batch"])
+        (st, hist), secs = timed(torch, lambda: pegasos.solve(
+            x, y, num_iters=c["iters"], device="cuda", **kw))
+        acc = float(np.mean(pegasos.predict(st, te.x) == te.y))
+        draws = pegasos.draw_schedule(len(y), (c["iters"], c["batch"]), 0,
+                                      "cuda")
+        again, _ = pegasos.solve(x, y, num_iters=c["iters"],
+                                 idx_schedule=draws, device="cuda", **kw)
+        print(f"h4 Table 4 nnz={nnz} ({frac}) n={len(tr.y)} d={c['d']} "
+              f"({card}): Pegasos {secs:.3f} s "
+              f"({secs / c['iters'] * 1e3:.4f} ms/step, {c['iters']} "
+              f"steps), training objective "
+              f"{hist[-1][1]:.6g} and accuracy {hist[-1][2]:.4f}, test "
+              f"accuracy {acc:.4f}; data made in {data_s:.2f} s")
+        require(math.isfinite(hist[-1][1]), "h4: non-finite objective")
+        require(all(torch.equal(a, b) for a, b in zip(st, again)),
+                "h4: Pegasos's draws are not draw_schedule's")
+        sgd_replay(torch, f"h4 Pegasos nnz={nnz}", pegasos.solve, x, y,
+                   draws, kw)
+    p0 = pegasos.PegasosState(*(torch.zeros_like(v) for v in st))
+    profile_window(torch, f"h4 Pegasos nnz={nnz} (steps = steps)",
+                   H_PROFILE, lambda: pegasos.run_chunk(
+                       p0, draws[:H_PROFILE], x, y, c["lam"]))
+
+
+def h_mdm(torch, card):
+    """h5: MDM against Gilbert on the min-norm problem of Table 1's (2000,
+    32) case, preprocessed."""
+    from repro_torch.baselines import gilbert, mdm
+    from repro_torch.core.svm import split_classes
+    from repro_torch.data import synthetic
+
+    c = H_MDM
+    ds = synthetic.separable(c["n"], c["d"], seed=c["d"])
+    pre = h_preprocess(torch, *split_classes(ds.x, ds.y))
+    pts = pre.xp - pre.xm.mean(dim=0)
+    (_, mhist), m_s = timed(torch, lambda: mdm.solve(
+        pts, num_iters=c["iters"], device="cuda"))
+    gil, g_s = timed(torch, lambda: gilbert.solve(
+        pts, torch.zeros_like(pts[:1]), num_iters=c["iters"],
+        device="cuda"))
+    gap = abs(mhist[-1][1] - gil.history[-1][1])
+    print(f"h5 MDM vs Gilbert n={c['n']} d={c['d']} ({card}): MDM "
+          f"{m_s:.3f} s ({m_s / c['iters'] * 1e3:.4f} ms/iteration), "
+          f"objective {mhist[-1][1]:.6g}; Gilbert {g_s:.3f} s, objective "
+          f"{gil.history[-1][1]:.6g}; |diff| {gap:.3e} (tol {MDM_GAP})")
+    require(gap < MDM_GAP, "h5: MDM and Gilbert disagree")
+    m0 = mdm.init_state(pts)
+    profile_window(torch, "h5 MDM (steps = iterations)", H_PROFILE,
+                   lambda: mdm.run_chunk(m0, pts, H_PROFILE))
+
+
+def baselines_path(torch, rec: PathRecorder, dist_fits):
+    """Path h: the paper's comparisons, counts reset just before and read
+    just after; every Saddle-SVC fit and preprocess of it recorded."""
+    from repro_torch.kernels import ops
+
+    card = card_line()
+    ops.launch_counts.clear()
+    t0 = time.perf_counter()
+    with rec:
+        h_table1(torch, card)
+        h_figure1(torch, card)
+        h_figure3(torch, card, dist_fits[0])
+        h_table4(torch, card)
+        h_mdm(torch, card)
+    counts = dict(ops.launch_counts)
+    print(f"path h launches {counts}; {time.perf_counter() - t0:.1f} s")
+    rec.check_counts(counts, ("fwht",) + PACKED)
+
+
 def serial_vs_dist(torch, fits):
     """Each distributed fit refit serially on the coordinates it drew."""
     from repro_torch.core import saddle
@@ -2966,10 +3368,10 @@ def jax_test_shapes(torch, timer, g):
 
 def fwht_shapes(rec) -> set:
     """The FWHT shapes of a path held against the plain version: all of
-    them, but for paths e-g (two class matrices a problem) the longest
+    them, but for paths e-h (two class matrices a problem) the longest
     class matrix and the recovery's vector of each d."""
     shapes = {shape for (name, shape) in rec.calls if name == "fwht"}
-    if rec.name[0] not in "efg":
+    if rec.name[0] not in "efgh":
         return shapes
     return {max(sh for sh in shapes if sh[1] == d) for _, d in shapes} | {
         sh for sh in shapes if sh[0] == 1}
@@ -3239,6 +3641,8 @@ def main() -> int:
     serve = service_path(torch, recs[4])
     serve_vs_solo(torch, serve)
     recs += collectives_path(torch, dist_fits, serve, recs[5], recs[6])
+    recs.append(PathRecorder("h"))
+    baselines_path(torch, recs[-1], dist_fits)
     serial_vs_dist(torch, dist_fits)
     profiles(torch, dist_fits, serve)
     entries = check_kernels(torch, Timer(torch), recs)

@@ -7,6 +7,8 @@ the port needs the JAX package.  The same seed gives the same points:
                       distance ratio to H is controlled by beta1; labels
                       by side of H.
   * non_separable  -- the same, with random labels inside the beta2 band.
+  * sparse_non_separable -- non_separable with exactly nnz non-zero
+                      coordinates a point.
   * blobs          -- two Gaussian blobs (quick fixtures for tests).
 """
 
@@ -70,6 +72,20 @@ def non_separable(n: int, d: int, *, beta2: float = 0.1,
     flips = rng.random(n) < 0.5
     y = np.where(band & flips, -y, y).astype(np.int64)
     return Dataset(x.astype(np.float32), y)
+
+
+def sparse_non_separable(n: int, d: int, *, nnz: int, beta2: float = 0.1,
+                         seed: int = 0) -> Dataset:
+    """Each point has exactly ``nnz`` non-zero coordinates."""
+    rng = np.random.default_rng(seed)
+    ds = non_separable(n, d, beta2=beta2, seed=seed)
+    x = ds.x.copy()
+    for i in range(n):
+        keep = rng.choice(d, size=nnz, replace=False)
+        mask = np.zeros(d, bool)
+        mask[keep] = True
+        x[i, ~mask] = 0.0
+    return Dataset(x, ds.y)
 
 
 def blobs(n1: int, n2: int, d: int, *, gap: float = 1.0,
