@@ -8,7 +8,7 @@ no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- eight paths, each driven with the launch counts reset
+  2. paths      -- nine paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -126,6 +126,39 @@ no CPU fallback):
           accuracy printed, the first 200 steps replayed on the CPU
           (1e-4).  h5: MDM and Gilbert on Table 1's (2000, 32) min-norm
           problem within 2e-3.
+       i. the LM serving side (``repro_torch.models``, ``serve.engine``,
+          ``serve.lm_service``), its models random-initialised on the card
+          from seeds and freed before the next phase.  i1: gemma-7b at
+          full width (28 layers, d 3,072, vocab 256,000, 8.54 B bfloat16
+          parameters) in slot mode, ``LMService(num_slots=4,
+          chunk_steps=8, max_len=512)``, 8 staggered requests (prompts of
+          5-250 tokens, buckets 8-256, 16-64 tokens each; two up front,
+          one more after each step), three runs: greedy with a running
+          request cancelled, temperature 0.8, greedy with one lane
+          poisoned at its chunk 2 (retried).  Every completed request
+          equals its solo ``engine.generate`` on the card (same seed,
+          the service's cache capacity) token for token; the batch-mates
+          of the cancelled and poisoned requests are bit-equal across
+          runs 1 and 3; no set-up but the temperature run's decode chunk
+          after run 1; device memory back to its level after each drain.
+          Then ms a chunk and a step of 4 busy lanes, and one profiled
+          chunk (idle share, device launches a step).  i4: the SVM probe
+          on gemma-7b's pooled logits (the JAX package's
+          ``examples/svm_probe_lm.py``: 2 x 100 sequences of 24 tokens
+          from two vocabulary ranges, features ``logits.mean(1)[:,
+          :128]``), ``SaddleNuSVC(alpha=0.6, num_iters=6000)`` on the
+          card (kernels 1-3, recorded for phase 5), train and test
+          accuracy, and the fit replayed on the CPU with the card's
+          coordinates (w and b within 1e-4).  i2: h2o-danube-1.8b at full
+          width (window 4,096) on the service's fallback path: a
+          4,500-token prompt (the ring prefill's roll) and 32 greedy
+          decode steps, equal to the service's solo generate, the last 8
+          steps' logits within 5e-2 of max |logit| of a full forward (both
+          bfloat16).  i3: gemma-7b at full width with 2 layers in float32,
+          the same weights on the card and the CPU: a 16-token prefill and
+          8 greedy decode steps, logits within 1e-4 of max |logit| and the
+          same tokens (a differing token only where the CPU's top-2 margin
+          is under that tolerance: a tie).
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -152,7 +185,8 @@ no CPU fallback):
                    8,192 x 512; 2 lanes of 16,384 x 256 and 32,768 x
                    512); path h's (S = 1, b = 1 at Table 1's d = 512 and
                    Figure 1's d = 128; the FWHT at d = 512, 128, 256 and
-                   32); its time, its device-only time (one
+                   32); path i's (S = 1, b = 1 at the probe's d = 128, and
+                   its FWHTs); its time, its device-only time (one
                    profiler session per group), the plain version's, a
                    one-call PyTorch yardstick (the FWHT's ``x @ H`` with
                    H built from Kronecker factors, or the error that
@@ -2549,6 +2583,367 @@ def baselines_path(torch, rec: PathRecorder, dist_fits):
     rec.check_counts(counts, ("fwht",) + PACKED)
 
 
+# ---------------------------------------------------------------- path i
+I_SLOTS, I_CHUNK, I_MAX_LEN = 4, 8, 512
+# prompt length, tokens, seed: buckets 8 to 256 (a bucket of 512 leaves no
+# room for a token under max_len = 512, so submit refuses it)
+I_REQS = [(5, 16, 11), (250, 40, 12), (17, 64, 13), (60, 24, 14),
+          (9, 48, 15), (130, 32, 16), (33, 56, 17), (200, 20, 18)]
+I_UPFRONT = 2          # submitted before the first chunk, the rest between
+I_CANCEL = 1           # run 1 cancels this request once it is running
+I_VICTIM = 4           # run 3 poisons this request's lane at its chunk 2
+I_TEMPERATURE = 0.8    # run 2
+I_RING = dict(prompt=4500, steps=32, compare=8)
+# Ring decode vs a full forward, both bfloat16: the two compute the same
+# sums in differently shaped products (prompt chunks of 1,024 queries
+# against single rows), and every activation is rounded to bfloat16
+# (unit roundoff 2^-9 = 1.95e-3) some 7 times a layer over 24 layers, so
+# independent roundings reach ~sqrt(168) * 1.95e-3 ~ 2.5e-2 of an
+# activation; held at 5e-2 of max |logit|.
+I_RING_RTOL = 5e-2
+I_REPLAY = dict(layers=2, prompt=16, steps=8)
+I_REPLAY_RTOL = 1e-4   # card vs CPU, float32 weights: of max |logit|
+I_PROBE = dict(n=100, seq=24, feats=128)
+
+
+def i_requests(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(2024)
+    return [(rng.integers(0, cfg.vocab_size, s), n, seed)
+            for s, n, seed in I_REQS]
+
+
+def i_drive(torch, svc, reqs, cancel=None) -> tuple:
+    """Two requests up front, one more after each step (as the JAX
+    package's ``examples/serve_lm.py``), then a drain; ``cancel`` (an
+    index) is cancelled once it runs.  Returns (results by index, wall
+    seconds)."""
+    from repro_torch.serve.scheduler import Status
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [svc.submit(p, n, seed=s, max_retries=1)
+            for p, n, s in reqs[:I_UPFRONT]]
+    for p, n, s in reqs[I_UPFRONT:]:
+        svc.step()
+        rids.append(svc.submit(p, n, seed=s, max_retries=1))
+        if (cancel is not None and len(rids) > cancel
+                and svc.status(rids[cancel]) is Status.RUNNING):
+            require(svc.cancel(rids[cancel]), "i1: cancel refused")
+            cancel = None
+    out = svc.run()
+    torch.cuda.synchronize()
+    require(cancel is None, "i1: the request to cancel never ran")
+    return ({i: out[rid] for i, rid in enumerate(rids)},
+            time.perf_counter() - t0)
+
+
+def i_slots(torch, model, card):
+    """i1: gemma-7b at full width in slot mode, three runs of 8 staggered
+    requests (greedy with a cancel, temperature, greedy with a poisoned
+    lane), every completed request held to its solo ``generate``."""
+    import numpy as np
+
+    from repro_torch.serve import engine, faults
+    from repro_torch.serve.lm_service import LMService
+    from repro_torch.serve.scheduler import RequestFailure, Status
+
+    reqs = i_requests(model.cfg)
+    # Solo references first (they also warm every bucket's prefill).  A
+    # solo generate takes the service's cache capacity: the capacity
+    # sets the decode products' shapes, and so the library's algorithm.
+    solo = {}
+    t0 = time.perf_counter()
+    for temperature in (0.0, I_TEMPERATURE):
+        for i, (p, n, s) in enumerate(reqs):
+            solo[i, temperature] = engine.generate(
+                model, p[None], steps=n, seed=s, temperature=temperature,
+                max_len=I_MAX_LEN)[0].cpu().numpy()
+    torch.cuda.synchronize()
+    n_solo = 2 * sum(n for _, n, _ in reqs)
+    print(f"i1 solo generates: {n_solo} tokens in "
+          f"{time.perf_counter() - t0:.3f} s [{card}]")
+    runs = {}
+    for run, (temperature, cancel, victim) in enumerate(
+            ((0.0, I_CANCEL, None), (I_TEMPERATURE, None, None),
+             (0.0, None, I_VICTIM)), start=1):
+        inj = None
+        if victim is not None:
+            inj = faults.FaultInjector(faults.FaultPlan(seed=0, faults=(
+                faults.Fault("poison", rid=victim, at_chunk=2),)))
+        svc = LMService(model, num_slots=I_SLOTS, chunk_steps=I_CHUNK,
+                        max_len=I_MAX_LEN, temperature=temperature,
+                        fault_injector=inj)
+        require(svc.slot_mode, "i1: gemma-7b must run in slot mode")
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        before = set(engine.trace_counts)
+        res, wall = i_drive(torch, svc, reqs, cancel)
+        mem1 = torch.cuda.memory_allocated()
+        new = set(engine.trace_counts) - before
+        done = {i: r for i, r in res.items()
+                if not isinstance(r, RequestFailure)}
+        toks = sum(len(r.tokens) for r in done.values())
+        print(f"i1 run {run} (temperature {temperature}): {len(done)} of "
+              f"{len(reqs)} completed, {toks} tokens in {wall:.3f} s: "
+              f"{toks / wall:.1f} tokens/s; stats {svc.stats}; new "
+              f"set-ups {sorted(new)}; memory {mem0} -> {mem1} bytes "
+              f"[{card}]")
+        for i, r in sorted(res.items()):
+            if isinstance(r, RequestFailure):
+                print(f"  req {i}: {r.status.value} ({r.reason})")
+                continue
+            same = np.array_equal(r.tokens, solo[i, temperature])
+            print(f"  req {i}: prompt {r.prompt_len} bucket {r.bucket} "
+                  f"tokens {len(r.tokens)} admitted at chunk "
+                  f"{r.admitted_chunk}: "
+                  f"{'equal to' if same else 'DIFFERS from'} solo")
+            if not same:
+                first = int(np.argmax(r.tokens != solo[i, temperature]))
+                print(f"    first differing token {first}: lane "
+                      f"{r.tokens[first]}, solo {solo[i, temperature][first]}")
+            require(same, f"i1 run {run} req {i}: lane differs from solo")
+        require(mem1 <= mem0, f"i1 run {run}: memory {mem0} -> {mem1}")
+        want = {engine.lm_slot_trace_key(model.cfg.name, I_SLOTS, I_MAX_LEN,
+                                         I_CHUNK, temperature)}
+        require(new <= want and svc.stats["compiles"] == len(new),
+                f"i1 run {run}: set-ups {new}, want at most {want}")
+        if run == 3:
+            require(not new, f"i1 run 3: set-ups after warm-up: {new}")
+        if cancel is not None:
+            require(isinstance(res[cancel], RequestFailure)
+                    and res[cancel].status is Status.CANCELLED,
+                    "i1: the cancelled request did not end CANCELLED")
+        if victim is not None:
+            require(len(inj.fired) == 1
+                    and not isinstance(res[victim], RequestFailure),
+                    "i1: the poisoned request was not retried to the end")
+        runs[run] = res
+    mates = [i for i in range(len(reqs)) if i not in (I_CANCEL, I_VICTIM)]
+    for i in mates:
+        require(np.array_equal(runs[1][i].tokens, runs[3][i].tokens),
+                f"i1: batch-mate {i} differs between runs 1 and 3")
+    print(f"i1: batch-mates {mates} bit-equal across runs 1 and 3")
+    i_decode_timing(torch, model, reqs, card)
+
+
+def i_decode_timing(torch, model, reqs, card):
+    """ms a chunk and a decode step of 4 busy lanes, then one profiled
+    chunk: idle share and device launches a step."""
+    from repro_torch.serve import engine
+
+    state = None
+    for lane in range(I_SLOTS):
+        p, _, seed = reqs[lane]
+        s_b = engine.prompt_bucket(len(p))
+        toks = torch.zeros((1, s_b), dtype=torch.long)
+        toks[0, :len(p)] = torch.as_tensor(p)
+        pre = engine._prefill_bucketed(model, toks, len(p),
+                                       max_len=I_MAX_LEN)
+        if state is None:
+            state = engine.init_lm_slot_state(pre, I_SLOTS)
+        state = engine.admit_lane(state, lane, pre, seed, I_MAX_LEN)
+    kw = dict(chunk_steps=I_CHUNK, temperature=0.0, max_len=I_MAX_LEN)
+    engine.decode_chunk_slots(model, state, **kw)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.decode_chunk_slots(model, state, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    print(f"i1 decode, {I_SLOTS} busy lanes: {ms:.3f} ms a chunk of "
+          f"{I_CHUNK}, {ms / I_CHUNK:.3f} ms a step, "
+          f"{I_SLOTS * I_CHUNK / ms * 1e3:.1f} tokens/s [{card}]")
+    profile_window(torch, f"i1 one decode chunk, {I_SLOTS} lanes of "
+                   f"gemma-7b [{card}]", I_CHUNK,
+                   lambda: engine.decode_chunk_slots(model, state, **kw))
+
+
+def i_ring(torch, card):
+    """i2: h2o-danube-1.8b at full width on the fallback path: a prompt
+    longer than the window (the prefill's roll), 32 decode steps, the
+    last 8 held to a full forward."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine
+    from repro_torch.serve.lm_service import LMService
+
+    cfg = get_config("h2o-danube-1.8b")
+    t0 = time.perf_counter()
+    model = tf.init_lm(cfg, seed=1)
+    torch.cuda.synchronize()
+    print(f"i2: {cfg.name}, {tf.count_params(model):,} parameters "
+          f"({cfg.param_dtype}), initialised in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    s, steps, cmp = I_RING["prompt"], I_RING["steps"], I_RING["compare"]
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, s)
+    svc = LMService(model)
+    require(not svc.slot_mode, "i2: a window config must not run in slot "
+            "mode")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = svc.generate(prompt, steps, seed=0).tokens
+    torch.cuda.synchronize()
+    print(f"i2 fallback generate: {s} + {steps} tokens in "
+          f"{time.perf_counter() - t0:.3f} s [{card}]")
+    st = engine.prefill(model, prompt[None], max_len=s + steps)
+    w = st.cache["layers"][0]["k"].shape[2]
+    logits, toks = [], []
+    for _ in range(steps):
+        tok = st.last_logits.argmax(-1)
+        toks.append(int(tok[0]))
+        st = engine.decode_step(model, tok[:, None], st)
+        logits.append(st.last_logits[0].float())
+    require(toks == served.tolist(), "i2: the service's fallback differs "
+            "from prefill + decode")
+    full, _ = model(torch.as_tensor(np.r_[prompt, toks][None],
+                                    device=model.device))
+    want = full[0, -cmp:].float()
+    got = torch.stack(logits[-cmp:])
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    print(f"i2: ring of {w} slots, index {s} -> {s + steps} (writes at "
+          f"slots {s % w}..{(s + steps - 1) % w}); last {cmp} decode "
+          f"logits vs a full forward over {s + steps} tokens: max |diff| "
+          f"/ max |logit| {err:.3e} (tol {I_RING_RTOL}); argmax equal at "
+          f"{int((got.argmax(-1) == want.argmax(-1)).sum())} of {cmp}")
+    require(err <= I_RING_RTOL, "i2: ring decode differs from the full "
+            "forward")
+    del model, st, full
+
+
+def i_replay(torch, card):
+    """i3: gemma-7b at full width, 2 layers, float32: prefill and greedy
+    decode on the card and on the CPU with the same weights."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine
+
+    cfg = dataclasses.replace(get_config("gemma-7b"),
+                              num_layers=I_REPLAY["layers"],
+                              param_dtype="float32", compute_dtype="float32")
+    card_model = tf.init_lm(cfg, seed=2)
+    cpu_model = tf.LM(cfg, device="cpu")
+    cpu_model.load_state_dict(card_model.state_dict())
+    print(f"i3: {cfg.name} x {cfg.num_layers} layers, "
+          f"{tf.count_params(cpu_model):,} float32 parameters on both")
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                               I_REPLAY["prompt"])
+    runs = {}
+    for name, model in (("card", card_model), ("cpu", cpu_model)):
+        t0 = time.perf_counter()
+        st = engine.prefill(model, prompt[None],
+                            max_len=len(prompt) + I_REPLAY["steps"])
+        logits, toks = [st.last_logits[0].cpu()], []
+        for _ in range(I_REPLAY["steps"]):
+            tok = st.last_logits.argmax(-1)
+            toks.append(int(tok[0]))
+            st = engine.decode_step(model, tok[:, None], st)
+            logits.append(st.last_logits[0].cpu())
+        runs[name] = (logits, toks)
+        print(f"  {name}: {time.perf_counter() - t0:.2f} s, tokens {toks}"
+              f"{f' [{card}]' if name == 'card' else ''}")
+    (lc, tc), (lh, th) = runs["card"], runs["cpu"]
+    for i in range(len(lc)):
+        tol = I_REPLAY_RTOL * lh[i].abs().max().item()
+        err = (lc[i] - lh[i]).abs().max().item()
+        print(f"  logits {i}: max |card - CPU| {err:.3e} (tol {tol:.3e})")
+        require(err <= tol, f"i3: logits {i} differ")
+        if i < len(tc) and tc[i] != th[i]:
+            top = torch.topk(lh[i], 2).values
+            margin = (top[0] - top[1]).item()
+            print(f"  token {i} differs: CPU top-2 margin {margin:.3e}")
+            require(margin <= tol, f"i3: token {i} differs beyond a tie")
+            break
+    del card_model
+
+
+def i_probe(torch, model, rec: PathRecorder, card):
+    """i4: a nu-SVM probe on gemma-7b's pooled logits (the JAX package's
+    ``examples/svm_probe_lm.py`` at full width), fit on the card, then
+    replayed on the CPU with the card's coordinates."""
+    import numpy as np
+
+    from repro_torch.core.svm import SaddleNuSVC
+
+    cfg = model.cfg
+    n, seq, nf = I_PROBE["n"], I_PROBE["seq"], I_PROBE["feats"]
+    rng = np.random.default_rng(0)
+    toks_a = rng.integers(0, cfg.vocab_size // 4, size=(n, seq))
+    toks_b = rng.integers(cfg.vocab_size // 2, cfg.vocab_size - 1,
+                          size=(n, seq))
+    toks = torch.as_tensor(np.vstack([toks_a, toks_b]), device=model.device)
+    y = np.r_[np.ones(n), -np.ones(n)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model(toks)
+    feats = logits.mean(dim=1)[:, :nf].float().cpu().numpy()
+    print(f"i4 features: {tuple(toks.shape)} tokens -> {feats.shape} in "
+          f"{time.perf_counter() - t0:.3f} s [{card}]")
+    del logits
+    require(np.isfinite(feats).all(), "i4: non-finite features")
+    perm = rng.permutation(2 * n)
+    tr, te = perm[:int(1.6 * n)], perm[int(1.6 * n):]
+    kw = dict(alpha=0.6, eps=1e-3, beta=0.1, num_iters=6000)
+    with rec:
+        t0 = time.perf_counter()
+        clf = SaddleNuSVC(device="cuda", **kw).fit(feats[tr], y[tr])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    sched = rec.take_schedule()
+    print(f"i4 probe fit: {secs:.3f} s for {kw['num_iters']} steps; train "
+          f"accuracy "
+          f"{clf.score(feats[tr], y[tr]):.4f}, test accuracy "
+          f"{clf.score(feats[te], y[te]):.4f} [{card}]")
+    require(np.isfinite(clf.w_).all(), "i4: non-finite probe")
+    t0 = time.perf_counter()
+    cpu = SaddleNuSVC(device="cpu", **kw).fit(feats[tr], y[tr],
+                                              idx_schedule=sched)
+    print(f"i4 probe replayed on the CPU with the card's coordinates: "
+          f"{time.perf_counter() - t0:.1f} s")
+    compare_fits("  card vs CPU, i4 probe", clf, cpu, history=True)
+
+
+def lm_path(torch, rec: PathRecorder):
+    """Path i: the LM serving side, counts reset just before and read
+    just after; the probe's fit is recorded.  Its models are freed
+    before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    card = card_line()
+    ops.launch_counts.clear()
+    t_path = time.perf_counter()
+    cfg = get_config("gemma-7b")
+    t0 = time.perf_counter()
+    model = tf.init_lm(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"i1: {cfg.name}, {tf.count_params(model):,} parameters "
+          f"({cfg.param_dtype}, {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB on the card), initialised in {time.perf_counter() - t0:.2f} "
+          f"s [{card}]")
+    i_slots(torch, model, card)
+    i_probe(torch, model, rec, card)
+    del model
+    torch.cuda.empty_cache()
+    i_ring(torch, card)
+    torch.cuda.empty_cache()
+    i_replay(torch, card)
+    torch.cuda.empty_cache()
+    counts = dict(ops.launch_counts)
+    print(f"path i launches {counts}; {time.perf_counter() - t_path:.1f} s")
+    rec.check_counts(counts, ("fwht",) + PACKED)
+
+
 def serial_vs_dist(torch, fits):
     """Each distributed fit refit serially on the coordinates it drew."""
     from repro_torch.core import saddle
@@ -3643,6 +4038,8 @@ def main() -> int:
     recs += collectives_path(torch, dist_fits, serve, recs[5], recs[6])
     recs.append(PathRecorder("h"))
     baselines_path(torch, recs[-1], dist_fits)
+    recs.append(PathRecorder("i"))
+    lm_path(torch, recs[-1])
     serial_vs_dist(torch, dist_fits)
     profiles(torch, dist_fits, serve)
     entries = check_kernels(torch, Timer(torch), recs)

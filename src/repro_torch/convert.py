@@ -5,7 +5,10 @@ The JAX package's NamedTuples (``Preprocessed``, ``SaddleState``,
 are numpy arrays (or anything ``numpy.asarray`` reads, such as JAX
 arrays) and python ints; :func:`to_port` builds the port's NamedTuple of
 the same field names on a chosen device, and :func:`to_numpy` goes back.
-This module imports neither JAX nor the JAX package.
+The LM side's weights cross by :func:`lm_params_from_jax` (the JAX
+package's ``init_lm`` pytree, numpy leaves, into the port's model) and
+:func:`lm_params_to_numpy` (back).  This module imports neither JAX nor
+the JAX package.
 """
 
 from __future__ import annotations
@@ -56,3 +59,91 @@ def to_numpy(state) -> dict:
     numpy arrays; python ints stay ints."""
     return {name: value if isinstance(value, int) else to_numpy_array(value)
             for name, value in state._asdict().items()}
+
+
+# ------------------------------------------------------------- LM weights
+_BLOCK = {"norm1": ("scale",), "mixer": ("wq", "wk", "wv", "wo"),
+          "norm2": ("scale",), "mlp": ("w_gate", "w_up", "w_down")}
+
+
+def _tensor_from_numpy(arr, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":          # ml_dtypes' bfloat16
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def _numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _block_leaves(block):
+    for part, names in _BLOCK.items():
+        for name in names:
+            yield part, name, getattr(getattr(block, part), name)
+
+
+def lm_params_from_jax(tree, cfg, device=None):
+    """The port's model for ``cfg`` with the weights of the JAX package's
+    ``init_lm`` pytree ``tree`` (leaves as numpy arrays, bfloat16 as
+    ``ml_dtypes.bfloat16``): the stacked period axis of
+    ``tree["decoder"]["blocks"]`` is unstacked into the per-layer blocks,
+    in the JAX package's layer order (head, periods, tail)."""
+    from repro_torch.models import transformer as tf
+
+    model = tf.LM(cfg, device)
+    dev = model.device
+    dec = tree["decoder"]
+    plan = tf.layer_plan(cfg)
+    layers = list(dec["head"])
+    for p in range(plan.n_periods):
+        layers += [{part: {name: leaf[p] for name, leaf in sub.items()}
+                    for part, sub in dec["blocks"][j].items()}
+                   for j in range(len(plan.period))]
+    layers += list(dec["tail"])
+    if len(layers) != len(model.layers):
+        raise ValueError(f"{len(layers)} layers in the tree, "
+                         f"{len(model.layers)} in {cfg.name}")
+    with torch.no_grad():
+        for block, src in zip(model.layers, layers):
+            for part, name, param in _block_leaves(block):
+                param.copy_(_tensor_from_numpy(src[part][name], dev))
+        model.final_norm.scale.copy_(
+            _tensor_from_numpy(dec["final_norm"]["scale"], dev))
+        model.embed.embedding.copy_(
+            _tensor_from_numpy(tree["embed"]["embedding"], dev))
+        if model.embed.lm_head is not None:
+            model.embed.lm_head.copy_(
+                _tensor_from_numpy(tree["embed"]["lm_head"], dev))
+    return model
+
+
+def lm_params_to_numpy(model) -> dict:
+    """The JAX package's ``init_lm`` pytree of ``model``'s weights, as
+    numpy arrays (the period axis stacked again)."""
+    from repro_torch.models import transformer as tf
+
+    plan = tf.layer_plan(model.cfg)
+    blocks = [{part: {name: _numpy_from_tensor(getattr(
+        getattr(b, part), name)) for name in names}
+        for part, names in _BLOCK.items()} for b in model.layers]
+    nh, per = len(plan.head), len(plan.period)
+    body = blocks[nh:nh + plan.n_periods * per]
+    stacked = [{part: {name: np.stack([body[p * per + j][part][name]
+                                       for p in range(plan.n_periods)])
+                       for name in names}
+                for part, names in _BLOCK.items()} if plan.n_periods
+               else None for j in range(per)]
+    embed = {"embedding": _numpy_from_tensor(model.embed.embedding)}
+    if model.embed.lm_head is not None:
+        embed["lm_head"] = _numpy_from_tensor(model.embed.lm_head)
+    return {"embed": embed, "decoder": {
+        "head": blocks[:nh], "blocks": stacked,
+        "tail": blocks[nh + plan.n_periods * per:],
+        "final_norm": {"scale": _numpy_from_tensor(
+            model.final_norm.scale)}}}

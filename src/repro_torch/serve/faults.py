@@ -29,11 +29,10 @@ one seed gives the same faults in both packages.
   re-poisoned: the retry models a transient failure recovering, which
   is exactly what the bounded-retry path needs to exercise.
 
-* :func:`poison_slot_state` -- writes NaN into one solver lane, in
-  place, on the current stream.  It touches no ``engine.trace_counts``
-  key, so the no-new-set-up-after-warm-up invariant holds under chaos.
-  (The JAX package's ``poison_lane_logits`` belongs to the LM service,
-  which is not ported yet.)
+* :func:`poison_slot_state` / :func:`poison_lane_logits` -- write NaN
+  into one solver lane / one LM decode lane, in place, on the current
+  stream.  They touch no ``trace_counts`` key, so the
+  no-new-set-up-after-warm-up invariant holds under chaos.
 """
 
 from __future__ import annotations
@@ -130,4 +129,12 @@ def poison_slot_state(state, slot: int):
     finite-health flag trips on it."""
     state.w[slot] = float("nan")
     state.u[slot] = float("nan")
+    return state
+
+
+def poison_lane_logits(state, lane: int):
+    """Overwrite one LM lane's next-token logits with NaN, in place;
+    returns ``state``.  The decode chunk's finite-health flag trips on
+    it before the lane's first sampled token is kept."""
+    state.last_logits[lane] = float("nan")
     return state

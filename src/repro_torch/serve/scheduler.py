@@ -4,8 +4,8 @@ A copy of ``repro.serve.scheduler`` (standard library only), kept in the
 port so that the port imports nothing of the JAX package.
 
 Both serving surfaces -- the SVM fit endpoint
-(:mod:`repro_torch.serve.solver_service`) and the JAX package's LM decode
-loop (not ported yet) -- face the same scheduling problem:
+(:mod:`repro_torch.serve.solver_service`) and the LM decode loop
+(:mod:`repro_torch.serve.lm_service`) -- face the same scheduling problem:
 requests of varying shapes arrive over time, each chunk set-up
 serves exactly one shape GROUP (a solver bucket, one decode batch), a
 group owns a fixed table of reusable slot LANES, and the host must

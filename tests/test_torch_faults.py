@@ -3,7 +3,7 @@ fit service's status contract) on the CPU: deterministic fault plans (the
 JAX package's, from the same seed), the scheduler copy, slot quarantine
 with bit-for-bit batch-mate invariance, bounded retry with backoff
 ordering, deadline shedding, cancellation, intake validation and the
-status API.  The LM side is not ported."""
+status API.  The LM service's fault paths are in test_torch_lm_serve.py."""
 
 import ast
 import inspect
