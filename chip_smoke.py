@@ -8,7 +8,7 @@ no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- nine paths, each driven with the launch counts reset
+  2. paths      -- ten paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -159,6 +159,30 @@ no CPU fallback):
           8 greedy decode steps, logits within 1e-4 of max |logit| and the
           same tokens (a differing token only where the CPU's top-2 margin
           is under that tolerance: a tie).
+       j. DeepSeek-V2's MLA and MoE in the LM service, its models random-
+          initialised on the card from seeds and freed before the next
+          phase; no kernel is on this path (the counts must stay empty).
+          j1: deepseek-v2-lite-16b at full width (27 layers, d 2,048, 16
+          heads, nope 128 / rope 64 / v 128, kv-LoRA 512, 64 routed
+          experts top-6 and 2 shared of 1,408, layer 0 dense at 10,944,
+          vocab 102,400; 15.71 B bfloat16 parameters) in
+          ``LMService(num_slots=12, chunk_steps=8, max_len=512)``: 16
+          decode rows, more than one row tile.  16 staggered requests
+          (prompts of 5-250 tokens, 16-48 tokens each; six up front, one
+          more after each step), one greedy run with one lane poisoned at
+          its chunk 2 and retried: every request completes equal to its
+          solo ``engine.generate`` at the service's rows and cache
+          capacity, token for token; no set-up but the decode chunk's at
+          its first chunk; device memory back to its level after the
+          drain.  Then ms a chunk and a step of 12 busy lanes, one
+          profiled chunk (launches, idle share and device time a step)
+          beside the weight-read bounds of a step (every expert, as the
+          slot-dense expert product reads them, and one token's six).
+          j2: a 24-token prompt and 8 absorbed decode steps against the
+          expanded forward over the 32 tokens (one token a routing group,
+          no capacity drop), bfloat16, within 5e-2 of max |logit|.  j3:
+          deepseek-v2-lite-16b at full width with 2 layers (one dense,
+          one MoE) in float32 on the card and the CPU, as i3.
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -2614,9 +2638,10 @@ def i_requests(cfg):
             for s, n, seed in I_REQS]
 
 
-def i_drive(torch, svc, reqs, cancel=None) -> tuple:
-    """Two requests up front, one more after each step (as the JAX
-    package's ``examples/serve_lm.py``), then a drain; ``cancel`` (an
+def i_drive(torch, svc, reqs, cancel=None, upfront: int = I_UPFRONT
+            ) -> tuple:
+    """``upfront`` requests up front, one more after each step (as the
+    JAX package's ``examples/serve_lm.py``), then a drain; ``cancel`` (an
     index) is cancelled once it runs.  Returns (results by index, wall
     seconds)."""
     from repro_torch.serve.scheduler import Status
@@ -2624,8 +2649,8 @@ def i_drive(torch, svc, reqs, cancel=None) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rids = [svc.submit(p, n, seed=s, max_retries=1)
-            for p, n, s in reqs[:I_UPFRONT]]
-    for p, n, s in reqs[I_UPFRONT:]:
+            for p, n, s in reqs[:upfront]]
+    for p, n, s in reqs[upfront:]:
         svc.step()
         rids.append(svc.submit(p, n, seed=s, max_retries=1))
         if (cancel is not None and len(rids) > cancel
@@ -2728,13 +2753,15 @@ def i_slots(torch, model, card):
     i_decode_timing(torch, model, reqs, card)
 
 
-def i_decode_timing(torch, model, reqs, card):
-    """ms a chunk and a decode step of 4 busy lanes, then one profiled
-    chunk: idle share and device launches a step."""
+def i_decode_timing(torch, model, reqs, card, slots: int = I_SLOTS,
+                    label: str = "i1"):
+    """ms a chunk and a decode step of ``slots`` busy lanes, then one
+    profiled chunk: idle share, device launches and device time a
+    step."""
     from repro_torch.serve import engine
 
     state = None
-    for lane in range(I_SLOTS):
+    for lane in range(slots):
         p, _, seed = reqs[lane]
         s_b = engine.prompt_bucket(len(p))
         toks = torch.zeros((1, s_b), dtype=torch.long)
@@ -2742,7 +2769,7 @@ def i_decode_timing(torch, model, reqs, card):
         pre = engine._prefill_bucketed(model, toks, len(p),
                                        max_len=I_MAX_LEN)
         if state is None:
-            state = engine.init_lm_slot_state(pre, I_SLOTS)
+            state = engine.init_lm_slot_state(pre, slots)
         state = engine.admit_lane(state, lane, pre, seed, I_MAX_LEN)
     kw = dict(chunk_steps=I_CHUNK, temperature=0.0, max_len=I_MAX_LEN)
     engine.decode_chunk_slots(model, state, **kw)
@@ -2754,11 +2781,11 @@ def i_decode_timing(torch, model, reqs, card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     ms = statistics.median(times) * 1e3
-    print(f"i1 decode, {I_SLOTS} busy lanes: {ms:.3f} ms a chunk of "
+    print(f"{label} decode, {slots} busy lanes: {ms:.3f} ms a chunk of "
           f"{I_CHUNK}, {ms / I_CHUNK:.3f} ms a step, "
-          f"{I_SLOTS * I_CHUNK / ms * 1e3:.1f} tokens/s [{card}]")
-    profile_window(torch, f"i1 one decode chunk, {I_SLOTS} lanes of "
-                   f"gemma-7b [{card}]", I_CHUNK,
+          f"{slots * I_CHUNK / ms * 1e3:.1f} tokens/s [{card}]")
+    profile_window(torch, f"{label} one decode chunk, {slots} lanes of "
+                   f"{model.cfg.name} [{card}]", I_CHUNK,
                    lambda: engine.decode_chunk_slots(model, state, **kw))
 
 
@@ -2816,9 +2843,9 @@ def i_ring(torch, card):
     del model, st, full
 
 
-def i_replay(torch, card):
-    """i3: gemma-7b at full width, 2 layers, float32: prefill and greedy
-    decode on the card and on the CPU with the same weights."""
+def i_replay(torch, card, arch: str = "gemma-7b", label: str = "i3"):
+    """i3 (j3): ``arch`` at full width, 2 layers, float32: prefill and
+    greedy decode on the card and on the CPU with the same weights."""
     import dataclasses
 
     import numpy as np
@@ -2827,14 +2854,15 @@ def i_replay(torch, card):
     from repro_torch.models import transformer as tf
     from repro_torch.serve import engine
 
-    cfg = dataclasses.replace(get_config("gemma-7b"),
+    cfg = dataclasses.replace(get_config(arch),
                               num_layers=I_REPLAY["layers"],
                               param_dtype="float32", compute_dtype="float32")
     card_model = tf.init_lm(cfg, seed=2)
     cpu_model = tf.LM(cfg, device="cpu")
     cpu_model.load_state_dict(card_model.state_dict())
-    print(f"i3: {cfg.name} x {cfg.num_layers} layers, "
-          f"{tf.count_params(cpu_model):,} float32 parameters on both")
+    print(f"{label}: {cfg.name} x {cfg.num_layers} layers (MLPs "
+          f"{tf.layer_mlps(cfg)}), {tf.count_params(cpu_model):,} float32 "
+          f"parameters on both")
     prompt = np.random.default_rng(3).integers(0, cfg.vocab_size,
                                                I_REPLAY["prompt"])
     runs = {}
@@ -2856,12 +2884,13 @@ def i_replay(torch, card):
         tol = I_REPLAY_RTOL * lh[i].abs().max().item()
         err = (lc[i] - lh[i]).abs().max().item()
         print(f"  logits {i}: max |card - CPU| {err:.3e} (tol {tol:.3e})")
-        require(err <= tol, f"i3: logits {i} differ")
+        require(err <= tol, f"{label}: logits {i} differ")
         if i < len(tc) and tc[i] != th[i]:
             top = torch.topk(lh[i], 2).values
             margin = (top[0] - top[1]).item()
             print(f"  token {i} differs: CPU top-2 margin {margin:.3e}")
-            require(margin <= tol, f"i3: token {i} differs beyond a tie")
+            require(margin <= tol, f"{label}: token {i} differs beyond a "
+                    "tie")
             break
     del card_model
 
@@ -2942,6 +2971,307 @@ def lm_path(torch, rec: PathRecorder):
     counts = dict(ops.launch_counts)
     print(f"path i launches {counts}; {time.perf_counter() - t_path:.1f} s")
     rec.check_counts(counts, ("fwht",) + PACKED)
+
+
+# ---------------------------------------------------------------- path j
+J_ARCH = "deepseek-v2-lite-16b"
+J_SLOTS = 12           # 16 decode rows: more than one row tile
+# prompt length, tokens, seed: buckets 8 to 256
+J_REQS = [(5, 16, 21), (250, 40, 22), (17, 48, 23), (60, 24, 24),
+          (9, 32, 25), (130, 16, 26), (33, 40, 27), (200, 24, 28),
+          (12, 48, 29), (90, 32, 30), (7, 20, 31), (240, 36, 32),
+          (40, 28, 33), (150, 44, 34), (20, 18, 35), (70, 30, 36)]
+J_UPFRONT = 6
+J_VICTIM = 3           # poisoned at its chunk 2, retried
+# j2: 24 + 8 = 32 tokens, one token a routing group in both runs (no
+# capacity drop); bfloat16 as i2, so held at i2's 5e-2 of max |logit|
+# where the routing agrees; and float32 at 4 layers, held at the JAX
+# package's decode-consistency bound (tests/test_decode_consistency.py)
+J_ABSORB = dict(prompt=24, steps=8, layers_f32=4)
+J_ABSORB_RTOL_F32 = 1e-4
+
+
+def j_requests(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(2025)
+    return [(rng.integers(0, cfg.vocab_size, s), n, seed)
+            for s, n, seed in J_REQS]
+
+
+def j_weight_bounds(model) -> tuple:
+    """Bytes a decode step must read (every weight but the embedding
+    table, which decode gathers by row): all experts of every MoE layer,
+    as the slot-dense expert product reads them, and one token's routed
+    experts only.  Returns (all bytes, routed bytes)."""
+    from repro_torch.models.moe import MoE
+
+    cfg = model.cfg
+    every = sum(p.numel() * p.element_size() for p in model.parameters())
+    table = model.embed.embedding
+    every -= table.numel() * table.element_size()
+    experts = sum(w.numel() * w.element_size() for m in model.modules()
+                  if isinstance(m, MoE)
+                  for w in (m.expert_gate, m.expert_up, m.expert_down))
+    routed = every - experts * (1 - cfg.moe_top_k / cfg.moe_num_experts)
+    return every, routed
+
+
+def j_slots(torch, model, card):
+    """j1: deepseek-v2-lite-16b at full width in a 12-lane service (16
+    rows), one greedy run of 16 staggered requests with a lane poisoned at
+    its chunk 2 and retried, every completed request held to its solo
+    ``generate`` at the service's rows and cache capacity."""
+    import numpy as np
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine, faults
+    from repro_torch.serve.lm_service import LMService
+    from repro_torch.serve.scheduler import RequestFailure
+
+    reqs = j_requests(model.cfg)
+    rows = tf.decode_rows(J_SLOTS)
+    solo = {}
+    t0 = time.perf_counter()
+    for i, (p, n, s) in enumerate(reqs):
+        solo[i] = engine.generate(model, p[None], steps=n, seed=s,
+                                  max_len=I_MAX_LEN,
+                                  rows=rows)[0].cpu().numpy()
+    torch.cuda.synchronize()
+    n_solo = sum(n for _, n, _ in reqs)
+    print(f"j1 solo generates ({rows} rows): {n_solo} tokens in "
+          f"{time.perf_counter() - t0:.3f} s [{card}]")
+    inj = faults.FaultInjector(faults.FaultPlan(seed=0, faults=(
+        faults.Fault("poison", rid=J_VICTIM, at_chunk=2),)))
+    svc = LMService(model, num_slots=J_SLOTS, chunk_steps=I_CHUNK,
+                    max_len=I_MAX_LEN, fault_injector=inj)
+    require(svc.slot_mode, "j1: deepseek-v2-lite-16b must run in slot mode")
+    require(svc.rows == rows, f"j1: the service runs {svc.rows} rows")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    before = set(engine.trace_counts)
+    res, wall = i_drive(torch, svc, reqs, upfront=J_UPFRONT)
+    mem1 = torch.cuda.memory_allocated()
+    new = set(engine.trace_counts) - before
+    done = {i: r for i, r in res.items()
+            if not isinstance(r, RequestFailure)}
+    toks = sum(len(r.tokens) for r in done.values())
+    print(f"j1 run (greedy, request {J_VICTIM} poisoned at its chunk 2): "
+          f"{len(done)} of {len(reqs)} completed, {toks} tokens in "
+          f"{wall:.3f} s: {toks / wall:.1f} tokens/s; stats {svc.stats}; "
+          f"new set-ups {sorted(new)}; memory {mem0} -> {mem1} bytes "
+          f"[{card}]")
+    for i, r in sorted(res.items()):
+        if isinstance(r, RequestFailure):
+            print(f"  req {i}: {r.status.value} ({r.reason})")
+            continue
+        same = np.array_equal(r.tokens, solo[i])
+        print(f"  req {i}: prompt {r.prompt_len} bucket {r.bucket} tokens "
+              f"{len(r.tokens)} admitted at chunk {r.admitted_chunk}: "
+              f"{'equal to' if same else 'DIFFERS from'} solo")
+        if not same:
+            first = int(np.argmax(r.tokens != solo[i]))
+            print(f"    first differing token {first}: lane "
+                  f"{r.tokens[first]}, solo {solo[i][first]}")
+    require(len(done) == len(reqs), "j1: a request did not complete")
+    require(all(np.array_equal(r.tokens, solo[i]) for i, r in done.items()),
+            "j1: a lane differs from its solo generate")
+    require(len(inj.fired) == 1, "j1: the poison did not fire once")
+    require(mem1 <= mem0, f"j1: memory {mem0} -> {mem1}")
+    # the solo references set up every bucket's prefill: the service sets
+    # up its decode chunk once, at its first chunk, and nothing after it
+    want = {engine.lm_slot_trace_key(model.cfg.name, J_SLOTS, I_MAX_LEN,
+                                     I_CHUNK, 0.0)}
+    require(new <= want and svc.stats["compiles"] == len(new),
+            f"j1: set-ups {new}, want at most {want}")
+    i_decode_timing(torch, model, reqs, card, slots=J_SLOTS, label="j1")
+    every, routed = j_weight_bounds(model)
+    print(f"j1 weight-read bound a decode step: every expert "
+          f"{every / 1e9:.2f} GB -> {every / HBM_BYTES_PER_S * 1e3:.2f} ms; "
+          f"one token's {model.cfg.moe_top_k} routed experts "
+          f"{routed / 1e9:.2f} GB -> {routed / HBM_BYTES_PER_S * 1e3:.2f} ms "
+          f"(at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+
+
+def j_decode_vs_forward(torch, model, prompt, steps: int,
+                        cache_dtype=None, between=None):
+    """Prefill ``prompt``, decode ``steps`` greedy tokens (absorbed path),
+    then one causal forward over the whole sequence (expanded path).
+    ``between()`` runs after the prefill and after each decode step.
+    Returns the decode logits and the forward's at the same positions,
+    (steps, V) float32 each, and the sequence (1, S + steps)."""
+    import numpy as np
+
+    from repro_torch.serve import engine
+
+    kw = {} if cache_dtype is None else {"cache_dtype": cache_dtype}
+    st = engine.prefill(model, prompt[None], max_len=len(prompt) + steps,
+                        **kw)
+    between = between or (lambda: None)
+    between()
+    logits, toks = [], []
+    for _ in range(steps):
+        tok = st.last_logits.argmax(-1)
+        toks.append(int(tok[0]))
+        st = engine.decode_step(model, tok[:, None], st)
+        logits.append(st.last_logits[0].float())
+        between()
+    seq = torch.as_tensor(np.r_[prompt, toks][None], device=model.device)
+    full, _ = model(seq)
+    return torch.stack(logits), full[0, -steps:].float(), seq
+
+
+def j_route_hooks(torch, model, log: list) -> list:
+    """Forward hooks on every MoE layer appending, per call, each token's
+    top-k experts (N, k) and the router's margin between its k-th and
+    (k+1)-th probability (N,), recomputed from the layer's input as the
+    layer computes them (one token a routing group: decode and inputs of
+    up to 32 tokens).  Returns the hook handles."""
+    from repro_torch.models.moe import MoE, top_k
+
+    def hook(mod, args, _out):
+        h = args[0]
+        probs = torch.softmax(h.reshape(-1, 1, h.shape[-1]).float()
+                              @ mod.router, dim=-1)[:, 0]
+        vals, idx = top_k(probs, mod.cfg.moe_top_k + 1)
+        log.append((idx[:, :-1], vals[:, -2] - vals[:, -1]))
+
+    return [m.register_forward_hook(hook) for m in model.modules()
+            if isinstance(m, MoE)]
+
+
+def j_pinned_top_k(routes):
+    """A stand-in for ``moe.top_k`` that routes the n-th MoE call's tokens
+    to ``routes[n]`` (N, k): the experts another run chose, weighted by
+    this run's router probabilities."""
+    calls = iter(routes)
+
+    def pinned(probs, k):
+        idx = next(calls).reshape(probs.shape[:-1] + (k,))
+        return probs.gather(-1, idx), idx
+
+    return pinned
+
+
+def j_absorbed(torch, model, card):
+    """j2: the absorbed decode against the expanded forward at full width.
+
+    bfloat16, the j1 model: a 24-token prompt and 8 greedy steps, their
+    logits against one causal forward over the 32 tokens.  A token's MoE
+    routing is a discontinuous function of its hidden state, and bfloat16
+    rounds the two paths' states apart (~1e-2): where a router's k-th and
+    (k+1)-th probabilities nearly tie (random router weights give 64
+    near-equal probabilities), the two runs send a token to different
+    experts, in the JAX package as here.  So the forward runs twice: free
+    (each step's error and routing differences printed) and with every
+    MoE layer pinned to the experts the prefill and the decode chose
+    (``j_pinned_top_k``), which compares the two attention paths and the
+    rest of the stack alone: every step within 5e-2 of max |logit|.  Then
+    float32 with the model cut to 4 layers, free: every step within
+    1e-4."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    cfg = model.cfg
+    s, steps = J_ABSORB["prompt"], J_ABSORB["steps"]
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, s)
+    log, calls = [], []
+    handles = j_route_hooks(torch, model, log)
+    try:
+        got, free, seq = j_decode_vs_forward(
+            torch, model, prompt, steps,
+            between=lambda: (calls.append(list(log)), log.clear()))
+    finally:
+        for h in handles:
+            h.remove()
+    # calls[0]: the prefill's layers; calls[1 + j]: decode step j's (row
+    # 0 the real one); log: the free forward's
+    layers = range(len(log))
+    routes = [torch.cat([calls[0][i][0]]
+                        + [calls[1 + j][i][0][:1] for j in range(steps)])
+              for i in layers]
+    top_k = moe.top_k
+    moe.top_k = j_pinned_top_k(routes)
+    try:
+        pinned, _ = model(seq)
+    finally:
+        moe.top_k = top_k
+    pinned = pinned[0, -steps:].float()
+    scale = free.abs().max()
+    err_free = ((got - free).abs().max(-1).values / scale).cpu().numpy()
+    err = ((got - pinned).abs().max(-1).values / scale).cpu().numpy()
+    for j in range(steps):
+        flips = [(i, float(log[i][1][s + j])) for i in layers
+                 if not torch.equal(routes[i][s + j], log[i][0][s + j])]
+        print(f"  j2 step {j}: vs the free forward {err_free[j]:.3e}, "
+              + (f"routing differs in MoE layers {[f[0] for f in flips]} "
+                 f"(the forward's k-th vs (k+1)-th router margin down to "
+                 f"{min(f[1] for f in flips):.2e})" if flips else
+                 "the same routing in every MoE layer")
+              + f"; vs the pinned forward {err[j]:.3e}")
+    prompt_flips = sum(not torch.equal(routes[i][:s], log[i][0][:s])
+                       for i in layers)
+    print(f"j2: {s}-token prompt + {steps} absorbed decode steps vs the "
+          f"expanded forward over {s + steps} tokens ({cfg.param_dtype}): "
+          f"free max {err_free.max():.3e}, argmax equal at "
+          f"{int((got.argmax(-1) == free.argmax(-1)).sum())} of {steps}; "
+          f"routing pinned max {err.max():.3e} (tol {I_RING_RTOL}), argmax "
+          f"equal at {int((got.argmax(-1) == pinned.argmax(-1)).sum())}; "
+          f"{prompt_flips} MoE layers route some prompt token differently "
+          f"in the prefill and the free forward [{card}]")
+    require(err.max() <= I_RING_RTOL, "j2: absorbed decode differs from "
+            "the expanded forward with the same routing")
+
+    cfg32 = dataclasses.replace(get_config(J_ARCH),
+                                num_layers=J_ABSORB["layers_f32"],
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    m32 = tf.init_lm(cfg32, seed=4)
+    got, want, _ = j_decode_vs_forward(torch, m32, prompt, steps,
+                                       cache_dtype=torch.float32)
+    err32 = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"j2: the same in float32, {cfg32.num_layers} layers (MLPs "
+          f"{tf.layer_mlps(cfg32)}), float32 cache, free: max |diff| / max "
+          f"|logit| {err32:.3e} over the {steps} steps (tol "
+          f"{J_ABSORB_RTOL_F32}) [{card}]")
+    require(err32 <= J_ABSORB_RTOL_F32, "j2: float32 absorbed decode "
+            "differs from the expanded forward")
+    del m32
+
+
+def deepseek_path(torch):
+    """Path j: deepseek-v2-lite-16b's MLA and MoE in the LM service,
+    counts reset just before and read just after (the path reaches no
+    kernel).  Its models are freed before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    card = card_line()
+    ops.launch_counts.clear()
+    t_path = time.perf_counter()
+    cfg = get_config(J_ARCH)
+    t0 = time.perf_counter()
+    model = tf.init_lm(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"j1: {cfg.name}, {tf.count_params(model):,} parameters "
+          f"({cfg.param_dtype}, {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB on the card), initialised in {time.perf_counter() - t0:.2f} "
+          f"s [{card}]")
+    j_slots(torch, model, card)
+    j_absorbed(torch, model, card)
+    del model
+    torch.cuda.empty_cache()
+    i_replay(torch, card, J_ARCH, "j3")
+    torch.cuda.empty_cache()
+    counts = dict(ops.launch_counts)
+    print(f"path j launches {counts}; {time.perf_counter() - t_path:.1f} s")
+    require(not counts, "path j: it reaches no kernel, yet one was launched")
 
 
 def serial_vs_dist(torch, fits):
@@ -3856,7 +4186,7 @@ def profile_window(torch, label, steps, fn):
     print(f"profile ({steps} steps, {label}): wall {wall:.4f} s, "
           f"device busy {busy:.4f} s, idle share {1 - busy / wall:.4f}, "
           f"{wall / steps * 1e3:.4f} ms/step, {launches / steps:.1f} device "
-          f"launches/step")
+          f"launches/step, {busy / steps * 1e3:.4f} device ms/step")
     for dev_us, key, count in rows[:12]:
         print(f"  {dev_us / 1e3:10.3f} ms  {count:7d}x  {key[:90]}")
 
@@ -4040,6 +4370,7 @@ def main() -> int:
     baselines_path(torch, recs[-1], dist_fits)
     recs.append(PathRecorder("i"))
     lm_path(torch, recs[-1])
+    deepseek_path(torch)
     serial_vs_dist(torch, dist_fits)
     profiles(torch, dist_fits, serve)
     entries = check_kernels(torch, Timer(torch), recs)

@@ -62,8 +62,9 @@ def to_numpy(state) -> dict:
 
 
 # ------------------------------------------------------------- LM weights
-_BLOCK = {"norm1": ("scale",), "mixer": ("wq", "wk", "wv", "wo"),
-          "norm2": ("scale",), "mlp": ("w_gate", "w_up", "w_down")}
+# A block's parameters are named as the JAX package's block pytree
+# ("mixer.wq", "mixer.kv_norm.scale", "mlp.shared.w_gate", ...): the dotted
+# name is the path of the leaf.
 
 
 def _tensor_from_numpy(arr, device) -> torch.Tensor:
@@ -82,10 +83,31 @@ def _numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _block_leaves(block):
-    for part, names in _BLOCK.items():
-        for name in names:
-            yield part, name, getattr(getattr(block, part), name)
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, leaf) of a nested dict."""
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            yield from _leaves(sub, f"{prefix}{key}.")
+        else:
+            yield prefix + key, sub
+
+
+def _tree_map(fn, *trees):
+    return {key: (_tree_map(fn, *(t[key] for t in trees))
+                  if isinstance(sub, dict) else fn(*(t[key] for t in trees)))
+            for key, sub in trees[0].items()}
+
+
+def _block_tree(block) -> dict:
+    """A block's weights as the JAX package's nested dict of numpy."""
+    tree: dict = {}
+    for name, param in block.named_parameters():
+        *parts, leaf = name.split(".")
+        node = tree
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[leaf] = _numpy_from_tensor(param)
+    return tree
 
 
 def lm_params_from_jax(tree, cfg, device=None):
@@ -93,7 +115,8 @@ def lm_params_from_jax(tree, cfg, device=None):
     ``init_lm`` pytree ``tree`` (leaves as numpy arrays, bfloat16 as
     ``ml_dtypes.bfloat16``): the stacked period axis of
     ``tree["decoder"]["blocks"]`` is unstacked into the per-layer blocks,
-    in the JAX package's layer order (head, periods, tail)."""
+    in the JAX package's layer order (head, periods, tail).  Every leaf of
+    a block must have its parameter, and every parameter its leaf."""
     from repro_torch.models import transformer as tf
 
     model = tf.LM(cfg, device)
@@ -102,17 +125,22 @@ def lm_params_from_jax(tree, cfg, device=None):
     plan = tf.layer_plan(cfg)
     layers = list(dec["head"])
     for p in range(plan.n_periods):
-        layers += [{part: {name: leaf[p] for name, leaf in sub.items()}
-                    for part, sub in dec["blocks"][j].items()}
+        layers += [_tree_map(lambda leaf, p=p: leaf[p], dec["blocks"][j])
                    for j in range(len(plan.period))]
     layers += list(dec["tail"])
     if len(layers) != len(model.layers):
         raise ValueError(f"{len(layers)} layers in the tree, "
                          f"{len(model.layers)} in {cfg.name}")
     with torch.no_grad():
-        for block, src in zip(model.layers, layers):
-            for part, name, param in _block_leaves(block):
-                param.copy_(_tensor_from_numpy(src[part][name], dev))
+        for i, (block, src) in enumerate(zip(model.layers, layers)):
+            leaves = dict(_leaves(src))
+            params = dict(block.named_parameters())
+            if leaves.keys() != params.keys():
+                raise ValueError(
+                    f"layer {i}: leaves {sorted(leaves)} in the tree, "
+                    f"parameters {sorted(params)} in {cfg.name}")
+            for name, param in params.items():
+                param.copy_(_tensor_from_numpy(leaves[name], dev))
         model.final_norm.scale.copy_(
             _tensor_from_numpy(dec["final_norm"]["scale"], dev))
         model.embed.embedding.copy_(
@@ -129,16 +157,12 @@ def lm_params_to_numpy(model) -> dict:
     from repro_torch.models import transformer as tf
 
     plan = tf.layer_plan(model.cfg)
-    blocks = [{part: {name: _numpy_from_tensor(getattr(
-        getattr(b, part), name)) for name in names}
-        for part, names in _BLOCK.items()} for b in model.layers]
+    blocks = [_block_tree(b) for b in model.layers]
     nh, per = len(plan.head), len(plan.period)
     body = blocks[nh:nh + plan.n_periods * per]
-    stacked = [{part: {name: np.stack([body[p * per + j][part][name]
-                                       for p in range(plan.n_periods)])
-                       for name in names}
-                for part, names in _BLOCK.items()} if plan.n_periods
-               else None for j in range(per)]
+    stacked = [_tree_map(lambda *xs: np.stack(xs),
+                         *body[j::per]) if plan.n_periods else None
+               for j in range(per)]
     embed = {"embedding": _numpy_from_tensor(model.embed.embedding)}
     if model.embed.lm_head is not None:
         embed["lm_head"] = _numpy_from_tensor(model.embed.lm_head)

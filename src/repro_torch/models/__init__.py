@@ -1,4 +1,5 @@
-"""The port's model zoo: the dense GQA decoders of ``repro.models``
-(gemma-7b and its window variant, h2o-danube-1.8b, chatglm3-6b,
-deepseek-67b) as torch modules.  Other families are refused when a model
-is built (``transformer.check_supported``)."""
+"""The port's model zoo: the attention decoders of ``repro.models`` as
+torch modules, GQA (gemma-7b and its window variant, h2o-danube-1.8b,
+chatglm3-6b, deepseek-67b) and MLA with MoE (deepseek-v2-lite-16b,
+deepseek-v2-236b).  Other families are refused when a model is built
+(``transformer.check_supported``)."""

@@ -1,22 +1,28 @@
-"""Model assembly for the dense decoder-only families: the counterpart of
+"""Model assembly for the decoder-only attention families (GQA or MLA
+attention, dense or MoE MLPs): the counterpart of
 ``repro.models.transformer``.
 
 The JAX package scans a stacked period of blocks; here the stack is an
 ``nn.ModuleList`` of per-layer ``Block``s in the same order (head, the
 periods, tail), so each layer has its counterpart and
 ``repro_torch.convert.lm_params_from_jax`` unstacks the period axis into
-it.  What the port cannot run yet (MLA, MoE, the recurrent blocks, the
-encoder-decoder, vision inputs, M-RoPE and unrotated attention) is
-refused when a model is built, never run as something that differs from
-the JAX model.
+it.  ``first_dense_layers`` head layers take a dense GLU of ``d_ff``, the
+others ``cfg.mlp_kind`` (DeepSeek-V2: layer 0 dense, the rest MoE).  What
+the port cannot run yet (the recurrent blocks, the encoder-decoder,
+vision inputs, M-RoPE and unrotated attention) is refused when a model
+is built, never run as something that differs from the JAX model.
 
-Decode (one token a row against a cache) runs on a row-padded batch:
-``decode_rows(B)`` rows, the rows after B zero-token padding.  With a
-batch of up to ``DECODE_ROW_TILE`` rows every product, norm and softmax
-then has the same shape for one row alone and for S lanes, so each lane
-of ``serve.engine.decode_chunk_slots`` computes the bits of a solo
-``generate``; attention's cache products run row by row
-(``attention.decode_attention``).
+Decode (one token a row against a cache) runs on a row-padded batch of
+``rows`` rows (default ``decode_rows(B)``, a multiple of
+``DECODE_ROW_TILE``), the rows after B zero-token padding.  Every
+product, norm and softmax then has the shape of the padded batch whatever
+the number of real rows, so a row's bits depend only on its own inputs
+and the row count: each of the S lanes of
+``serve.engine.decode_chunk_slots`` computes the bits of a solo
+``generate`` run at the same ``rows`` (``LMService.rows``), for any S.
+Attention's cache products run row by row
+(``attention.decode_attention``, ``absorbed_attention``), and the MoE
+routes each row as its own group.
 """
 
 from __future__ import annotations
@@ -30,10 +36,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (GLUMLP, Embedding, RMSNorm,
                                       rope_tables)
+from repro_torch.models.moe import MoE
 
 DECODE_ROW_TILE = 8
 
-_ROADMAP = "ROADMAP.md queue 1 item 6"
+_ROADMAP = "ROADMAP.md queue 1 items 4-5"
 
 
 def decode_rows(batch: int) -> int:
@@ -45,9 +52,9 @@ def decode_rows(batch: int) -> int:
 def check_supported(cfg) -> None:
     """Raise NotImplementedError for a config the port cannot run yet."""
     why = []
-    if cfg.attention_kind != "gqa":
+    if cfg.attention_kind not in ("gqa", "mla"):
         why.append(f"attention_kind={cfg.attention_kind!r}")
-    if cfg.mlp_kind not in ("swiglu", "geglu"):
+    if cfg.mlp_kind not in ("swiglu", "geglu", "moe"):
         why.append(f"mlp_kind={cfg.mlp_kind!r}")
     kinds = sorted(set(cfg.block_pattern) - {"attn"})
     if kinds:
@@ -61,7 +68,7 @@ def check_supported(cfg) -> None:
     if why:
         raise NotImplementedError(
             f"{cfg.name}: the port does not run {', '.join(why)} yet "
-            f"(dense GQA decoders only; see {_ROADMAP})")
+            f"(GQA and MLA decoders only; see {_ROADMAP})")
 
 
 class LayerPlan(NamedTuple):
@@ -89,26 +96,31 @@ def layer_plan(cfg) -> LayerPlan:
                      scan_mlp=cfg.mlp_kind)
 
 
-def layer_kinds(cfg) -> list[str]:
-    """Each layer's block kind in stack order: head, periods, tail."""
+def layer_mlps(cfg) -> list[str]:
+    """Each layer's MLP kind in stack order (head, periods, tail):
+    ``"dense"`` for the ``first_dense_layers``, else ``cfg.mlp_kind``."""
     plan = layer_plan(cfg)
-    return ([kind for kind, _ in plan.head]
-            + list(plan.period) * plan.n_periods + list(plan.tail))
+    return ([mlp for _, mlp in plan.head]
+            + [cfg.mlp_kind] * (plan.n_periods * len(plan.period)
+                                + len(plan.tail)))
 
 
 class Block(nn.Module):
-    """Pre-norm attention block with a GLU MLP (``apply_block`` for an
-    ``attn`` block)."""
+    """Pre-norm attention block (GQA or MLA) with a GLU or MoE MLP
+    (``apply_block`` for an ``attn`` block)."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, mlp: str):
         super().__init__()
         self.cfg = cfg
         self.norm1 = RMSNorm(cfg.d_model, cfg, device)
-        self.mixer = attn.GQAttention(cfg, device)
+        self.mixer = (attn.MLAttention(cfg, device)
+                      if cfg.attention_kind == "mla"
+                      else attn.GQAttention(cfg, device))
         self.norm2 = RMSNorm(cfg.d_model, cfg, device)
-        self.mlp = GLUMLP(cfg.d_model, cfg.d_ff,
-                          "geglu" if cfg.mlp_kind == "geglu" else "swiglu",
-                          cfg, device)
+        self.mlp = (MoE(cfg, device) if mlp == "moe" else
+                    GLUMLP(cfg.d_model, cfg.d_ff,
+                           "geglu" if cfg.mlp_kind == "geglu" else "swiglu",
+                           cfg, device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.mixer.reset_parameters(generator)
@@ -116,10 +128,17 @@ class Block(nn.Module):
 
     def forward(self, x, *, positions, rope, cache=None, index=None,
                 lanes=None):
+        kw = {} if self.cfg.attention_kind == "mla" else {
+            "window": self.cfg.window}
         x = x + self.mixer(self.norm1(x), positions=positions, rope=rope,
-                           window=self.cfg.window, cache=cache, index=index,
-                           lanes=lanes)
-        return x + self.mlp(self.norm2(x))
+                           cache=cache, index=index, lanes=lanes, **kw)
+        h = self.norm2(x)
+        if isinstance(self.mlp, MoE):
+            # decode routes each row alone; else the JAX package's groups
+            decode = cache is not None and x.shape[1] == 1
+            out, _aux = self.mlp(h, groups=x.shape[0] if decode else None)
+            return x + out
+        return x + self.mlp(h)
 
 
 class LM(nn.Module):
@@ -132,8 +151,8 @@ class LM(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = Embedding(cfg, dev)
-        self.layers = nn.ModuleList(Block(cfg, dev)
-                                    for _ in layer_kinds(cfg))
+        self.layers = nn.ModuleList(Block(cfg, dev, mlp)
+                                    for mlp in layer_mlps(cfg))
         self.final_norm = RMSNorm(cfg.d_model, cfg, dev)
 
     @property
@@ -147,15 +166,18 @@ class LM(nn.Module):
             block.reset_parameters(generator)
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, *, cache=None, positions=None):
+    def forward(self, tokens: torch.Tensor, *, cache=None, positions=None,
+                rows: int | None = None):
         """Returns (logits (B, S, padded_vocab), cache).
 
-        Without a cache: the causal forward at positions ``arange(S)``.  With a cache and S > 1: a prefill into an empty
-        cache (its ``index`` becomes S).  With a cache and S == 1: one
-        decode step; ``positions`` (B, 1) gives each row its own position
-        (default: the cache's index), and every row writes at its own
-        cache index, which then advances by one.  The cache is updated in
-        place and returned."""
+        Without a cache: the causal forward at positions ``arange(S)``.
+        With a cache and S > 1: a prefill into an empty cache (its
+        ``index`` becomes S).  With a cache and S == 1: one decode step on
+        ``rows`` rows (default ``decode_rows(B)``; module docstring);
+        ``positions`` (B, 1) gives each row its own position (default: the
+        cache's index), and every row writes at its own cache index, which
+        then advances by one.  The cache is updated in place and
+        returned."""
         b, s = tokens.shape
         if positions is None:
             if cache is not None and s == 1:
@@ -166,14 +188,22 @@ class LM(nn.Module):
         lanes = None
         if cache is not None and s == 1:
             # decode on the row-padded batch (module docstring)
-            lanes, rows = b, decode_rows(b)
+            lanes, rows = b, decode_rows(b) if rows is None else rows
+            if rows < b:
+                raise ValueError(f"rows={rows} is fewer than the batch's "
+                                 f"{b} rows")
             tokens = torch.cat([tokens, tokens.new_zeros((rows - b, 1))])
             positions = torch.cat([positions,
                                    positions.new_zeros((rows - b, 1))])
         cfg = self.cfg
-        rope = rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta,
-                           fraction=(cfg.rope_fraction
-                                     if cfg.rope_kind == "partial" else 1.0))
+        if cfg.attention_kind == "mla":     # only mla_rope_dim dims rotate
+            rope = rope_tables(positions, cfg.mla_rope_dim,
+                               theta=cfg.rope_theta)
+        else:
+            rope = rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta,
+                               fraction=(cfg.rope_fraction
+                                         if cfg.rope_kind == "partial"
+                                         else 1.0))
         x = self.embed.embed(tokens)
         for i, block in enumerate(self.layers):
             x = block(x, positions=positions, rope=rope,
@@ -190,12 +220,18 @@ class LM(nn.Module):
 
 def init_stack_cache(cfg, batch: int, t_max: int, *,
                      cache_dtype=torch.bfloat16, device=None) -> dict:
-    """{"layers": one attention cache a layer, "index": (batch,) int32}."""
+    """{"layers": one attention cache a layer (GQA or MLA), "index":
+    (batch,) int32}."""
     dev = resolve_device(device)
-    return {"layers": [attn.init_gqa_cache(cfg, batch, t_max,
-                                           window=cfg.window,
-                                           dtype=cache_dtype, device=dev)
-                       for _ in layer_kinds(cfg)],
+    if cfg.attention_kind == "mla":
+        def layer():
+            return attn.init_mla_cache(cfg, batch, t_max, dtype=cache_dtype,
+                                       device=dev)
+    else:
+        def layer():
+            return attn.init_gqa_cache(cfg, batch, t_max, window=cfg.window,
+                                       dtype=cache_dtype, device=dev)
+    return {"layers": [layer() for _ in layer_mlps(cfg)],
             "index": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 

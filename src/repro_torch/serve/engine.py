@@ -5,8 +5,9 @@
 ``generate``     greedy / temperature sampling loop.
 
 Caches come from ``transformer.init_stack_cache``: full-attention
-layers keep every position, sliding-window layers a ring buffer of
-``window`` entries.
+layers keep every position (GQA's K/V, or MLA's compressed ``c_kv`` and
+shared ``k_rope``), sliding-window layers a ring buffer of ``window``
+entries.
 
 Prefill length bucketing
 ------------------------
@@ -35,8 +36,9 @@ cache index), position, sampling generator, token count, budget and
 active flag; ``decode_chunk_slots`` advances all of them in one batched
 forward a step (the JAX package's ``vmap`` of the solo decode over
 lanes).  Decode is batch-invariant (``models.transformer``): a lane's
-tokens are those of a solo ``generate`` at the same seed and prompt
-bucket, bit for bit, for up to ``DECODE_ROW_TILE`` lanes.  Between chunks
+tokens are those of a solo ``generate`` at the same seed, prompt bucket,
+cache capacity and decode ``rows`` (``decode_rows(S)``), bit for bit, for
+any S.  Between chunks
 the host admits a prefilled prompt into a freed lane; ``admit_lane``
 overwrites every per-lane field, so a reused lane cannot leak its
 previous occupant's KV state.
@@ -100,10 +102,12 @@ def prefill(model, tokens, *, max_len: int,
 
 
 @torch.no_grad()
-def decode_step(model, tokens, state: ServeState) -> ServeState:
-    """tokens: (B, 1) next input token of each row."""
+def decode_step(model, tokens, state: ServeState,
+                rows: int | None = None) -> ServeState:
+    """tokens: (B, 1) next input token of each row; ``rows``: the padded
+    row count of the step (``transformer.LM.forward``)."""
     logits, cache = model(_tokens(model, tokens), cache=state.cache,
-                          positions=state.pos[:, None])
+                          positions=state.pos[:, None], rows=rows)
     return ServeState(cache=cache, last_logits=logits[:, -1],
                       pos=state.pos + 1)
 
@@ -185,12 +189,13 @@ def _generator(seed: int, device) -> torch.Generator:
 
 @torch.no_grad()
 def _decode_loop(model, state: ServeState, steps: int, temperature: float,
-                 generator: torch.Generator, gumbel=None) -> torch.Tensor:
+                 generator: torch.Generator, gumbel=None,
+                 rows: int | None = None) -> torch.Tensor:
     toks = []
     for i in range(steps):
         tok = sample(state.last_logits, temperature, generators=(generator,),
                      gumbel=None if gumbel is None else gumbel[i])
-        state = decode_step(model, tok[:, None], state)
+        state = decode_step(model, tok[:, None], state, rows)
         toks.append(tok)
     return torch.stack(toks, dim=1)                     # (B, steps)
 
@@ -198,7 +203,8 @@ def _decode_loop(model, state: ServeState, steps: int, temperature: float,
 @torch.no_grad()
 def generate(model, prompt_tokens, *, steps: int, temperature: float = 0.0,
              seed: int = 0, max_len: int | None = None,
-             bucket_prompts: bool = True, gumbel=None) -> torch.Tensor:
+             bucket_prompts: bool = True, gumbel=None,
+             rows: int | None = None) -> torch.Tensor:
     """Batched generation; returns (B, steps) generated token ids.
 
     Prompts are padded to the pow-2 length bucket and prefilled at its
@@ -206,7 +212,10 @@ def generate(model, prompt_tokens, *, steps: int, temperature: float = 0.0,
     allows it; window configs and an explicit ``max_len`` below the bucket
     take the exact-length prefill.  The default ``max_len`` is s_bucket +
     steps (s + steps unbucketed).  ``gumbel`` (steps, B, V) replays given
-    noise in place of the draws from ``seed``."""
+    noise in place of the draws from ``seed``.  ``rows`` is the decode's
+    padded row count (default ``decode_rows(B)``): a lane of an
+    ``LMService`` equals a solo ``generate`` at the service's ``max_len``
+    and ``rows``."""
     prompt_tokens = _tokens(model, prompt_tokens)
     b, s = prompt_tokens.shape
     s_b = prompt_bucket(s)
@@ -221,7 +230,7 @@ def generate(model, prompt_tokens, *, steps: int, temperature: float = 0.0,
         max_len = max_len or (s + steps)
         state = prefill(model, prompt_tokens, max_len=max_len)
     return _decode_loop(model, state, steps, temperature,
-                        _generator(seed, model.device), gumbel)
+                        _generator(seed, model.device), gumbel, rows)
 
 
 # ==========================================================================

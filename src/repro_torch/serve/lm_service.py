@@ -16,10 +16,11 @@ the counterpart of ``repro.serve.lm_service``, on the port's scheduler.
     accounting are the scheduler's, shared with the fit service.
 
 Parity contract: a sequence admitted mid-decode into a freed lane
-reproduces the solo ``engine.generate(..., seed=s)`` TOKEN FOR TOKEN at
-the same seed and prompt bucket (decode is batch-invariant for up to
-``models.transformer.DECODE_ROW_TILE`` lanes).  Exact for full-attention
-caches only: window configs (ring buffers) take the FALLBACK path, where
+reproduces the solo ``engine.generate(..., seed=s, max_len=max_len,
+rows=service.rows)`` TOKEN FOR TOKEN at the same seed and prompt bucket,
+for any number of lanes (decode is batch-invariant at a given row count,
+``models.transformer``).  Exact for full-attention caches (GQA and MLA)
+only: window configs (ring buffers) take the FALLBACK path, where
 requests still flow through the scheduler's queue but each runs a solo
 ``generate`` to completion.
 
@@ -46,6 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import decode_rows
 from repro_torch.serve import engine
 from repro_torch.serve import faults as faults_mod
 from repro_torch.serve.scheduler import (RequestFailure, ResultNotReady,
@@ -101,7 +103,8 @@ class LMService:
     sequences after) and returns the completed :class:`GenResult`s;
     ``run`` drains everything; ``generate`` is the one-shot wrapper.
     ``max_len`` is the per-lane cache capacity: every admitted request
-    must satisfy ``prompt_bucket + steps <= max_len``."""
+    must satisfy ``prompt_bucket + steps <= max_len``.  ``rows`` is the
+    padded row count of its decode steps (``decode_rows(num_slots)``)."""
 
     def __init__(self, model, *, num_slots: int = 4, chunk_steps: int = 8,
                  max_len: int = 128, temperature: float = 0.0,
@@ -110,6 +113,7 @@ class LMService:
         self.model = model
         self.cfg = model.cfg
         self.num_slots = num_slots
+        self.rows = decode_rows(num_slots)
         self.chunk_steps = chunk_steps
         self.max_len = max_len
         self.temperature = temperature

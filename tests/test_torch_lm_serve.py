@@ -7,7 +7,10 @@ then the service contracts of tests/test_lm_service.py and
 tests/test_faults.py held to the port's own solo ``generate``:
 mid-decode admission, lane reuse, the temperature chain, no set-up after
 warm-up, the fallback path for window configs, intake validation,
-deadline order, quarantine, retry and cancellation.
+deadline order, quarantine, retry and cancellation.  deepseek-v2-lite-16b
+(MLA, MoE) serves in slot mode like gemma-7b, and services of more than
+one row tile (S = 9, 12) keep every lane bit-equal to a solo decode at the
+service's row count.
 
 Tokens are compared exactly (greedy and replayed samples are argmaxes of
 float32 logits that agree within 1e-4 across the packages); reduced
@@ -27,6 +30,7 @@ from repro.serve import engine as jengine
 from repro.serve.lm_service import LMService as JLMService
 from repro_torch import convert
 from repro_torch.configs import get_config, list_configs
+from repro_torch.models import transformer as tf
 from repro_torch.serve import engine, faults
 from repro_torch.serve.lm_service import LMService
 from repro_torch.serve.scheduler import (RequestFailure, ResultNotReady,
@@ -46,7 +50,8 @@ def _jcfg(cfg):
 def pairs():
     """arch -> (cfg, JAX params, the port's model with the same weights)."""
     out = {}
-    for arch in ("gemma-7b", "h2o-danube-1.8b", "chatglm3-6b"):
+    for arch in ("gemma-7b", "h2o-danube-1.8b", "chatglm3-6b",
+                 "deepseek-v2-lite-16b"):
         cfg = get_config(arch).reduced()
         params = jtf.init_lm(jax.random.key(0), _jcfg(cfg))
         out[arch] = (cfg, params, convert.lm_params_from_jax(
@@ -152,6 +157,78 @@ def test_service_replays_jax_service(pairs):
     for (jt, jc, jb), (t, c, b) in zip(*out):
         np.testing.assert_array_equal(t, jt)
         assert (c, b) == (jc, jb)
+
+
+def test_deepseek_mid_decode_admission_matches_solo_and_jax(pairs):
+    """tests/test_lm_service.py's MLA case: a request admitted into a
+    freed lane mid-decode generates the tokens of its solo ``generate``,
+    and both packages' services give the same tokens and admission
+    chunks (the JAX service decodes each lane as a batch of one; the
+    port's MoE routes each decode row alone)."""
+    cfg, params, model = pairs["deepseek-v2-lite-16b"]
+    p1, p2, p3 = _prompts(cfg, [6, 7, 11])
+    out = []
+    for svc in (JLMService(params, _jcfg(cfg), num_slots=2, chunk_steps=4,
+                           max_len=48),
+                LMService(model, num_slots=2, chunk_steps=4, max_len=48)):
+        assert svc.slot_mode
+        r1 = svc.submit(p1, steps=12, seed=3)
+        assert svc.step() == []
+        r2 = svc.submit(p2, steps=8, seed=5)
+        r3 = svc.submit(p3, steps=6, seed=7)
+        res = svc.run()
+        out.append([(np.asarray(res[r].tokens), res[r].admitted_chunk)
+                    for r in (r1, r2, r3)])
+    for (jt, jc), (t, c), (p, steps, seed) in zip(
+            *out, [(p1, 12, 3), (p2, 8, 5), (p3, 6, 7)]):
+        np.testing.assert_array_equal(t, jt)
+        np.testing.assert_array_equal(
+            t, engine.generate(model, p[None], steps=steps, seed=seed,
+                               max_len=48)[0].numpy())
+        assert c == jc
+    assert out[1][1][1] > 0 and out[1][2][1] > out[1][1][1]
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("lanes", [9, 12])
+def test_lanes_above_one_row_tile_equal_solo_at_same_rows(pairs, arch,
+                                                           lanes):
+    """A service of more than DECODE_ROW_TILE lanes decodes on
+    ``decode_rows(S)`` = 16 rows; a solo decode at the same rows has every
+    lane's bits: one decode step's logits and cache rows bit-equal, and a
+    full service run's tokens equal to solo ``generate(rows=svc.rows)``."""
+    cfg, _params, model = pairs[arch]
+    prompts = _prompts(cfg, [3 + (5 * i) % 11 for i in range(lanes)],
+                       seed=lanes)
+    svc = LMService(model, num_slots=lanes, chunk_steps=4, max_len=32)
+    assert svc.rows == tf.decode_rows(lanes) == 16
+    solo = [engine.prefill(model, p[None], max_len=32) for p in prompts]
+    table = engine.init_lm_slot_state(solo[0], lanes)
+    for lane, st in enumerate(solo):
+        table = engine.admit_lane(table, lane, st, seed=lane, max_t=8)
+    nxt = torch.as_tensor(_prompts(cfg, [lanes], seed=99)[0])[:, None]
+    logits, _ = model(nxt, cache=table.cache, positions=table.pos[:, None])
+    for lane in range(lanes):
+        st = engine.decode_step(model, nxt[lane:lane + 1], solo[lane],
+                                rows=svc.rows)
+        assert torch.equal(logits[lane, -1], st.last_logits[0]), lane
+        for a, b in zip(table.cache["layers"], st.cache["layers"]):
+            for name in a:
+                assert torch.equal(a[name][lane], b[name][0]), (lane, name)
+    rids = [svc.submit(p, steps=6 + i % 3, seed=i)
+            for i, p in enumerate(prompts)]
+    res = svc.run()
+    for i, (rid, p) in enumerate(zip(rids, prompts)):
+        want = engine.generate(model, p[None], steps=6 + i % 3, seed=i,
+                               max_len=svc.max_len, rows=svc.rows)
+        np.testing.assert_array_equal(res[rid].tokens, want[0].numpy())
+
+
+def test_rows_below_the_batch_refused(gemma):
+    cfg, model = gemma
+    st = engine.prefill(model, np.zeros((3, 4), np.int64), max_len=8)
+    with pytest.raises(ValueError, match="rows=2"):
+        engine.decode_step(model, np.zeros((3, 1), np.int64), st, rows=2)
 
 
 # ----------------------------------------- service contracts (port's own)

@@ -1,8 +1,9 @@
-"""The port's dense GQA models (repro_torch.models) on the CPU, held to
-the JAX package's (repro.models) with the same weights, carried over by
+"""The port's models (repro_torch.models) on the CPU, held to the JAX
+package's (repro.models) with the same weights, carried over by
 ``repro_torch.convert.lm_params_from_jax``: reduced gemma-7b (GeGLU, tied
-and scaled embeddings), h2o-danube-1.8b (sliding window 64, ring cache)
-and chatglm3-6b (partial RoPE), float32 weights.
+and scaled embeddings), h2o-danube-1.8b (sliding window 64, ring cache),
+chatglm3-6b (partial RoPE), deepseek-v2-lite-16b (MLA, a dense layer then
+MoE) and deepseek-v2-236b (MLA with a q-LoRA), float32 weights.
 
 Tolerances: logits within 1e-4 of max |logit| (the JAX package's own
 decode-consistency bound, tests/test_decode_consistency.py), here across
@@ -30,9 +31,10 @@ from repro_torch.serve import engine
 pytestmark = pytest.mark.serve
 
 CPU = "cpu"
-ARCHS = ["gemma-7b", "h2o-danube-1.8b", "chatglm3-6b"]
-UNPORTED = ["deepseek-v2-236b", "deepseek-v2-lite-16b", "qwen2-vl-7b",
-            "recurrentgemma-2b", "whisper-medium", "xlstm-125m"]
+ARCHS = ["gemma-7b", "h2o-danube-1.8b", "chatglm3-6b",
+         "deepseek-v2-lite-16b", "deepseek-v2-236b"]
+UNPORTED = ["qwen2-vl-7b", "recurrentgemma-2b", "whisper-medium",
+            "xlstm-125m"]
 RTOL = 1e-4          # of max |logit|
 
 
@@ -84,7 +86,7 @@ def test_every_config_registers_as_in_jax():
 def test_unported_family_refused_at_construction(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 6"):
+                       match="ROADMAP.md queue 1 items 4-5"):
         tf.LM(cfg, device=CPU)
 
 
@@ -198,7 +200,8 @@ def test_decode_bf16_cache_matches_jax(arch, models):
     jst = jengine.prefill(params, jcfg, jnp.asarray(toks[:, :8]),
                           max_len=14)
     st = engine.prefill(model, toks[:, :8], max_len=14)
-    assert st.cache["layers"][0]["k"].dtype == torch.bfloat16
+    layer = st.cache["layers"][0]
+    assert layer.get("k", layer.get("c_kv")).dtype == torch.bfloat16
     assert _rel(st.last_logits, jst.last_logits) < RTOL
     for i in range(8, 12):
         jst = jengine.decode_step(params, jcfg, jnp.asarray(toks[:, i:i + 1]),
