@@ -116,7 +116,10 @@ def lm_params_from_jax(tree, cfg, device=None):
     ``ml_dtypes.bfloat16``): the stacked period axis of
     ``tree["decoder"]["blocks"]`` is unstacked into the per-layer blocks,
     in the JAX package's layer order (head, periods, tail).  Every leaf of
-    a block must have its parameter, and every parameter its leaf."""
+    a block must have its parameter, and every parameter its leaf: a layer
+    without an MLP (mLSTM, sLSTM) carries its norm and mixer only, and a
+    leaf keeps its dtype (RG-LRU's ``lam`` is float32 in a bfloat16
+    model)."""
     from repro_torch.models import transformer as tf
 
     model = tf.LM(cfg, device)

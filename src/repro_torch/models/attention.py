@@ -137,7 +137,8 @@ class GQAttention(nn.Module):
                 index=None, lanes: int | None = None):
         """Returns the (B, S, D) output; a given cache is written in place.
 
-        positions: (B, S); rope: their ``layers.rope_tables``.  Three
+        positions: (B, S); rope: their ``layers.rope_tables`` (None:
+        ``rope_kind="none"``, nothing rotates).  Three
         regimes, as in the JAX package: no cache
         (causal over the input); a prefill (S > 1) into an EMPTY cache,
         attending within the prompt and writing K/V from slot 0 (the ring
@@ -147,8 +148,9 @@ class GQAttention(nn.Module):
         rows own a cache row each; the rows after them are padding
         (zero output)."""
         b, s, _ = x.shape
-        q = apply_rope(self._project(x, self.wq), *rope)
-        k = apply_rope(self._project(x, self.wk), *rope)
+        q, k = self._project(x, self.wq), self._project(x, self.wk)
+        if rope is not None:
+            q, k = apply_rope(q, *rope), apply_rope(k, *rope)
         v = self._project(x, self.wv)
         if cache is None or s > 1:
             q_pos = positions[0]

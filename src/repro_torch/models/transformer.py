@@ -1,16 +1,23 @@
-"""Model assembly for the decoder-only attention families (GQA or MLA
-attention, dense or MoE MLPs): the counterpart of
+"""Model assembly for the decoder-only families: the counterpart of
 ``repro.models.transformer``.
 
 The JAX package scans a stacked period of blocks; here the stack is an
 ``nn.ModuleList`` of per-layer ``Block``s in the same order (head, the
 periods, tail), so each layer has its counterpart and
 ``repro_torch.convert.lm_params_from_jax`` unstacks the period axis into
-it.  ``first_dense_layers`` head layers take a dense GLU of ``d_ff``, the
+it.  Block kinds (``cfg.block_pattern``, ``layer_kinds``):
+
+  attn        GQA or MLA self-attention + MLP   (window ``cfg.window``)
+  local_attn  GQA with a ``cfg.local_window`` ring + MLP
+  rglru       RG-LRU recurrent mixer + MLP      (Griffin residual pair)
+  mlstm       mLSTM block (its own projections, no MLP)
+  slstm       sLSTM block (ditto)
+
+``first_dense_layers`` head layers take a dense GLU of ``d_ff``, the
 others ``cfg.mlp_kind`` (DeepSeek-V2: layer 0 dense, the rest MoE).  What
-the port cannot run yet (the recurrent blocks, the encoder-decoder,
-vision inputs, M-RoPE and unrotated attention) is refused when a model
-is built, never run as something that differs from the JAX model.
+the port cannot run yet (the encoder-decoder, vision inputs and M-RoPE)
+is refused when a model is built, never run as something that differs
+from the JAX model.
 
 Decode (one token a row against a cache) runs on a row-padded batch of
 ``rows`` rows (default ``decode_rows(B)``, a multiple of
@@ -22,7 +29,11 @@ and the row count: each of the S lanes of
 ``generate`` run at the same ``rows`` (``LMService.rows``), for any S.
 Attention's cache products run row by row
 (``attention.decode_attention``, ``absorbed_attention``), and the MoE
-routes each row as its own group.
+routes each row as its own group.  The recurrent mixers (``ssm``) give
+their padding rows a fresh state and write back the real rows' only, so
+a real row never depends on them; but those families (and every ring
+cache) take the service's solo fallback, so bit-equality across lane
+counts is not a contract for them.
 """
 
 from __future__ import annotations
@@ -34,13 +45,19 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (GLUMLP, Embedding, RMSNorm,
                                       rope_tables)
 from repro_torch.models.moe import MoE
 
 DECODE_ROW_TILE = 8
 
-_ROADMAP = "ROADMAP.md queue 1 items 4-5"
+_ROADMAP = "ROADMAP.md queue 1 item 5"
+_HAS_MLP = {"attn", "local_attn", "rglru"}
+# recurrent kind -> (mixer, its cache)
+_RECURRENT = {"rglru": (ssm.RGLRU, ssm.init_rglru_cache),
+              "mlstm": (ssm.MLSTM, ssm.init_mlstm_cache),
+              "slstm": (ssm.SLSTM, ssm.init_slstm_cache)}
 
 
 def decode_rows(batch: int) -> int:
@@ -52,23 +69,16 @@ def decode_rows(batch: int) -> int:
 def check_supported(cfg) -> None:
     """Raise NotImplementedError for a config the port cannot run yet."""
     why = []
-    if cfg.attention_kind not in ("gqa", "mla"):
-        why.append(f"attention_kind={cfg.attention_kind!r}")
-    if cfg.mlp_kind not in ("swiglu", "geglu", "moe"):
-        why.append(f"mlp_kind={cfg.mlp_kind!r}")
-    kinds = sorted(set(cfg.block_pattern) - {"attn"})
-    if kinds:
-        why.append(f"block kinds {kinds}")
     if cfg.is_encoder_decoder:
         why.append("an encoder-decoder")
     if cfg.vision_embeds:
         why.append("vision embeddings")
-    if cfg.rope_kind not in ("full", "partial"):
-        why.append(f"rope_kind={cfg.rope_kind!r}")
+    if cfg.rope_kind == "mrope":
+        why.append("M-RoPE")
     if why:
         raise NotImplementedError(
             f"{cfg.name}: the port does not run {', '.join(why)} yet "
-            f"(GQA and MLA decoders only; see {_ROADMAP})")
+            f"(decoder-only families; see {_ROADMAP})")
 
 
 class LayerPlan(NamedTuple):
@@ -96,42 +106,72 @@ def layer_plan(cfg) -> LayerPlan:
                      scan_mlp=cfg.mlp_kind)
 
 
-def layer_mlps(cfg) -> list[str]:
-    """Each layer's MLP kind in stack order (head, periods, tail):
-    ``"dense"`` for the ``first_dense_layers``, else ``cfg.mlp_kind``."""
+def layer_kinds(cfg) -> list[str]:
+    """Each layer's block kind in stack order (head, periods, tail)."""
     plan = layer_plan(cfg)
-    return ([mlp for _, mlp in plan.head]
+    return ([kind for kind, _ in plan.head]
+            + list(plan.period) * plan.n_periods + list(plan.tail))
+
+
+def layer_mlps(cfg) -> list[str | None]:
+    """Each layer's MLP kind in stack order (head, periods, tail):
+    ``"dense"`` for the ``first_dense_layers``, else ``cfg.mlp_kind``;
+    None for the kinds that carry no MLP (mLSTM, sLSTM)."""
+    plan = layer_plan(cfg)
+    mlps = ([mlp for _, mlp in plan.head]
             + [cfg.mlp_kind] * (plan.n_periods * len(plan.period)
                                 + len(plan.tail)))
+    return [mlp if kind in _HAS_MLP else None
+            for kind, mlp in zip(layer_kinds(cfg), mlps)]
 
 
 class Block(nn.Module):
-    """Pre-norm attention block (GQA or MLA) with a GLU or MoE MLP
-    (``apply_block`` for an ``attn`` block)."""
+    """Pre-norm block of one kind (``init_block`` / ``apply_block``): the
+    mixer (GQA, MLA, RG-LRU, mLSTM or sLSTM) and its residual, then, for
+    the kinds that have one, a GLU or MoE MLP and its residual."""
 
-    def __init__(self, cfg, device, mlp: str):
+    def __init__(self, cfg, device, kind: str, mlp: str | None):
         super().__init__()
         self.cfg = cfg
+        self.kind = kind
         self.norm1 = RMSNorm(cfg.d_model, cfg, device)
-        self.mixer = (attn.MLAttention(cfg, device)
-                      if cfg.attention_kind == "mla"
-                      else attn.GQAttention(cfg, device))
-        self.norm2 = RMSNorm(cfg.d_model, cfg, device)
-        self.mlp = (MoE(cfg, device) if mlp == "moe" else
-                    GLUMLP(cfg.d_model, cfg.d_ff,
-                           "geglu" if cfg.mlp_kind == "geglu" else "swiglu",
-                           cfg, device))
+        if kind in ("attn", "local_attn"):
+            self.mixer = (attn.MLAttention(cfg, device)
+                          if cfg.attention_kind == "mla" and kind == "attn"
+                          else attn.GQAttention(cfg, device))
+        elif kind in _RECURRENT:
+            self.mixer = _RECURRENT[kind][0](cfg, device)
+        else:
+            raise ValueError(f"block kind {kind!r}")
+        self.norm2 = self.mlp = None
+        if kind in _HAS_MLP:
+            self.norm2 = RMSNorm(cfg.d_model, cfg, device)
+            self.mlp = (MoE(cfg, device) if mlp == "moe" else
+                        GLUMLP(cfg.d_model, cfg.d_ff,
+                               "geglu" if cfg.mlp_kind == "geglu"
+                               else "swiglu", cfg, device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.mixer.reset_parameters(generator)
-        self.mlp.reset_parameters(generator)
+        if self.mlp is not None:
+            self.mlp.reset_parameters(generator)
 
     def forward(self, x, *, positions, rope, cache=None, index=None,
                 lanes=None):
-        kw = {} if self.cfg.attention_kind == "mla" else {
-            "window": self.cfg.window}
-        x = x + self.mixer(self.norm1(x), positions=positions, rope=rope,
-                           cache=cache, index=index, lanes=lanes, **kw)
+        h = self.norm1(x)
+        if isinstance(self.mixer, attn.MLAttention):
+            out = self.mixer(h, positions=positions, rope=rope, cache=cache,
+                             index=index, lanes=lanes)
+        elif isinstance(self.mixer, attn.GQAttention):
+            window = (self.cfg.local_window if self.kind == "local_attn"
+                      else self.cfg.window)
+            out = self.mixer(h, positions=positions, rope=rope, cache=cache,
+                             index=index, lanes=lanes, window=window)
+        else:
+            out = self.mixer(h, cache=cache)
+        x = x + out
+        if self.mlp is None:
+            return x
         h = self.norm2(x)
         if isinstance(self.mlp, MoE):
             # decode routes each row alone; else the JAX package's groups
@@ -142,8 +182,8 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """A dense decoder LM: embedding, ``num_layers`` blocks, final norm,
-    LM head (tied to the embedding where the config says so)."""
+    """A decoder LM: embedding, ``num_layers`` blocks, final norm, LM head
+    (tied to the embedding where the config says so)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -151,8 +191,9 @@ class LM(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = Embedding(cfg, dev)
-        self.layers = nn.ModuleList(Block(cfg, dev, mlp)
-                                    for mlp in layer_mlps(cfg))
+        self.layers = nn.ModuleList(
+            Block(cfg, dev, kind, mlp)
+            for kind, mlp in zip(layer_kinds(cfg), layer_mlps(cfg)))
         self.final_norm = RMSNorm(cfg.d_model, cfg, dev)
 
     @property
@@ -196,7 +237,9 @@ class LM(nn.Module):
             positions = torch.cat([positions,
                                    positions.new_zeros((rows - b, 1))])
         cfg = self.cfg
-        if cfg.attention_kind == "mla":     # only mla_rope_dim dims rotate
+        if cfg.rope_kind == "none":         # nothing rotates
+            rope = None
+        elif cfg.attention_kind == "mla":   # only mla_rope_dim dims rotate
             rope = rope_tables(positions, cfg.mla_rope_dim,
                                theta=cfg.rope_theta)
         else:
@@ -218,20 +261,29 @@ class LM(nn.Module):
         return logits, cache
 
 
+def init_layer_cache(kind: str, cfg, batch: int, t_max: int, *,
+                     cache_dtype=torch.bfloat16, device=None) -> dict:
+    """One layer's cache by its kind (``init_block_cache``): K/V (or MLA's
+    latent) in ``cache_dtype``, a ring of ``min(local_window, t_max)``
+    slots for ``local_attn``; float32 recurrent states (``ssm``)."""
+    if kind == "attn" and cfg.attention_kind == "mla":
+        return attn.init_mla_cache(cfg, batch, t_max, dtype=cache_dtype,
+                                   device=device)
+    if kind in ("attn", "local_attn"):
+        window = cfg.local_window if kind == "local_attn" else cfg.window
+        return attn.init_gqa_cache(cfg, batch, t_max, window=window,
+                                   dtype=cache_dtype, device=device)
+    return _RECURRENT[kind][1](cfg, batch, device)
+
+
 def init_stack_cache(cfg, batch: int, t_max: int, *,
                      cache_dtype=torch.bfloat16, device=None) -> dict:
-    """{"layers": one attention cache a layer (GQA or MLA), "index":
+    """{"layers": one cache a layer (``init_layer_cache``), "index":
     (batch,) int32}."""
     dev = resolve_device(device)
-    if cfg.attention_kind == "mla":
-        def layer():
-            return attn.init_mla_cache(cfg, batch, t_max, dtype=cache_dtype,
-                                       device=dev)
-    else:
-        def layer():
-            return attn.init_gqa_cache(cfg, batch, t_max, window=cfg.window,
-                                       dtype=cache_dtype, device=dev)
-    return {"layers": [layer() for _ in layer_mlps(cfg)],
+    return {"layers": [init_layer_cache(kind, cfg, batch, t_max,
+                                        cache_dtype=cache_dtype, device=dev)
+                       for kind in layer_kinds(cfg)],
             "index": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 

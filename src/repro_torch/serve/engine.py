@@ -6,8 +6,9 @@
 
 Caches come from ``transformer.init_stack_cache``: full-attention
 layers keep every position (GQA's K/V, or MLA's compressed ``c_kv`` and
-shared ``k_rope``), sliding-window layers a ring buffer of ``window``
-entries.
+shared ``k_rope``), sliding-window and local-attention layers a ring
+buffer of ``window`` (``local_window``) entries, recurrent layers their
+float32 state and conv history (``models.ssm``).
 
 Prefill length bucketing
 ------------------------
@@ -19,8 +20,9 @@ sit at positions >= the true length); after it every cache ``index`` is
 REWOUND to the true length, so decode masks the pad entries out
 (``k_pos < index + 1``) and each decode write overwrites the next pad
 entry exactly when its position would first become attendable.  Ring
-buffers absorb prompt tokens order-dependently, so window configs take
-the exact-length prefill (``_can_bucket``).
+buffers and recurrent states absorb prompt tokens order-dependently (a
+pad token would enter them), so window and recurrent configs take the
+exact-length prefill (``_can_bucket``).
 
 The JAX package counts jit traces in ``trace_counts``; the port has no
 jit, so ``trace_counts`` tallies set-ups under the same keys: a key is
@@ -209,13 +211,13 @@ def generate(model, prompt_tokens, *, steps: int, temperature: float = 0.0,
 
     Prompts are padded to the pow-2 length bucket and prefilled at its
     length (exact, see the module docstring) whenever the cache family
-    allows it; window configs and an explicit ``max_len`` below the bucket
-    take the exact-length prefill.  The default ``max_len`` is s_bucket +
-    steps (s + steps unbucketed).  ``gumbel`` (steps, B, V) replays given
-    noise in place of the draws from ``seed``.  ``rows`` is the decode's
-    padded row count (default ``decode_rows(B)``): a lane of an
-    ``LMService`` equals a solo ``generate`` at the service's ``max_len``
-    and ``rows``."""
+    allows it; window and recurrent configs and an explicit ``max_len``
+    below the bucket take the exact-length prefill.  The default
+    ``max_len`` is s_bucket + steps (s + steps unbucketed).  ``gumbel``
+    (steps, B, V) replays given noise in place of the draws from
+    ``seed``.  ``rows`` is the decode's padded row count (default
+    ``decode_rows(B)``): a lane of an ``LMService`` equals a solo
+    ``generate`` at the service's ``max_len`` and ``rows``."""
     prompt_tokens = _tokens(model, prompt_tokens)
     b, s = prompt_tokens.shape
     s_b = prompt_bucket(s)

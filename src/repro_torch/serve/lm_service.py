@@ -20,9 +20,10 @@ reproduces the solo ``engine.generate(..., seed=s, max_len=max_len,
 rows=service.rows)`` TOKEN FOR TOKEN at the same seed and prompt bucket,
 for any number of lanes (decode is batch-invariant at a given row count,
 ``models.transformer``).  Exact for full-attention caches (GQA and MLA)
-only: window configs (ring buffers) take the FALLBACK path, where
-requests still flow through the scheduler's queue but each runs a solo
-``generate`` to completion.
+only: window configs (ring buffers) and the recurrent families (RG-LRU
+with local attention, mLSTM / sLSTM: ``models.ssm``) take the FALLBACK
+path, where requests still flow through the scheduler's queue but each
+runs a solo ``generate`` to completion.
 
 Set-up discipline: one decode-chunk configuration per service (keyed by
 (model, S, max_len, chunk_steps, temperature)) plus one prefill per pow-2
@@ -294,8 +295,8 @@ class LMService:
         return out
 
     def _step_fallback(self, group) -> list[GenResult]:
-        """Window (ring-buffer) configs: run each request solo via
-        ``generate``, exact by construction, scheduler-ordered,
+        """Window (ring-buffer) and recurrent configs: run each request
+        solo via ``generate``, exact by construction, scheduler-ordered,
         occupancy 1."""
         out = []
         for lane, ticket in self._sched.admit(group):

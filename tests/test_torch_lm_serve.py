@@ -7,7 +7,9 @@ then the service contracts of tests/test_lm_service.py and
 tests/test_faults.py held to the port's own solo ``generate``:
 mid-decode admission, lane reuse, the temperature chain, no set-up after
 warm-up, the fallback path for window configs, intake validation,
-deadline order, quarantine, retry and cancellation.  deepseek-v2-lite-16b
+deadline order, quarantine, retry and cancellation.  The recurrent
+families (xlstm-125m, recurrentgemma-2b) generate JAX's tokens and take
+the fallback in deadline order.  deepseek-v2-lite-16b
 (MLA, MoE) serves in slot mode like gemma-7b, and services of more than
 one row tile (S = 9, 12) keep every lane bit-equal to a solo decode at the
 service's row count.
@@ -51,7 +53,7 @@ def pairs():
     """arch -> (cfg, JAX params, the port's model with the same weights)."""
     out = {}
     for arch in ("gemma-7b", "h2o-danube-1.8b", "chatglm3-6b",
-                 "deepseek-v2-lite-16b"):
+                 "deepseek-v2-lite-16b", "xlstm-125m", "recurrentgemma-2b"):
         cfg = get_config(arch).reduced()
         params = jtf.init_lm(jax.random.key(0), _jcfg(cfg))
         out[arch] = (cfg, params, convert.lm_params_from_jax(
@@ -106,7 +108,8 @@ def test_explicit_small_max_len_falls_back_to_exact_prefill(gemma):
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "h2o-danube-1.8b",
-                                  "chatglm3-6b"])
+                                  "chatglm3-6b", "xlstm-125m",
+                                  "recurrentgemma-2b"])
 def test_greedy_generate_matches_jax(arch, pairs):
     cfg, params, model = pairs[arch]
     prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 6))
@@ -117,14 +120,18 @@ def test_greedy_generate_matches_jax(arch, pairs):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("arch", ["chatglm3-6b", "h2o-danube-1.8b"])
-def test_temperature_replays_jax_gumbel_draws(arch, pairs):
+@pytest.mark.parametrize("arch,temperature", [
+    ("chatglm3-6b", 0.7), ("h2o-danube-1.8b", 0.7), ("xlstm-125m", 0.7),
+    ("recurrentgemma-2b", 50.0)])
+def test_temperature_replays_jax_gumbel_draws(arch, temperature, pairs):
     """JAX's ``categorical`` is argmax(logits / T + gumbel(sub)) with one
     key split a token: given the same noise, the port samples the same
-    tokens (and the noise mattered: greedy differs)."""
+    tokens (and the noise mattered: greedy differs).  Reduced
+    recurrentgemma-2b's tied, scaled embedding puts the last token's own
+    logit ~180 above the next, so its noise needs T = 50 to move a token."""
     cfg, params, model = pairs[arch]
     prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, (1, 6))
-    steps, seed, temperature = 8, 4, 0.7
+    steps, seed = 8, 4
     want = jengine.generate(params, _jcfg(cfg), jnp.asarray(prompt),
                             steps=steps, temperature=temperature, seed=seed)
     key, noise = jax.random.key(seed), []
@@ -298,10 +305,13 @@ def test_zero_setups_after_warmup(gemma):
     assert calls["cache_hits"] == calls["chunk_calls"] - compiles
 
 
-def test_fallback_window_config_routes_through_solo_generate(pairs):
-    """A ring-buffer (window) config cannot share decode lanes; the
-    service runs each request as a solo generate, in scheduler order."""
-    cfg, _params, model = pairs["h2o-danube-1.8b"]
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "recurrentgemma-2b",
+                                  "xlstm-125m"])
+def test_fallback_window_config_routes_through_solo_generate(pairs, arch):
+    """A ring-buffer (window) or recurrent config cannot share decode
+    lanes; the service runs each request as a solo generate, in scheduler
+    order (tests/test_lm_service.py's fallback contract)."""
+    cfg, _params, model = pairs[arch]
     assert not engine._can_bucket(cfg)
     p1, p2 = _prompts(cfg, [6, 9], seed=4)
     svc = LMService(model, num_slots=2, chunk_steps=4)
@@ -313,6 +323,27 @@ def test_fallback_window_config_routes_through_solo_generate(pairs):
     np.testing.assert_array_equal(res[r2].tokens, _solo(model, p2, 5, 9))
     done = [rid for rid, _ in svc.latencies]
     assert done.index(r2) < done.index(r1)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "recurrentgemma-2b"])
+def test_fallback_generate_is_prefill_then_stepwise_decode(pairs, arch):
+    """A recurrent family's solo ``generate`` (the service's fallback)
+    equals an exact-length prefill followed by step-by-step greedy decode,
+    token for token, and its last logits match a full forward over the
+    whole sequence."""
+    cfg, _params, model = pairs[arch]
+    prompt = _prompts(cfg, [11], seed=6)[0]
+    want = LMService(model).generate(prompt, 7, seed=0).tokens
+    st = engine.prefill(model, prompt[None], max_len=18)
+    toks = []
+    for _ in range(7):
+        tok = st.last_logits.argmax(-1)
+        toks.append(int(tok[0]))
+        st = engine.decode_step(model, tok[:, None], st)
+    np.testing.assert_array_equal(want, toks)
+    full, _ = model(torch.as_tensor(np.r_[prompt, toks][None]))
+    err = (st.last_logits[0] - full[0, -1]).abs().max() / full.abs().max()
+    assert err < 1e-4
 
 
 def test_intake_validated_at_submit(gemma):

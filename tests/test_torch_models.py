@@ -3,7 +3,9 @@ package's (repro.models) with the same weights, carried over by
 ``repro_torch.convert.lm_params_from_jax``: reduced gemma-7b (GeGLU, tied
 and scaled embeddings), h2o-danube-1.8b (sliding window 64, ring cache),
 chatglm3-6b (partial RoPE), deepseek-v2-lite-16b (MLA, a dense layer then
-MoE) and deepseek-v2-236b (MLA with a q-LoRA), float32 weights.
+MoE), deepseek-v2-236b (MLA with a q-LoRA), xlstm-125m (mLSTM and sLSTM,
+no RoPE, no MLP) and recurrentgemma-2b (RG-LRU and local-attention MQA,
+a float32 ``lam`` leaf), float32 weights.
 
 Tolerances: logits within 1e-4 of max |logit| (the JAX package's own
 decode-consistency bound, tests/test_decode_consistency.py), here across
@@ -32,9 +34,9 @@ pytestmark = pytest.mark.serve
 
 CPU = "cpu"
 ARCHS = ["gemma-7b", "h2o-danube-1.8b", "chatglm3-6b",
-         "deepseek-v2-lite-16b", "deepseek-v2-236b"]
-UNPORTED = ["qwen2-vl-7b", "recurrentgemma-2b", "whisper-medium",
-            "xlstm-125m"]
+         "deepseek-v2-lite-16b", "deepseek-v2-236b", "xlstm-125m",
+         "recurrentgemma-2b"]
+UNPORTED = ["qwen2-vl-7b", "whisper-medium"]
 RTOL = 1e-4          # of max |logit|
 
 
@@ -86,7 +88,7 @@ def test_every_config_registers_as_in_jax():
 def test_unported_family_refused_at_construction(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 items 4-5"):
+                       match="ROADMAP.md queue 1 item 5"):
         tf.LM(cfg, device=CPU)
 
 
@@ -117,6 +119,26 @@ def test_weight_bridge_bfloat16_bit_equal():
                     jax.tree.leaves(convert.lm_params_to_numpy(model))):
         assert a.dtype == b.dtype
         assert np.array_equal(a.view(np.uint16), b.view(np.uint16))
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "recurrentgemma-2b"])
+def test_weight_bridge_bfloat16_recurrent_keeps_float32_lam(arch):
+    """A bfloat16 recurrent model (mLSTM / sLSTM layers without an MLP,
+    RG-LRU's float32 ``lam`` leaf) crosses both ways bit for bit, every
+    leaf in its own dtype."""
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    params = jtf.init_lm(jax.random.key(2), _jcfg(cfg))
+    tree = jax.tree.map(np.asarray, params)
+    model = convert.lm_params_from_jax(tree, cfg, device=CPU)
+    dtypes = {p.dtype for p in model.parameters()}
+    assert dtypes == ({torch.bfloat16, torch.float32}
+                      if arch == "recurrentgemma-2b" else {torch.bfloat16})
+    for a, b in zip(jax.tree.leaves(tree),
+                    jax.tree.leaves(convert.lm_params_to_numpy(model))):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
 
 
 def test_seeded_init_repeats_and_truncates():
@@ -200,8 +222,12 @@ def test_decode_bf16_cache_matches_jax(arch, models):
     jst = jengine.prefill(params, jcfg, jnp.asarray(toks[:, :8]),
                           max_len=14)
     st = engine.prefill(model, toks[:, :8], max_len=14)
-    layer = st.cache["layers"][0]
-    assert layer.get("k", layer.get("c_kv")).dtype == torch.bfloat16
+    for layer in st.cache["layers"]:
+        if "k" in layer or "c_kv" in layer:
+            assert layer.get("k", layer.get("c_kv")).dtype == torch.bfloat16
+        else:                       # recurrent states stay float32
+            assert all(t.dtype == torch.float32
+                       for t in _cache_tensors(layer))
     assert _rel(st.last_logits, jst.last_logits) < RTOL
     for i in range(8, 12):
         jst = jengine.decode_step(params, jcfg, jnp.asarray(toks[:, i:i + 1]),
@@ -234,6 +260,91 @@ def test_swa_ring_wraparound_matches_full_and_jax():
                                   jnp.asarray(toks[:, i:i + 1]), jst)
     assert _rel(st.last_logits, full[:, -1]) < RTOL
     assert _rel(st.last_logits, jst.last_logits) < RTOL
+
+
+def _cache_tensors(layer: dict):
+    for t in layer.values():
+        yield from _cache_tensors(t) if isinstance(t, dict) else (t,)
+
+
+def test_local_attention_ring_wraparound_matches_full_and_jax():
+    """Reduced recurrentgemma-2b with a local window of 32: a 40-token
+    prompt keeps the last 32 positions rolled (slot == pos % 32) beside
+    the RG-LRU states, 8 decode steps wrap the ring; the logits match the
+    full forward and the JAX package's decode."""
+    cfg = get_config("recurrentgemma-2b").reduced()
+    assert cfg.local_window == 32
+    params, model = _pair(cfg)
+    jcfg = _jcfg(cfg)
+    toks = _tokens(cfg, (1, 48))
+    full, _ = model(torch.as_tensor(toks))
+    jfull, _, _ = jtf.forward(params, jcfg, jnp.asarray(toks))
+    assert _rel(full, jfull) < RTOL
+    st = engine.prefill(model, toks[:, :40], max_len=56,
+                        cache_dtype=torch.float32)
+    ring = st.cache["layers"][tf.layer_kinds(cfg).index("local_attn")]
+    pos = ring["pos"][0]
+    assert ring["k"].shape[2] == 32
+    assert torch.equal(pos % 32, torch.arange(32, dtype=pos.dtype))
+    assert int(pos.min()) == 8 and int(pos.max()) == 39
+    jst = jengine.prefill(params, jcfg, jnp.asarray(toks[:, :40]),
+                          max_len=56, cache_dtype=jnp.float32)
+    for i in range(40, 48):
+        st = engine.decode_step(model, toks[:, i:i + 1], st)
+        jst = jengine.decode_step(params, jcfg,
+                                  jnp.asarray(toks[:, i:i + 1]), jst)
+        assert _rel(st.last_logits, jst.last_logits) < RTOL
+    assert _rel(st.last_logits, full[:, -1]) < RTOL
+
+
+def test_layer_kinds_and_caches_follow_the_jax_layer_order():
+    """recurrentgemma-2b: 8 periods of (rglru, rglru, local_attn) and a
+    tail of two rglru; each layer's cache by its kind, states float32 with
+    m at -1e30, the ring min(local_window, max_len) slots."""
+    cfg = get_config("recurrentgemma-2b")
+    kinds = tf.layer_kinds(cfg)
+    assert kinds == ["rglru", "rglru", "local_attn"] * 8 + ["rglru"] * 2
+    assert tf.layer_mlps(cfg) == ["geglu"] * 26
+    small = get_config("xlstm-125m").reduced()
+    assert tf.layer_kinds(small) == ["mlstm", "slstm"]
+    assert tf.layer_mlps(small) == [None, None]
+    cache = tf.init_stack_cache(small, 3, 20, device=CPU)
+    m_cache, s_cache = cache["layers"]
+    assert set(m_cache) == {"state", "conv"}
+    assert set(m_cache["state"]) == {"C", "n", "m"}
+    assert set(s_cache) == {"state"}
+    assert set(s_cache["state"]) == {"c", "n", "h", "m"}
+    assert (m_cache["state"]["m"] == -1e30).all()
+    assert (s_cache["state"]["m"] == -1e30).all()
+    rg = get_config("recurrentgemma-2b").reduced()
+    layers = tf.init_stack_cache(rg, 2, 20, device=CPU)["layers"]
+    assert set(layers[0]) == {"h", "conv"}
+    assert layers[0]["conv"].shape == (2, rg.conv1d_width - 1,
+                                       rg.rglru_width)
+    assert layers[2]["k"].shape[2] == min(rg.local_window, 20)
+    for layer in (m_cache, s_cache, layers[0]):
+        assert all(t.dtype == torch.float32 for t in _cache_tensors(layer))
+
+
+def test_recurrent_seeded_init_draws_weights_not_lam_bias_or_norms():
+    """xlstm-125m and recurrentgemma-2b reduced: the same seed gives the
+    same weights, another seed other weights; lam stays linspace(-4, -1),
+    the conv bias and every norm scale zero."""
+    for arch in ("xlstm-125m", "recurrentgemma-2b"):
+        cfg = get_config(arch).reduced()
+        a, b = (tf.init_lm(cfg, seed=3, device=CPU) for _ in range(2))
+        c = tf.init_lm(cfg, seed=4, device=CPU)
+        for (name, pa), pb, pc in zip(a.named_parameters(), b.parameters(),
+                                      c.parameters()):
+            assert torch.equal(pa, pb), name
+            if name.endswith("lam"):
+                assert torch.equal(pa, torch.linspace(-4.0, -1.0,
+                                                      pa.shape[0]))
+                assert torch.equal(pa, pc)
+            elif name.endswith("scale") or name.endswith("conv.b"):
+                assert not pa.any(), name
+            else:
+                assert not torch.equal(pa, pc), name
 
 
 def test_decode_rows_are_batch_invariant():
