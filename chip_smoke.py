@@ -8,7 +8,7 @@ no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- eleven paths, each driven with the launch counts reset
+  2. paths      -- twelve paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -168,7 +168,10 @@ no CPU fallback):
           vocab 102,400; 15.71 B bfloat16 parameters) in
           ``LMService(num_slots=12, chunk_steps=8, max_len=512)``: 16
           decode rows, more than one row tile.  16 staggered requests
-          (prompts of 5-250 tokens, 16-48 tokens each; six up front, one
+          (prompts of 5-250 tokens, 8-20 tokens each, 212 in all: cut from
+          16-48 and 496 to make room for path l; the CPU tests of
+          ``tests/test_torch_lm_serve.py`` still hold lanes above one row
+          tile to solo decodes; six up front, one
           more after each step), one greedy run with one lane poisoned at
           its chunk 2 and retried: every request completes equal to its
           solo ``engine.generate`` at the service's rows and cache
@@ -212,6 +215,45 @@ no CPU fallback):
           float32 on the card and the CPU, recurrentgemma-2b cut to one
           period (rglru, rglru, local_attn) and xlstm-125m at all 12
           layers.
+       l. the encoder-decoder and the vision-language backbone in the LM
+          service, their models random-initialised on the card from
+          seeds and freed before the next phase; no kernel is on this
+          path (the counts must stay empty).  l1: whisper-medium at full
+          width (24 encoder and 24 decoder layers, d 1,024, 16 heads of
+          64, d_ff 4,096, vocab 51,865 padded to 51,968, untied; 1.01 B
+          bfloat16 parameters): the encoder's pass over 1,500 stub frames
+          (a standard normal from a seed times 0.05, bfloat16) timed;
+          ``engine.generate(enc_frames=)`` on a 16-token prompt, 32
+          greedy steps, equal to prefill + decode against the cross
+          cache, the last 8 steps' logits within the larger of 5e-2 and
+          K_NOISE times the bfloat16 forward's distance from the float32
+          forward (random weights give flat logits, as k3's) of a full
+          forward over the same frames; two requests through
+          ``LMService``, which takes the fallback and decodes against
+          the zero cross cache (the JAX package's service carries no
+          frames), each equal to a direct ``generate``; a solo decode
+          timed (16 steps) and profiled (2) beside its read bound (the
+          decoder without the cross ``wk`` / ``wv``, the LM head and the
+          cross cache).  l2: qwen2-vl-7b at full width (28 layers, d
+          3,584, 28 heads / 4 KV heads of 128, M-RoPE sections (16, 24,
+          24), SwiGLU 18,944, vocab 152,064 untied; 7.62 B bfloat16
+          parameters) in ``LMService(num_slots=4, chunk_steps=8,
+          max_len=512)`` in slot mode, 6 staggered text requests each
+          equal to its solo ``generate`` at the service's rows; a
+          ``generate(vision_embeds=, vision_mask=)`` on a 64-token prompt
+          whose middle 32 positions take patch embeddings from a seed,
+          16 steps, the last 8 held to a full forward with the same
+          embeddings as l1; one decode chunk of 4 lanes timed and
+          profiled beside the weight-read bound.  l3: as i3, in float32
+          on the card and the CPU, whisper-medium cut to 2 encoder and 2
+          decoder layers over frames from a seed, with a float32 cache
+          (a bfloat16 one rounds card / CPU differences of ~1e-6 to a
+          bfloat16 ulp at its boundaries); and qwen2-vl-7b cut
+          to 2 layers, one forward at explicit (3, 1, 48) positions with
+          distinct t/h/w streams (4 text tokens, a 4 x 8 patch grid with
+          patch embeddings, 12 text tokens), every position's logits
+          within 1e-4 of its max |logit| and its argmax equal (but at a
+          tie).
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -282,8 +324,8 @@ no CPU fallback):
                    path e replayed on the CPU with the coordinates the
                    card sampled.
 
-A line before the last gives the script's seconds in all, path k's and
-the nu fit's CPU replay's; then the card's name and power limit.  The
+A line before the last gives the script's seconds in all, paths k's and
+l's and the nu fit's CPU replay's; then the card's name and power limit.  The
 next-to-last line of standard output is a JSON object listing every
 kernel at every path shape with its launches, error, times and bound;
 the last line is ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -2905,10 +2947,13 @@ def i_ring(torch, card):
 
 
 def i_replay(torch, card, arch: str = "gemma-7b", label: str = "i3",
-             layers: int = I_REPLAY["layers"]):
-    """i3 (j3, k4): ``arch`` at full width, cut to ``layers`` layers,
-    float32: prefill and greedy decode on the card and on the CPU with the
-    same weights."""
+             layers: int = I_REPLAY["layers"], frames: bool = False,
+             cache_dtype=None, **changes):
+    """i3 (j3, k4, l3): ``arch`` at full width, cut to ``layers`` layers
+    (and the config ``changes``), float32: prefill and greedy decode on
+    the card and on the CPU with the same weights; with ``frames``, over
+    the same encoder frames drawn from a seed; the cache in
+    ``cache_dtype`` (default the engine's bfloat16)."""
     import dataclasses
 
     import numpy as np
@@ -2918,20 +2963,27 @@ def i_replay(torch, card, arch: str = "gemma-7b", label: str = "i3",
     from repro_torch.serve import engine
 
     cfg = dataclasses.replace(get_config(arch), num_layers=layers,
-                              param_dtype="float32", compute_dtype="float32")
+                              param_dtype="float32", compute_dtype="float32",
+                              **changes)
     card_model = tf.init_lm(cfg, seed=2)
     cpu_model = tf.LM(cfg, device="cpu")
     cpu_model.load_state_dict(card_model.state_dict())
     print(f"{label}: {cfg.name} x {cfg.num_layers} layers (kinds "
-          f"{tf.layer_kinds(cfg)}, MLPs {tf.layer_mlps(cfg)}), "
-          f"{tf.count_params(cpu_model):,} float32 parameters on both")
-    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size,
-                                               I_REPLAY["prompt"])
+          f"{tf.layer_kinds(cfg)}, MLPs {tf.layer_mlps(cfg)}"
+          f"{f', {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''}"
+          f"), {tf.count_params(cpu_model):,} float32 parameters on both")
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, cfg.vocab_size, I_REPLAY["prompt"])
+    kw = {} if cache_dtype is None else {"cache_dtype": cache_dtype}
+    if frames:
+        kw["enc_frames"] = (rng.standard_normal(
+            (1, cfg.enc_frames, cfg.d_model)) * L_FRAME_SCALE).astype(
+                np.float32)
     runs = {}
     for name, model in (("card", card_model), ("cpu", cpu_model)):
         t0 = time.perf_counter()
         st = engine.prefill(model, prompt[None],
-                            max_len=len(prompt) + I_REPLAY["steps"])
+                            max_len=len(prompt) + I_REPLAY["steps"], **kw)
         logits, toks = [st.last_logits[0].cpu()], []
         for _ in range(I_REPLAY["steps"]):
             tok = st.last_logits.argmax(-1)
@@ -3038,11 +3090,14 @@ def lm_path(torch, rec: PathRecorder):
 # ---------------------------------------------------------------- path j
 J_ARCH = "deepseek-v2-lite-16b"
 J_SLOTS = 12           # 16 decode rows: more than one row tile
-# prompt length, tokens, seed: buckets 8 to 256
-J_REQS = [(5, 16, 21), (250, 40, 22), (17, 48, 23), (60, 24, 24),
-          (9, 32, 25), (130, 16, 26), (33, 40, 27), (200, 24, 28),
-          (12, 48, 29), (90, 32, 30), (7, 20, 31), (240, 36, 32),
-          (40, 28, 33), (150, 44, 34), (20, 18, 35), (70, 30, 36)]
+# prompt length, tokens, seed: buckets 8 to 256.  212 tokens in all (496
+# before path l was added: each solo reference decodes on 16 rows at ~0.12
+# s a token, host-bound, so the cut saves ~30 s there and a few in the
+# service); the victim keeps 20 tokens, so it still runs at its chunk 2
+J_REQS = [(5, 8, 21), (250, 16, 22), (17, 20, 23), (60, 20, 24),
+          (9, 12, 25), (130, 8, 26), (33, 16, 27), (200, 10, 28),
+          (12, 20, 29), (90, 12, 30), (7, 8, 31), (240, 14, 32),
+          (40, 10, 33), (150, 18, 34), (20, 8, 35), (70, 12, 36)]
 J_UPFRONT = 6
 J_VICTIM = 3           # poisoned at its chunk 2, retried
 # j2: 24 + 8 = 32 tokens, one token a routing group in both runs (no
@@ -3079,11 +3134,15 @@ def j_weight_bounds(model) -> tuple:
     return every, routed
 
 
-def j_slots(torch, model, card):
-    """j1: deepseek-v2-lite-16b at full width in a 12-lane service (16
-    rows), one greedy run of 16 staggered requests with a lane poisoned at
-    its chunk 2 and retried, every completed request held to its solo
-    ``generate`` at the service's rows and cache capacity."""
+def slot_run(torch, model, card, label: str, reqs, slots: int,
+             upfront: int, victim: int | None = None):
+    """One greedy run of ``reqs`` through ``LMService(num_slots=slots,
+    chunk_steps=8, max_len=512)`` in slot mode, ``upfront`` requests up
+    front and one more after each step, request ``victim`` (if any)
+    poisoned at its chunk 2 and retried: every request completes equal to
+    its solo ``generate`` at the service's rows and cache capacity, token
+    for token; some request is admitted mid-decode; no set-up but the
+    decode chunk's; device memory back after the drain."""
     import numpy as np
 
     from repro_torch.models import transformer as tf
@@ -3091,8 +3150,7 @@ def j_slots(torch, model, card):
     from repro_torch.serve.lm_service import LMService
     from repro_torch.serve.scheduler import RequestFailure
 
-    reqs = j_requests(model.cfg)
-    rows = tf.decode_rows(J_SLOTS)
+    rows = tf.decode_rows(slots)
     solo = {}
     t0 = time.perf_counter()
     for i, (p, n, s) in enumerate(reqs):
@@ -3101,24 +3159,29 @@ def j_slots(torch, model, card):
                                   rows=rows)[0].cpu().numpy()
     torch.cuda.synchronize()
     n_solo = sum(n for _, n, _ in reqs)
-    print(f"j1 solo generates ({rows} rows): {n_solo} tokens in "
+    print(f"{label} solo generates ({rows} rows): {n_solo} tokens in "
           f"{time.perf_counter() - t0:.3f} s [{card}]")
-    inj = faults.FaultInjector(faults.FaultPlan(seed=0, faults=(
-        faults.Fault("poison", rid=J_VICTIM, at_chunk=2),)))
-    svc = LMService(model, num_slots=J_SLOTS, chunk_steps=I_CHUNK,
+    inj = None
+    if victim is not None:
+        inj = faults.FaultInjector(faults.FaultPlan(seed=0, faults=(
+            faults.Fault("poison", rid=victim, at_chunk=2),)))
+    svc = LMService(model, num_slots=slots, chunk_steps=I_CHUNK,
                     max_len=I_MAX_LEN, fault_injector=inj)
-    require(svc.slot_mode, "j1: deepseek-v2-lite-16b must run in slot mode")
-    require(svc.rows == rows, f"j1: the service runs {svc.rows} rows")
+    require(svc.slot_mode, f"{label}: {model.cfg.name} must run in slot "
+            "mode")
+    require(svc.rows == rows, f"{label}: the service runs {svc.rows} rows")
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     before = set(engine.trace_counts)
-    res, wall = i_drive(torch, svc, reqs, upfront=J_UPFRONT)
+    res, wall = i_drive(torch, svc, reqs, upfront=upfront)
     mem1 = torch.cuda.memory_allocated()
     new = set(engine.trace_counts) - before
     done = {i: r for i, r in res.items()
             if not isinstance(r, RequestFailure)}
     toks = sum(len(r.tokens) for r in done.values())
-    print(f"j1 run (greedy, request {J_VICTIM} poisoned at its chunk 2): "
+    poison = ("" if victim is None else
+              f", request {victim} poisoned at its chunk 2")
+    print(f"{label} run (greedy{poison}): "
           f"{len(done)} of {len(reqs)} completed, {toks} tokens in "
           f"{wall:.3f} s: {toks / wall:.1f} tokens/s; stats {svc.stats}; "
           f"new set-ups {sorted(new)}; memory {mem0} -> {mem1} bytes "
@@ -3135,17 +3198,30 @@ def j_slots(torch, model, card):
             first = int(np.argmax(r.tokens != solo[i]))
             print(f"    first differing token {first}: lane "
                   f"{r.tokens[first]}, solo {solo[i][first]}")
-    require(len(done) == len(reqs), "j1: a request did not complete")
+    require(len(done) == len(reqs), f"{label}: a request did not complete")
     require(all(np.array_equal(r.tokens, solo[i]) for i, r in done.items()),
-            "j1: a lane differs from its solo generate")
-    require(len(inj.fired) == 1, "j1: the poison did not fire once")
-    require(mem1 <= mem0, f"j1: memory {mem0} -> {mem1}")
+            f"{label}: a lane differs from its solo generate")
+    require(max(r.admitted_chunk for r in done.values()) > 0,
+            f"{label}: no request was admitted mid-decode")
+    if inj is not None:
+        require(len(inj.fired) == 1, f"{label}: the poison did not fire "
+                "once")
+    require(mem1 <= mem0, f"{label}: memory {mem0} -> {mem1}")
     # the solo references set up every bucket's prefill: the service sets
     # up its decode chunk once, at its first chunk, and nothing after it
-    want = {engine.lm_slot_trace_key(model.cfg.name, J_SLOTS, I_MAX_LEN,
+    want = {engine.lm_slot_trace_key(model.cfg.name, slots, I_MAX_LEN,
                                      I_CHUNK, 0.0)}
     require(new <= want and svc.stats["compiles"] == len(new),
-            f"j1: set-ups {new}, want at most {want}")
+            f"{label}: set-ups {new}, want at most {want}")
+
+
+def j_slots(torch, model, card):
+    """j1: deepseek-v2-lite-16b at full width in a 12-lane service (16
+    rows), one greedy run of 16 staggered requests with a lane poisoned at
+    its chunk 2 and retried (``slot_run``), then a timed and profiled
+    chunk beside the weight-read bounds."""
+    reqs = j_requests(model.cfg)
+    slot_run(torch, model, card, "j1", reqs, J_SLOTS, J_UPFRONT, J_VICTIM)
     i_decode_timing(torch, model, reqs, card, slots=J_SLOTS, label="j1")
     every, routed = j_weight_bounds(model)
     print(f"j1 weight-read bound a decode step: every expert "
@@ -3365,10 +3441,12 @@ def k_weight_bytes(model) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
-def k_decode_timing(torch, model, st, card, label: str) -> None:
+def k_decode_timing(torch, model, st, card, label: str,
+                    nbytes: int | None = None) -> None:
     """ms a step of a solo greedy decode (B = 1 on ``decode_rows(1)``
     rows) from the prefilled state ``st``, then a profiled window of
-    decode steps, beside a step's weight-read bound."""
+    decode steps, beside a step's read bound of ``nbytes`` (default
+    every weight, ``k_weight_bytes``)."""
     from repro_torch.models import transformer as tf
     from repro_torch.serve import engine
 
@@ -3385,9 +3463,9 @@ def k_decode_timing(torch, model, st, card, label: str) -> None:
     steps(K_TIMED)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / K_TIMED * 1e3
-    nbytes = k_weight_bytes(model)
+    nbytes = k_weight_bytes(model) if nbytes is None else nbytes
     print(f"{label} solo decode (B = 1, {tf.decode_rows(1)} rows): {ms:.3f} "
-          f"ms a step over {K_TIMED} steps; weight-read bound "
+          f"ms a step over {K_TIMED} steps; read bound "
           f"{nbytes / 1e9:.3f} GB -> {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
           f"a step (at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) [{card}]")
     profile_window(torch, f"{label} solo decode of {model.cfg.name}, "
@@ -3396,21 +3474,27 @@ def k_decode_timing(torch, model, st, card, label: str) -> None:
 
 
 def k_decode_vs_forward(torch, model, prompt, steps: int, cmp: int,
-                        served, label: str, card, f32_model=None):
+                        served, label: str, card, f32_model=None,
+                        prefill_kw=None, forward_kw=None):
     """Prefill ``prompt``, ``steps`` greedy decode steps equal to the
-    service's fallback tokens ``served``, the last ``cmp`` steps' logits
-    within I_RING_RTOL of max |logit| of one forward over the whole
-    sequence (both in the model's dtype).  With ``f32_model`` (the same
-    weights in float32) the bound is the larger of I_RING_RTOL and twice
-    the bfloat16 forward's own distance from the float32 forward on the
-    same tokens (K_NOISE).  Returns the decode's state."""
+    tokens ``served`` (the service's fallback, or a ``generate``), the
+    last ``cmp`` steps' logits within I_RING_RTOL of max |logit| of one
+    forward over the whole sequence (both in the model's dtype).  With
+    ``f32_model`` (the same weights in float32) the bound is the larger of
+    I_RING_RTOL and twice the bfloat16 forward's own distance from the
+    float32 forward on the same tokens (K_NOISE).  ``prefill_kw`` and
+    ``forward_kw`` are the prefill's and the forwards' other inputs
+    (frames, vision embeddings; float32 for the float32 forward).  Returns
+    the decode's state."""
     import numpy as np
 
     from repro_torch.serve import engine
 
+    prefill_kw, forward_kw = prefill_kw or {}, forward_kw or {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st = engine.prefill(model, prompt[None], max_len=len(prompt) + steps)
+    st = engine.prefill(model, prompt[None], max_len=len(prompt) + steps,
+                        **prefill_kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     print(f"{label} prefill of {len(prompt)} tokens: {secs:.3f} s, "
@@ -3421,17 +3505,18 @@ def k_decode_vs_forward(torch, model, prompt, steps: int, cmp: int,
         toks.append(int(tok[0]))
         st = engine.decode_step(model, tok[:, None], st)
         logits.append(st.last_logits[0].float())
-    require(toks == served.tolist(), f"{label}: the service's fallback "
-            "differs from prefill + decode")
-    full, _ = model(torch.as_tensor(np.r_[prompt, toks][None],
-                                    device=model.device))
+    require(toks == served.tolist(), f"{label}: the served tokens differ "
+            "from prefill + decode")
+    seq = torch.as_tensor(np.r_[prompt, toks][None], device=model.device)
+    full, _ = model(seq, **forward_kw)
     want = full[0, -cmp:].float()
     got = torch.stack(logits[-cmp:])
     err = (got - want).abs().max().item() / want.abs().max().item()
     tol = I_RING_RTOL
     if f32_model is not None:
-        ref = f32_model(torch.as_tensor(np.r_[prompt, toks][None],
-                                        device=model.device))[0][0, -cmp:]
+        ref = f32_model(seq, **{
+            k: v.float() if v.is_floating_point() else v
+            for k, v in forward_kw.items()})[0][0, -cmp:]
         scale = ref.abs().max().item()
         noise = (want - ref).abs().max().item() / scale
         print(f"{label}: the {model.cfg.param_dtype} forward vs the float32 "
@@ -3439,7 +3524,7 @@ def k_decode_vs_forward(torch, model, prompt, steps: int, cmp: int,
               f"the decode vs the float32 forward "
               f"{(got - ref).abs().max().item() / scale:.3e}")
         tol = max(tol, K_NOISE * noise)
-    print(f"{label}: {steps} decode steps equal the service's fallback; "
+    print(f"{label}: {steps} decode steps equal the served tokens; "
           f"last {cmp} decode logits vs a full forward over "
           f"{len(prompt) + steps} tokens ({model.cfg.param_dtype}): max "
           f"|diff| / max |logit| {err:.3e} (tol {tol:.3e}); argmax "
@@ -3526,7 +3611,8 @@ def k_model(torch, arch: str, card, label: str):
     torch.cuda.synchronize()
     kinds = tf.layer_kinds(cfg)
     tally = ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
-    print(f"{label}: {cfg.name}, {len(kinds)} layers ({tally}), "
+    enc = f" + {cfg.enc_layers} encoder layers" if cfg.enc_layers else ""
+    print(f"{label}: {cfg.name}, {len(kinds)} layers ({tally}){enc}, "
           f"{tf.count_params(model):,} parameters ({cfg.param_dtype}, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card), "
           f"initialised in {time.perf_counter() - t0:.2f} s [{card}]")
@@ -3604,6 +3690,306 @@ def recurrent_path(torch) -> float:
     secs = time.perf_counter() - t_path
     print(f"path k launches {counts}; {secs:.1f} s")
     require(not counts, "path k: it reaches no kernel, yet one was launched")
+    return secs
+
+
+# ---------------------------------------------------------------- path l
+L_WHISPER = dict(prompt=16, steps=32, compare=8)
+L_FRAME_SCALE = 0.05   # stub frames' scale (tests/test_decode_consistency.py)
+L_ENCODE_REPS = 5
+# prompt length, tokens, seed: whisper's two service requests (fallback),
+# then qwen2-vl's six staggered text requests (slot mode, buckets 8-256)
+L_SERVICE = [(5, 12, 51), (9, 16, 52)]
+L_REQS = [(5, 12, 61), (250, 16, 62), (17, 20, 63), (60, 12, 64),
+          (130, 16, 65), (33, 12, 66)]
+L_VISION = dict(prompt=64, patches=32, steps=16, compare=8)
+L_GRID, L_TEXT = (4, 8), (4, 12)   # l3: a 4 x 8 patch grid between text
+
+
+def l_frames(torch, model, seed: int):
+    """(1, enc_frames, d_model) stub frame embeddings, a standard normal
+    from ``seed`` on the card times L_FRAME_SCALE, in the model's
+    compute dtype."""
+    from repro_torch.models.layers import compute_dtype
+
+    cfg = model.cfg
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    frames = torch.randn((1, cfg.enc_frames, cfg.d_model), generator=g,
+                         device=model.device) * L_FRAME_SCALE
+    return frames.to(compute_dtype(cfg))
+
+
+def l_decode_bytes(model, st) -> int:
+    """Bytes a whisper decode step must read: the decoder's weights but
+    the cross ``wk`` / ``wv`` (applied once, at the prefill) and the
+    token table (gathered by row), the encoder's none, plus the cross
+    K/V of every layer in the cache ``st.cache``."""
+    def size(t):
+        return t.numel() * t.element_size()
+
+    dec = sum(size(p) for name, p in model.named_parameters()
+              if not name.startswith("encoder.")
+              and not name.endswith(("cross.wk", "cross.wv")))
+    dec -= size(model.embed.embedding)
+    return dec + sum(size(layer[k]) for layer in st.cache["layers"]
+                     for k in ("cross_k", "cross_v"))
+
+
+def l_whisper(torch, card) -> None:
+    """l1: whisper-medium at full width: the encoder's pass over 1,500
+    frames timed; ``generate(enc_frames=)`` on a 16-token prompt, 32
+    greedy steps, the last 8 against a full forward over the same frames;
+    two requests through ``LMService`` (the fallback, on the zero cross
+    cache) each equal to a direct ``generate``; a solo decode timed and
+    profiled beside its read bound."""
+    import numpy as np
+
+    from repro_torch.serve import engine
+    from repro_torch.serve.lm_service import LMService
+
+    model = k_model(torch, "whisper-medium", card, "l1")
+    cfg = model.cfg
+    frames = l_frames(torch, model, seed=7)
+    model.encode(frames)                                # warm
+    times = []
+    for _ in range(L_ENCODE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = model.encode(frames)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    require(enc.shape == (1, cfg.enc_frames, cfg.d_model)
+            and bool(torch.isfinite(enc).all()), "l1: encoder output")
+    print(f"l1 encoder: {cfg.enc_layers} layers over {cfg.enc_frames} "
+          f"frames ({frames.dtype}): {statistics.median(times) * 1e3:.3f} ms "
+          f"(median of {L_ENCODE_REPS}) [{card}]")
+    del enc
+    s, steps, cmp = (L_WHISPER["prompt"], L_WHISPER["steps"],
+                     L_WHISPER["compare"])
+    prompt = np.random.default_rng(s).integers(0, cfg.vocab_size, s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = engine.generate(model, prompt[None], steps=steps,
+                             enc_frames=frames)[0].cpu().numpy()
+    torch.cuda.synchronize()
+    print(f"l1 generate(enc_frames=): {s} + {steps} tokens in "
+          f"{time.perf_counter() - t0:.3f} s [{card}]")
+    m32 = k_float32(model)
+    st = k_decode_vs_forward(torch, model, prompt, steps, cmp, served, "l1",
+                             card, m32, prefill_kw={"enc_frames": frames},
+                             forward_kw={"enc_frames": frames})
+    del m32, st
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(2027)
+    reqs = [(rng.integers(0, cfg.vocab_size, n), k, seed)
+            for n, k, seed in L_SERVICE]
+    solo = [engine.generate(model, p[None], steps=k, seed=seed)[0]
+            .cpu().numpy() for p, k, seed in reqs]
+    svc = LMService(model, num_slots=K_SLOTS, chunk_steps=K_CHUNK)
+    require(not svc.slot_mode, "l1: an encoder-decoder must not run in "
+            "slot mode")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    rids = [svc.submit(p, k, seed=seed) for p, k, seed in reqs]
+    res = svc.run()
+    mem1 = torch.cuda.memory_allocated()
+    for i, rid in enumerate(rids):
+        same = np.array_equal(res[rid].tokens, solo[i])
+        print(f"  l1 service req {i}: prompt {len(reqs[i][0])} tokens "
+              f"{len(res[rid].tokens)} (zero cross cache): "
+              f"{'equal to' if same else 'DIFFERS from'} a direct generate")
+        require(same, f"l1 req {i}: the service differs from generate")
+    require(mem1 <= mem0, f"l1: memory {mem0} -> {mem1}")
+    st = engine.prefill(model, prompt[None],
+                        max_len=s + K_TIMED + 3 * K_PROFILED,
+                        enc_frames=frames)
+    k_decode_timing(torch, model, st, card, "l1 (cross cache of "
+                    f"{cfg.enc_frames} frames)", l_decode_bytes(model, st))
+    del model, st, frames
+
+
+def l_weight_bytes(model) -> int:
+    """Bytes a decode step must read: every weight but the token table
+    (gathered by row)."""
+    table = model.embed.embedding
+    return (k_weight_bytes(model) - table.numel() * table.element_size())
+
+
+def l_qwen(torch, card) -> None:
+    """l2: qwen2-vl-7b at full width: 6 staggered text requests through
+    ``LMService(num_slots=4, chunk_steps=8, max_len=512)`` in slot mode
+    (M-RoPE at 1-D positions; ``slot_run``); a
+    vision-conditioned ``generate`` held to a full forward with the same
+    patch embeddings; one decode chunk timed and profiled."""
+    import numpy as np
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine
+
+    model = k_model(torch, "qwen2-vl-7b", card, "l2")
+    cfg = model.cfg
+    rng = np.random.default_rng(2028)
+    reqs = [(rng.integers(0, cfg.vocab_size, n), k, seed)
+            for n, k, seed in L_REQS]
+    slot_run(torch, model, card, "l2", reqs, K_SLOTS, I_UPFRONT)
+
+    s, n_patch = L_VISION["prompt"], L_VISION["patches"]
+    steps, cmp = L_VISION["steps"], L_VISION["compare"]
+    prompt = np.random.default_rng(s).integers(0, cfg.vocab_size, s)
+    g = torch.Generator(device=model.device).manual_seed(8)
+    embeds = torch.zeros((1, s + steps, cfg.d_model), dtype=torch.bfloat16,
+                         device=model.device)
+    mask = torch.zeros((1, s + steps), dtype=torch.bool, device=model.device)
+    lo = (s - n_patch) // 2
+    embeds[0, lo:lo + n_patch] = torch.randn(
+        (n_patch, cfg.d_model), generator=g, device=model.device).to(
+            embeds.dtype)
+    mask[0, lo:lo + n_patch] = True
+    pre = {"vision_embeds": embeds[:, :s], "vision_mask": mask[:, :s]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = engine.generate(model, prompt[None], steps=steps,
+                             **pre)[0].cpu().numpy()
+    torch.cuda.synchronize()
+    print(f"l2 generate(vision_embeds=): {s} tokens ({n_patch} patch "
+          f"embeddings at positions {lo}..{lo + n_patch - 1}) + {steps} in "
+          f"{time.perf_counter() - t0:.3f} s [{card}]")
+    plain = engine.generate(model, prompt[None], steps=steps)[0].cpu().numpy()
+    require(not np.array_equal(served, plain), "l2: the patch embeddings "
+            "changed no token")
+    m32 = k_float32(model)
+    k_decode_vs_forward(torch, model, prompt, steps, cmp, served, "l2",
+                        card, m32, prefill_kw=pre,
+                        forward_kw={"vision_embeds": embeds,
+                                    "vision_mask": mask})
+    del m32
+    torch.cuda.empty_cache()
+    i_decode_timing(torch, model, reqs, card, slots=K_SLOTS, label="l2")
+    nbytes = l_weight_bytes(model)
+    print(f"l2 weight-read bound a decode step: {nbytes / 1e9:.2f} GB -> "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.2f} ms (at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); {tf.count_params(model):,} "
+          f"parameters")
+    del model
+
+
+def l_mrope_positions(grid=L_GRID, text=L_TEXT):
+    """(3, S) t/h/w positions of ``text[0]`` tokens, a patch grid and
+    ``text[1]`` tokens, as Qwen2-VL lays them out (text at t = h = w = its
+    index; a patch at the grid's start in t, plus its row in h and its
+    column in w; text after it from one past the largest), and the
+    patches' (S,) mask."""
+    import numpy as np
+
+    rows, cols = grid
+    t0 = text[0]
+    r, c = np.divmod(np.arange(rows * cols), cols)
+    patches = np.stack([np.full(rows * cols, t0), t0 + r, t0 + c])
+    start = patches.max() + 1
+    pos = np.concatenate([np.stack([np.arange(t0)] * 3), patches,
+                          np.stack([np.arange(start, start + text[1])] * 3)],
+                         axis=1)
+    mask = np.zeros(pos.shape[1], bool)
+    mask[t0:t0 + rows * cols] = True
+    return pos, mask
+
+
+def l_mrope_replay(torch, card) -> None:
+    """l3: qwen2-vl-7b at full width with 2 layers, float32, on the card
+    and the CPU: one forward at explicit (3, 1, S) positions with distinct
+    t/h/w streams (a 4 x 8 patch grid between text, patch embeddings from
+    a seed), every position's logits within I_REPLAY_RTOL and its argmax
+    equal (but at a tie)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b"), num_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    card_model = tf.init_lm(cfg, seed=2)
+    cpu_model = tf.LM(cfg, device="cpu")
+    cpu_model.load_state_dict(card_model.state_dict())
+    pos, mask = l_mrope_positions()
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, cfg.vocab_size, (1, pos.shape[1]))
+    embeds = rng.standard_normal((1, pos.shape[1], cfg.d_model)).astype(
+        np.float32)
+    print(f"l3: {cfg.name} x {cfg.num_layers} layers, "
+          f"{tf.count_params(cpu_model):,} float32 parameters on both; "
+          f"{pos.shape[1]} positions, t/h/w streams up to "
+          f"{pos.max(axis=1).tolist()}, patches at {int(mask.argmax())}.."
+          f"{int(mask.argmax()) + int(mask.sum()) - 1}")
+    out = {}
+    for name, model in (("card", card_model), ("cpu", cpu_model)):
+        t0 = time.perf_counter()
+        dev = model.device
+        logits, _ = model(
+            torch.as_tensor(toks, device=dev),
+            positions=torch.as_tensor(pos[:, None], device=dev),
+            vision_embeds=torch.as_tensor(embeds, device=dev),
+            vision_mask=torch.as_tensor(mask[None], device=dev))
+        out[name] = logits[0].cpu()
+        print(f"  {name}: {time.perf_counter() - t0:.2f} s"
+              f"{f' [{card}]' if name == 'card' else ''}")
+    lc, lh = out["card"], out["cpu"]
+    tol = I_REPLAY_RTOL * lh.abs().max(-1).values
+    err = (lc - lh).abs().max(-1).values
+    worst = int((err / tol).argmax())
+    print(f"  {len(lh)} positions: max |card - CPU| {err[worst]:.3e} (tol "
+          f"{tol[worst]:.3e}) at position {worst}, the largest share of "
+          f"its tolerance")
+    require(bool((err <= tol).all()), "l3: the M-RoPE forward's logits "
+            "differ")
+    top = torch.topk(lh, 2).values
+    ties = (top[:, 0] - top[:, 1]) <= tol
+    same = lc.argmax(-1) == lh.argmax(-1)
+    print(f"  argmax equal at {int(same.sum())} of {len(lh)} positions "
+          f"({int((~same & ties).sum())} differ at a tie)")
+    require(bool((same | ties).all()), "l3: a token differs beyond a tie")
+    del card_model
+
+
+def multimodal_path(torch) -> float:
+    """Path l: whisper-medium's encoder and cross cache and qwen2-vl-7b's
+    M-RoPE and vision inputs at full width, counts reset just before and
+    read just after (the path reaches no kernel).  Its models are freed
+    before it returns; returns its seconds."""
+    from repro_torch.kernels import ops
+
+    card = card_line()
+    ops.launch_counts.clear()
+    t_path = t0 = time.perf_counter()
+
+    def lap(label: str) -> None:
+        nonlocal t0
+        torch.cuda.synchronize()
+        print(f"{label}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    l_whisper(torch, card)
+    torch.cuda.empty_cache()
+    lap("l1")
+    l_qwen(torch, card)
+    torch.cuda.empty_cache()
+    lap("l2")
+    # a float32 cache: the two encoders differ by ~1e-4 (the sinusoid's
+    # exp rounds an ulp apart on the card and the CPU), and a bfloat16
+    # self cache turns such differences into a bfloat16 ulp where a value
+    # sits at a rounding boundary (1.6e-3 of max |logit| on flat logits,
+    # against 2.6e-6 with a float32 cache; PERF.md section 6)
+    i_replay(torch, card, "whisper-medium", "l3", layers=2, frames=True,
+             cache_dtype=torch.float32, enc_layers=2)
+    torch.cuda.empty_cache()
+    l_mrope_replay(torch, card)
+    torch.cuda.empty_cache()
+    lap("l3")
+    counts = dict(ops.launch_counts)
+    secs = time.perf_counter() - t_path
+    print(f"path l launches {counts}; {secs:.1f} s")
+    require(not counts, "path l: it reaches no kernel, yet one was launched")
     return secs
 
 
@@ -4712,6 +5098,7 @@ def main() -> int:
     lm_path(torch, recs[-1])
     deepseek_path(torch)
     k_secs = recurrent_path(torch)
+    l_secs = multimodal_path(torch)
     serial_vs_dist(torch, dist_fits)
     profiles(torch, dist_fits, serve)
     entries = check_kernels(torch, Timer(torch), recs)
@@ -4724,7 +5111,8 @@ def main() -> int:
     cpu, card_s = replay_secs[nu], replay_secs[nu + " (card)"]
     whole = cpu * FITS[0][2]["num_iters"] / steps
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all "
-          f"(build included); path k {k_secs:.1f} s; the CPU replay of "
+          f"(build included); path k {k_secs:.1f} s; path l {l_secs:.1f} "
+          f"s; the CPU replay of "
           f"{nu} {cpu:.1f} s and its rerun on the card {card_s:.1f} s, "
           f"against ~{whole:.1f} s for all {FITS[0][2]['num_iters']} "
           f"steps (linear in steps): the cut saves "

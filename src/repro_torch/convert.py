@@ -110,42 +110,73 @@ def _block_tree(block) -> dict:
     return tree
 
 
+def _unstack(stack, plan) -> list[dict]:
+    """A JAX stack's per-layer trees (head, the periods, tail): the
+    stacked period axis of ``stack["blocks"]`` unstacked."""
+    layers = list(stack["head"])
+    for p in range(plan.n_periods):
+        layers += [_tree_map(lambda leaf, p=p: leaf[p], stack["blocks"][j])
+                   for j in range(len(plan.period))]
+    return layers + list(stack["tail"])
+
+
+def _load_stack(blocks, final_norm, stack, plan, name: str, dev) -> None:
+    """Copy a JAX stack's weights into ``blocks`` (a ModuleList) and
+    ``final_norm``: every leaf of a block must have its parameter, and
+    every parameter its leaf."""
+    layers = _unstack(stack, plan)
+    if len(layers) != len(blocks):
+        raise ValueError(f"{len(layers)} layers in the tree, "
+                         f"{len(blocks)} in {name}")
+    for i, (block, src) in enumerate(zip(blocks, layers)):
+        leaves = dict(_leaves(src))
+        params = dict(block.named_parameters())
+        if leaves.keys() != params.keys():
+            raise ValueError(
+                f"layer {i}: leaves {sorted(leaves)} in the tree, "
+                f"parameters {sorted(params)} in {name}")
+        for pname, param in params.items():
+            param.copy_(_tensor_from_numpy(leaves[pname], dev))
+    final_norm.scale.copy_(_tensor_from_numpy(stack["final_norm"]["scale"],
+                                              dev))
+
+
+def _stack_tree(blocks, final_norm, plan) -> dict:
+    """A stack's weights as the JAX package's pytree of numpy (the period
+    axis stacked again)."""
+    trees = [_block_tree(b) for b in blocks]
+    nh, per = len(plan.head), len(plan.period)
+    body = trees[nh:nh + plan.n_periods * per]
+    stacked = [_tree_map(lambda *xs: np.stack(xs),
+                         *body[j::per]) if plan.n_periods else None
+               for j in range(per)]
+    return {"head": trees[:nh], "blocks": stacked,
+            "tail": trees[nh + plan.n_periods * per:],
+            "final_norm": {"scale": _numpy_from_tensor(final_norm.scale)}}
+
+
 def lm_params_from_jax(tree, cfg, device=None):
     """The port's model for ``cfg`` with the weights of the JAX package's
     ``init_lm`` pytree ``tree`` (leaves as numpy arrays, bfloat16 as
     ``ml_dtypes.bfloat16``): the stacked period axis of
-    ``tree["decoder"]["blocks"]`` is unstacked into the per-layer blocks,
-    in the JAX package's layer order (head, periods, tail).  Every leaf of
-    a block must have its parameter, and every parameter its leaf: a layer
-    without an MLP (mLSTM, sLSTM) carries its norm and mixer only, and a
-    leaf keeps its dtype (RG-LRU's ``lam`` is float32 in a bfloat16
-    model)."""
+    ``tree["decoder"]["blocks"]`` (and of an encoder-decoder's
+    ``tree["encoder"]``) is unstacked into the per-layer blocks, in the
+    JAX package's layer order (head, periods, tail).  Every leaf of a block
+    must have its parameter, and every parameter its leaf: a layer without
+    an MLP (mLSTM, sLSTM) carries its norm and mixer only, a decoder block
+    of an encoder-decoder its ``norm_x`` and ``cross`` too, and a leaf
+    keeps its dtype (RG-LRU's ``lam`` is float32 in a bfloat16 model)."""
     from repro_torch.models import transformer as tf
 
     model = tf.LM(cfg, device)
     dev = model.device
-    dec = tree["decoder"]
-    plan = tf.layer_plan(cfg)
-    layers = list(dec["head"])
-    for p in range(plan.n_periods):
-        layers += [_tree_map(lambda leaf, p=p: leaf[p], dec["blocks"][j])
-                   for j in range(len(plan.period))]
-    layers += list(dec["tail"])
-    if len(layers) != len(model.layers):
-        raise ValueError(f"{len(layers)} layers in the tree, "
-                         f"{len(model.layers)} in {cfg.name}")
     with torch.no_grad():
-        for i, (block, src) in enumerate(zip(model.layers, layers)):
-            leaves = dict(_leaves(src))
-            params = dict(block.named_parameters())
-            if leaves.keys() != params.keys():
-                raise ValueError(
-                    f"layer {i}: leaves {sorted(leaves)} in the tree, "
-                    f"parameters {sorted(params)} in {cfg.name}")
-            for name, param in params.items():
-                param.copy_(_tensor_from_numpy(leaves[name], dev))
-        model.final_norm.scale.copy_(
-            _tensor_from_numpy(dec["final_norm"]["scale"], dev))
+        _load_stack(model.layers, model.final_norm, tree["decoder"],
+                    tf.layer_plan(cfg), cfg.name, dev)
+        if model.encoder is not None:
+            enc = model.encoder
+            _load_stack(enc.layers, enc.final_norm, tree["encoder"],
+                        tf.layer_plan(enc.cfg), f"{cfg.name}'s encoder", dev)
         model.embed.embedding.copy_(
             _tensor_from_numpy(tree["embed"]["embedding"], dev))
         if model.embed.lm_head is not None:
@@ -159,18 +190,13 @@ def lm_params_to_numpy(model) -> dict:
     numpy arrays (the period axis stacked again)."""
     from repro_torch.models import transformer as tf
 
-    plan = tf.layer_plan(model.cfg)
-    blocks = [_block_tree(b) for b in model.layers]
-    nh, per = len(plan.head), len(plan.period)
-    body = blocks[nh:nh + plan.n_periods * per]
-    stacked = [_tree_map(lambda *xs: np.stack(xs),
-                         *body[j::per]) if plan.n_periods else None
-               for j in range(per)]
     embed = {"embedding": _numpy_from_tensor(model.embed.embedding)}
     if model.embed.lm_head is not None:
         embed["lm_head"] = _numpy_from_tensor(model.embed.lm_head)
-    return {"embed": embed, "decoder": {
-        "head": blocks[:nh], "blocks": stacked,
-        "tail": blocks[nh + plan.n_periods * per:],
-        "final_norm": {"scale": _numpy_from_tensor(
-            model.final_norm.scale)}}}
+    out = {"embed": embed, "decoder": _stack_tree(
+        model.layers, model.final_norm, tf.layer_plan(model.cfg))}
+    if model.encoder is not None:
+        enc = model.encoder
+        out["encoder"] = _stack_tree(enc.layers, enc.final_norm,
+                                     tf.layer_plan(enc.cfg))
+    return out

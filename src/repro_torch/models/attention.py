@@ -1,6 +1,7 @@
 """Attention: grouped-query attention with full, sliding-window and
-ring-buffer KV caches, and DeepSeek-V2's multi-head latent attention (MLA)
-with its compressed cache and absorbed decode: ``repro.models.attention``.
+ring-buffer KV caches, whisper's cross attention with its static cache, and
+DeepSeek-V2's multi-head latent attention (MLA) with its compressed cache
+and absorbed decode: ``repro.models.attention``.
 
 Training and prefill attention is query-chunked (``_pick_chunk``: exact,
 a row softmax a chunk), so a long prompt never holds an S x S score
@@ -15,6 +16,7 @@ them, ``repro_torch.models.transformer.init_stack_cache``):
   full    {k, v: (B, KV, T_max, Dh)}
   window  {k, v: (B, KV, W, Dh), pos: (B, W)}      (ring buffer)
   MLA     {c_kv: (B, T_max, kv_lora), k_rope: (B, T_max, rope)}
+  cross   {cross_k, cross_v: (B, KV, T_enc, Dh)}    (beside a layer's own)
 
 K and V are stored in the cache's dtype (bfloat16 by default, even under
 float32 parameters), cast where the JAX package casts them.  Every batch
@@ -169,6 +171,64 @@ class GQAttention(nn.Module):
         h, dh, d = self.wo.shape
         return matmul(out.reshape(b * s, h * dh),
                       self.wo.reshape(h * dh, d)).reshape(b, s, d)
+
+
+class CrossAttention(GQAttention):
+    """Decoder-to-encoder attention (``init_cross``, ``gqa_attention(
+    cross_kv=)``): GQA's weights; q from the decoder's stream, K and V
+    from the encoder's output (or the cross cache); no RoPE and no mask,
+    every encoder frame visible to every query."""
+
+    def forward(self, x, *, enc_out=None, cache=None,
+                lanes: int | None = None):
+        """Returns the (B, S, D) output.
+
+        With ``enc_out`` (B, T_enc, D), K and V are its projections, and a
+        given cache keeps them, in the activations' dtype whatever the
+        cache's (the JAX package's prefill stores them uncast).  Without
+        it they are the cache's (a decode; or a forward before any frames,
+        against the zeros ``init_cross_cache`` made).  A decode (S == 1
+        with a cache) runs its two products row by row
+        (``decode_attention``), the rows after ``lanes`` padding (zero
+        output), as ``GQAttention``'s decode."""
+        b, s, _ = x.shape
+        q = self._project(x, self.wq)
+        if enc_out is not None:
+            k, v = self._project(enc_out, self.wk), self._project(
+                enc_out, self.wv)
+            if cache is not None:
+                cache["cross_k"] = k.transpose(1, 2).contiguous()
+                cache["cross_v"] = v.transpose(1, 2).contiguous()
+        elif cache is None:
+            raise ValueError("cross attention needs the encoder's output "
+                             "or a cross cache")
+        else:
+            k = cache["cross_k"].transpose(1, 2)
+            v = cache["cross_v"].transpose(1, 2)
+        t = k.shape[1]
+        if cache is not None and s == 1:
+            n = b if lanes is None else lanes
+            out = torch.zeros((b, 1) + q.shape[2:],
+                              dtype=cache["cross_v"].dtype, device=x.device)
+            out[:n, 0] = decode_attention(
+                q[:n, 0], cache["cross_k"], cache["cross_v"],
+                torch.ones((n, t), dtype=torch.bool, device=x.device))
+        else:
+            out = dot_attention(
+                q, k, v, torch.zeros((s,), dtype=torch.long, device=x.device),
+                torch.arange(t, device=x.device), causal=False, window=0)
+        h, dh, d = self.wo.shape
+        return matmul(out.reshape(b * s, h * dh),
+                      self.wo.reshape(h * dh, d)).reshape(b, s, d)
+
+
+def init_cross_cache(cfg, batch: int, cross_len: int, *,
+                     dtype=torch.bfloat16, device=None) -> dict:
+    """Zero cross K/V (``init_block_cache(cross_len=)``), laid out as the
+    self-attention cache, (B, KV, T_enc, Dh)."""
+    shape = (batch, cfg.num_kv_heads, cross_len, cfg.head_dim)
+    return {"cross_k": torch.zeros(shape, dtype=dtype, device=device),
+            "cross_v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def _prefill_write(cache, k, v, q_pos) -> None:

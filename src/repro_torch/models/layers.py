@@ -1,5 +1,6 @@
-"""Common layers of the dense decoder: RMSNorm, rotary embeddings (full
-and partial), GLU MLPs and the token embedding with its LM head.
+"""Common layers: RMSNorm, rotary embeddings (full, partial and Qwen2-VL's
+M-RoPE), whisper's sinusoidal positions, GLU MLPs and the token embedding
+with its LM head.
 
 The port of ``repro.models.layers``.  Parameters keep the JAX package's
 layouts (``w_gate`` is ``(d_model, d_ff)``, the embedding ``(V, d_model)``)
@@ -80,16 +81,52 @@ def rope_frequencies(head_rot: int, theta: float,
     return 1.0 / (theta ** exponent)                  # (head_rot/2,)
 
 
+def default_mrope_sections(head_rot_half: int) -> tuple[int, int, int]:
+    """M-RoPE's (t, h, w) split of the rotated half-dims: Qwen2-VL's (16,
+    24, 24) at half-dim 64, scaled proportionally."""
+    t = head_rot_half // 4
+    h = (head_rot_half - t) // 2
+    return (t, h, head_rot_half - t - h)
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int, *, theta: float,
-                fraction: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
-    """(sin, cos) of the rotary angles at (B, S) integer positions, each
-    (B, S, 1, rot/2), for the first ``fraction * head_dim`` dims (ChatGLM's
-    partial RoPE).  A forward computes them once for all its layers."""
+                fraction: float = 1.0,
+                mrope_sections: tuple[int, ...] | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sin, cos) of the rotary angles, each (B, S, 1, rot/2), for the
+    first ``fraction * head_dim`` dims (ChatGLM's partial RoPE).
+    ``positions`` are (B, S) integers, or (3, B, S) t/h/w streams for
+    M-RoPE with ``mrope_sections``, the k-th of which takes its run of
+    the rotated half-dims' frequencies at stream k's positions (equal
+    streams give the 1-D tables bit for bit).  A forward computes them
+    once for all its layers."""
     rot = int(head_dim * fraction)
     rot -= rot % 2
     inv_freq = rope_frequencies(rot, theta, positions.device)
-    angles = (positions[..., None].float() * inv_freq)[:, :, None, :]
+    if mrope_sections is None:
+        angles = positions[..., None].float() * inv_freq
+    else:
+        parts, start = [], 0
+        for sec, pos in zip(mrope_sections, positions):
+            parts.append(pos[..., None].float() * inv_freq[start:start + sec])
+            start += sec
+        angles = torch.cat(parts, dim=-1)
+    angles = angles[:, :, None, :]
     return torch.sin(angles), torch.cos(angles)
+
+
+def sinusoidal_positions(positions: torch.Tensor,
+                         d_model: int) -> torch.Tensor:
+    """Rows (..., d_model) float32 of the JAX package's sinusoidal table
+    at integer ``positions``: sin at even columns, cos at odd, of
+    ``pos * exp(2i * -ln(10000) / d_model)``, computed for these positions
+    only (no table)."""
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=positions.device)
+                    * (-math.log(10000.0) / d_model))
+    angles = positions[..., None].float() * div
+    return torch.stack([torch.sin(angles), torch.cos(angles)],
+                       dim=-1).reshape(positions.shape + (d_model,))
 
 
 def apply_rope(x: torch.Tensor, sin: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Model assembly for the decoder-only families: the counterpart of
-``repro.models.transformer``.
+"""Model assembly, decoder-only (every family) and encoder-decoder
+(whisper): the counterpart of ``repro.models.transformer``.
 
 The JAX package scans a stacked period of blocks; here the stack is an
 ``nn.ModuleList`` of per-layer ``Block``s in the same order (head, the
@@ -14,10 +14,19 @@ it.  Block kinds (``cfg.block_pattern``, ``layer_kinds``):
   slstm       sLSTM block (ditto)
 
 ``first_dense_layers`` head layers take a dense GLU of ``d_ff``, the
-others ``cfg.mlp_kind`` (DeepSeek-V2: layer 0 dense, the rest MoE).  What
-the port cannot run yet (the encoder-decoder, vision inputs and M-RoPE)
-is refused when a model is built, never run as something that differs
-from the JAX model.
+others ``cfg.mlp_kind`` (DeepSeek-V2: layer 0 dense, the rest MoE).
+
+An encoder-decoder (``cfg.is_encoder_decoder``, whisper) adds an
+``Encoder`` (``enc_layers`` bidirectional attention blocks over stub frame
+embeddings plus sinusoidal positions, no RoPE) and gives every decoder
+block a cross attention (``norm_x``, ``cross``) between its mixer and its
+MLP; the decoder adds sinusoidal rows at its positions after the token
+embedding.  The cross K/V are computed from the encoder's output at a
+prefill and kept in the cache for the decode.  A vision-language config
+(``cfg.vision_embeds``, qwen2-vl) takes patch embeddings in place of the
+token embeddings where a mask is set, and M-RoPE (``rope_kind="mrope"``)
+rotates by (3, B, S) t/h/w positions; 1-D positions stand for three equal
+streams, and the attention mask reads stream 0.
 
 Decode (one token a row against a cache) runs on a row-padded batch of
 ``rows`` rows (default ``decode_rows(B)``, a multiple of
@@ -38,6 +47,7 @@ counts is not a contract for them.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -47,12 +57,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (GLUMLP, Embedding, RMSNorm,
-                                      rope_tables)
+                                      default_mrope_sections, rope_tables,
+                                      sinusoidal_positions)
 from repro_torch.models.moe import MoE
 
 DECODE_ROW_TILE = 8
 
-_ROADMAP = "ROADMAP.md queue 1 item 5"
 _HAS_MLP = {"attn", "local_attn", "rglru"}
 # recurrent kind -> (mixer, its cache)
 _RECURRENT = {"rglru": (ssm.RGLRU, ssm.init_rglru_cache),
@@ -64,21 +74,6 @@ def decode_rows(batch: int) -> int:
     """Rows a decode step computes for ``batch`` rows: a multiple of
     ``DECODE_ROW_TILE``."""
     return -(-batch // DECODE_ROW_TILE) * DECODE_ROW_TILE
-
-
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for a config the port cannot run yet."""
-    why = []
-    if cfg.is_encoder_decoder:
-        why.append("an encoder-decoder")
-    if cfg.vision_embeds:
-        why.append("vision embeddings")
-    if cfg.rope_kind == "mrope":
-        why.append("M-RoPE")
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name}: the port does not run {', '.join(why)} yet "
-            f"(decoder-only families; see {_ROADMAP})")
 
 
 class LayerPlan(NamedTuple):
@@ -127,10 +122,12 @@ def layer_mlps(cfg) -> list[str | None]:
 
 class Block(nn.Module):
     """Pre-norm block of one kind (``init_block`` / ``apply_block``): the
-    mixer (GQA, MLA, RG-LRU, mLSTM or sLSTM) and its residual, then, for
+    mixer (GQA, MLA, RG-LRU, mLSTM or sLSTM) and its residual; with
+    ``cross``, a cross attention to the encoder and its residual; then, for
     the kinds that have one, a GLU or MoE MLP and its residual."""
 
-    def __init__(self, cfg, device, kind: str, mlp: str | None):
+    def __init__(self, cfg, device, kind: str, mlp: str | None,
+                 cross: bool = False):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
@@ -143,6 +140,10 @@ class Block(nn.Module):
             self.mixer = _RECURRENT[kind][0](cfg, device)
         else:
             raise ValueError(f"block kind {kind!r}")
+        self.norm_x = self.cross = None
+        if cross:
+            self.norm_x = RMSNorm(cfg.d_model, cfg, device)
+            self.cross = attn.CrossAttention(cfg, device)
         self.norm2 = self.mlp = None
         if kind in _HAS_MLP:
             self.norm2 = RMSNorm(cfg.d_model, cfg, device)
@@ -153,11 +154,13 @@ class Block(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.mixer.reset_parameters(generator)
+        if self.cross is not None:
+            self.cross.reset_parameters(generator)
         if self.mlp is not None:
             self.mlp.reset_parameters(generator)
 
     def forward(self, x, *, positions, rope, cache=None, index=None,
-                lanes=None):
+                lanes=None, enc_out=None):
         h = self.norm1(x)
         if isinstance(self.mixer, attn.MLAttention):
             out = self.mixer(h, positions=positions, rope=rope, cache=cache,
@@ -170,6 +173,9 @@ class Block(nn.Module):
         else:
             out = self.mixer(h, cache=cache)
         x = x + out
+        if self.cross is not None:
+            x = x + self.cross(self.norm_x(x), enc_out=enc_out, cache=cache,
+                               lanes=lanes)
         if self.mlp is None:
             return x
         h = self.norm2(x)
@@ -181,20 +187,63 @@ class Block(nn.Module):
         return x + self.mlp(h)
 
 
+def encoder_cfg(cfg):
+    """The encoder's config (``_encoder_cfg``): ``enc_layers`` attention
+    blocks, no window, no RoPE."""
+    return dataclasses.replace(cfg, num_layers=cfg.enc_layers,
+                               block_pattern=("attn",),
+                               first_dense_layers=0, window=0,
+                               rope_kind="none")
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder (``encode``): frames plus sinusoidal positions,
+    ``enc_layers`` attention blocks with their MLPs, its own final norm.
+    Bidirectional as in the JAX package: every query stands at position
+    T - 1, so the causal mask hides nothing."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        self.cfg = encoder_cfg(cfg)
+        self.layers = nn.ModuleList(
+            Block(self.cfg, device, kind, mlp)
+            for kind, mlp in zip(layer_kinds(self.cfg),
+                                 layer_mlps(self.cfg)))
+        self.final_norm = RMSNorm(cfg.d_model, self.cfg, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for block in self.layers:
+            block.reset_parameters(generator)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        """(B, T_enc, D) frame embeddings -> (B, T_enc, D), in the
+        frames' dtype where the weights' do not promote it."""
+        b, t, _ = frames.shape
+        pe = sinusoidal_positions(torch.arange(t, device=frames.device),
+                                  self.cfg.d_model)
+        x = frames + pe.to(frames.dtype)
+        positions = torch.full((b, t), t - 1, device=frames.device)
+        for block in self.layers:
+            x = block(x, positions=positions, rope=None)
+        return self.final_norm(x)
+
+
 class LM(nn.Module):
-    """A decoder LM: embedding, ``num_layers`` blocks, final norm, LM head
-    (tied to the embedding where the config says so)."""
+    """An LM: embedding, ``num_layers`` decoder blocks, final norm, LM
+    head (tied to the embedding where the config says so), and for an
+    encoder-decoder the ``encoder``."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = Embedding(cfg, dev)
         self.layers = nn.ModuleList(
-            Block(cfg, dev, kind, mlp)
+            Block(cfg, dev, kind, mlp, cross=cfg.is_encoder_decoder)
             for kind, mlp in zip(layer_kinds(cfg), layer_mlps(cfg)))
         self.final_norm = RMSNorm(cfg.d_model, cfg, dev)
+        self.encoder = (Encoder(cfg, dev) if cfg.is_encoder_decoder
+                        else None)
 
     @property
     def device(self) -> torch.device:
@@ -205,10 +254,20 @@ class LM(nn.Module):
         self.embed.reset_parameters(generator)
         for block in self.layers:
             block.reset_parameters(generator)
+        if self.encoder is not None:
+            self.encoder.reset_parameters(generator)
+
+    @torch.no_grad()
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder's output over (B, T_enc, D) frame embeddings."""
+        if self.encoder is None:
+            raise ValueError(f"{self.cfg.name} has no encoder")
+        return self.encoder(frames)
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *, cache=None, positions=None,
-                rows: int | None = None):
+                rows: int | None = None, enc_frames=None,
+                vision_embeds=None, vision_mask=None):
         """Returns (logits (B, S, padded_vocab), cache).
 
         Without a cache: the causal forward at positions ``arange(S)``.
@@ -218,8 +277,22 @@ class LM(nn.Module):
         ``positions`` (B, 1) gives each row its own position (default: the
         cache's index), and every row writes at its own cache index, which
         then advances by one.  The cache is updated in place and
-        returned."""
+        returned.
+
+        ``positions`` may be (3, B, S) t/h/w streams for M-RoPE.
+        ``vision_embeds`` (B, S, D) replace the token embeddings where
+        ``vision_mask`` (B, S) is set (a vision config; not in a decode).
+        An encoder-decoder encodes ``enc_frames`` (B, T_enc, D) and fills
+        the cache's cross K/V with them; without frames it attends the
+        cache's cross K/V (zeros before any frames, as the JAX package's
+        service decodes), and without frames or cache it raises
+        ValueError."""
+        cfg = self.cfg
         b, s = tokens.shape
+        if (cfg.is_encoder_decoder and enc_frames is None
+                and cache is None):
+            raise ValueError(f"{cfg.name}: a forward without a cache needs "
+                             "enc_frames")
         if positions is None:
             if cache is not None and s == 1:
                 positions = cache["index"][:, None]
@@ -234,25 +307,40 @@ class LM(nn.Module):
                 raise ValueError(f"rows={rows} is fewer than the batch's "
                                  f"{b} rows")
             tokens = torch.cat([tokens, tokens.new_zeros((rows - b, 1))])
-            positions = torch.cat([positions,
-                                   positions.new_zeros((rows - b, 1))])
-        cfg = self.cfg
+            positions = torch.cat([positions, positions.new_zeros(
+                positions.shape[:-2] + (rows - b, 1))], dim=-2)
+        if cfg.rope_kind == "mrope" and positions.dim() == 2:
+            positions = positions[None].expand((3,) + positions.shape)
+        pos1d = positions[0] if positions.dim() == 3 else positions
         if cfg.rope_kind == "none":         # nothing rotates
             rope = None
         elif cfg.attention_kind == "mla":   # only mla_rope_dim dims rotate
-            rope = rope_tables(positions, cfg.mla_rope_dim,
+            rope = rope_tables(pos1d, cfg.mla_rope_dim,
                                theta=cfg.rope_theta)
-        else:
+        elif cfg.rope_kind == "mrope":
+            rot = int(cfg.head_dim * cfg.rope_fraction)
             rope = rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta,
+                               fraction=cfg.rope_fraction,
+                               mrope_sections=default_mrope_sections(rot // 2))
+        else:
+            rope = rope_tables(pos1d, cfg.head_dim, theta=cfg.rope_theta,
                                fraction=(cfg.rope_fraction
                                          if cfg.rope_kind == "partial"
                                          else 1.0))
         x = self.embed.embed(tokens)
+        if cfg.vision_embeds and vision_embeds is not None:
+            x = torch.where(vision_mask[..., None],
+                            vision_embeds.to(x.dtype), x)
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            x = x + sinusoidal_positions(pos1d, cfg.d_model).to(x.dtype)
+            if enc_frames is not None:
+                enc_out = self.encoder(enc_frames)
         for i, block in enumerate(self.layers):
-            x = block(x, positions=positions, rope=rope,
+            x = block(x, positions=pos1d, rope=rope,
                       cache=None if cache is None else cache["layers"][i],
                       index=None if cache is None else cache["index"],
-                      lanes=lanes)
+                      lanes=lanes, enc_out=enc_out)
         logits = self.embed.unembed(self.final_norm(x))
         if cache is not None:
             cache["index"] += s
@@ -276,14 +364,20 @@ def init_layer_cache(kind: str, cfg, batch: int, t_max: int, *,
     return _RECURRENT[kind][1](cfg, batch, device)
 
 
-def init_stack_cache(cfg, batch: int, t_max: int, *,
+def init_stack_cache(cfg, batch: int, t_max: int, *, cross_len: int = 0,
                      cache_dtype=torch.bfloat16, device=None) -> dict:
-    """{"layers": one cache a layer (``init_layer_cache``), "index":
-    (batch,) int32}."""
+    """{"layers": one cache a layer (``init_layer_cache``, with zero cross
+    K/V of ``cross_len`` frames beside each layer's own when given),
+    "index": (batch,) int32}."""
     dev = resolve_device(device)
-    return {"layers": [init_layer_cache(kind, cfg, batch, t_max,
-                                        cache_dtype=cache_dtype, device=dev)
-                       for kind in layer_kinds(cfg)],
+    layers = [init_layer_cache(kind, cfg, batch, t_max,
+                               cache_dtype=cache_dtype, device=dev)
+              for kind in layer_kinds(cfg)]
+    if cross_len:
+        for layer in layers:
+            layer.update(attn.init_cross_cache(cfg, batch, cross_len,
+                                               dtype=cache_dtype, device=dev))
+    return {"layers": layers,
             "index": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 

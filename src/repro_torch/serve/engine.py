@@ -22,7 +22,10 @@ REWOUND to the true length, so decode masks the pad entries out
 entry exactly when its position would first become attendable.  Ring
 buffers and recurrent states absorb prompt tokens order-dependently (a
 pad token would enter them), so window and recurrent configs take the
-exact-length prefill (``_can_bucket``).
+exact-length prefill (``_can_bucket``), as does the encoder-decoder and
+any call with frames or vision embeddings.  An encoder-decoder's cache
+holds zero cross K/V of ``enc_frames`` frames until a prefill with frames
+fills them.
 
 The JAX package counts jit traces in ``trace_counts``; the port has no
 jit, so ``trace_counts`` tallies set-ups under the same keys: a key is
@@ -83,21 +86,39 @@ class ServeState(NamedTuple):
 
 def init_cache(model, batch: int, max_len: int,
                cache_dtype=torch.bfloat16) -> dict:
-    return tf.init_stack_cache(model.cfg, batch, max_len,
-                               cache_dtype=cache_dtype, device=model.device)
+    """An empty stack cache; an encoder-decoder's holds zero cross K/V of
+    ``enc_frames`` frames."""
+    cfg = model.cfg
+    return tf.init_stack_cache(
+        cfg, batch, max_len,
+        cross_len=cfg.enc_frames if cfg.is_encoder_decoder else 0,
+        cache_dtype=cache_dtype, device=model.device)
 
 
 def _tokens(model, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, dtype=torch.long, device=model.device)
 
 
+def _inputs(model, **arrays) -> dict:
+    """The given arrays (numpy or tensors) as tensors on the model's
+    device, in their own dtypes; None stays None."""
+    return {name: None if a is None else torch.as_tensor(
+        a, device=model.device) for name, a in arrays.items()}
+
+
 @torch.no_grad()
-def prefill(model, tokens, *, max_len: int,
+def prefill(model, tokens, *, max_len: int, enc_frames=None,
+            vision_embeds=None, vision_mask=None,
             cache_dtype=torch.bfloat16) -> ServeState:
+    """Prompt (B, S) into a fresh cache of ``max_len`` positions; an
+    encoder-decoder's frames fill its cross K/V, a vision config's
+    embeddings replace the masked tokens' (``LM.forward``)."""
     tokens = _tokens(model, tokens)
     b, s = tokens.shape
     cache = init_cache(model, b, max_len, cache_dtype)
-    logits, cache = model(tokens, cache=cache)
+    logits, cache = model(tokens, cache=cache, **_inputs(
+        model, enc_frames=enc_frames, vision_embeds=vision_embeds,
+        vision_mask=vision_mask))
     return ServeState(cache=cache, last_logits=logits[:, -1],
                       pos=torch.full((b,), s, dtype=torch.int32,
                                      device=model.device))
@@ -206,12 +227,14 @@ def _decode_loop(model, state: ServeState, steps: int, temperature: float,
 def generate(model, prompt_tokens, *, steps: int, temperature: float = 0.0,
              seed: int = 0, max_len: int | None = None,
              bucket_prompts: bool = True, gumbel=None,
-             rows: int | None = None) -> torch.Tensor:
+             rows: int | None = None, enc_frames=None, vision_embeds=None,
+             vision_mask=None) -> torch.Tensor:
     """Batched generation; returns (B, steps) generated token ids.
 
     Prompts are padded to the pow-2 length bucket and prefilled at its
     length (exact, see the module docstring) whenever the cache family
-    allows it; window and recurrent configs and an explicit ``max_len``
+    allows it; window, recurrent and encoder-decoder configs, calls with
+    frames or vision embeddings (``prefill``) and an explicit ``max_len``
     below the bucket take the exact-length prefill.  The default
     ``max_len`` is s_bucket + steps (s + steps unbucketed).  ``gumbel``
     (steps, B, V) replays given noise in place of the draws from
@@ -221,7 +244,8 @@ def generate(model, prompt_tokens, *, steps: int, temperature: float = 0.0,
     prompt_tokens = _tokens(model, prompt_tokens)
     b, s = prompt_tokens.shape
     s_b = prompt_bucket(s)
-    if (bucket_prompts and _can_bucket(model.cfg)
+    if (bucket_prompts and _can_bucket(model.cfg) and enc_frames is None
+            and vision_embeds is None
             # an explicit max_len smaller than the bucket cannot hold
             # the padded prompt -- honor it via the exact-length path
             and (max_len is None or max_len >= s_b)):
@@ -230,7 +254,9 @@ def generate(model, prompt_tokens, *, steps: int, temperature: float = 0.0,
         state = _prefill_bucketed(model, toks, s, max_len=max_len)
     else:
         max_len = max_len or (s + steps)
-        state = prefill(model, prompt_tokens, max_len=max_len)
+        state = prefill(model, prompt_tokens, max_len=max_len,
+                        enc_frames=enc_frames, vision_embeds=vision_embeds,
+                        vision_mask=vision_mask)
     return _decode_loop(model, state, steps, temperature,
                         _generator(seed, model.device), gumbel, rows)
 
