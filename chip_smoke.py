@@ -8,7 +8,7 @@ no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- twelve paths, each driven with the launch counts reset
+  2. paths      -- thirteen paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -52,11 +52,11 @@ no CPU fallback):
           printed.
        f. real collectives: ``distributed.solve_distributed(mesh=...)``
           with one client a process.  NCCL at world size 1 in this
-          process on Figure 3's data (600 steps, bit-equal to the serial
+          process on Figure 3's data (200 steps, bit-equal to the serial
           ``saddle.solve``); then one spawn of 20 gloo ranks over CUDA
           tensors on the one card (NCCL refuses two ranks on one card):
-          Figure 3 at k = 20 on path b's first 120 draws, Figure 3 (600
-          steps) and Figure 4 (200 steps) at k = 4 on ranks 0-3, each
+          Figure 3 at k = 20 on path b's first 40 draws, Figure 3 (200
+          steps) and Figure 4 (40 steps) at k = 4 on ranks 0-3, each
           within 1e-4 of the simulated solve with the same draws; on
           ranks 0-1 two chunks of 64 steps of an 8-lane 8,192 x 256
           serving bucket point-sharded (within 1e-5 of the unsharded
@@ -146,7 +146,8 @@ no CPU fallback):
           on gemma-7b's pooled logits (the JAX package's
           ``examples/svm_probe_lm.py``: 2 x 100 sequences of 24 tokens
           from two vocabulary ranges, features ``logits.mean(1)[:,
-          :128]``), ``SaddleNuSVC(alpha=0.6, num_iters=6000)`` on the
+          :128]``), ``SaddleNuSVC(alpha=0.6, num_iters=3000)`` (the
+          example's 6,000 cut) on the
           card (kernels 1-3, recorded for phase 5), train and test
           accuracy, and the fit replayed on the CPU with the card's
           coordinates (w and b within 1e-4).  i2: h2o-danube-1.8b at full
@@ -254,6 +255,32 @@ no CPU fallback):
           patch embeddings, 12 text tokens), every position's logits
           within 1e-4 of its max |logit| and its argmax equal (but at a
           tie).
+       m. training (``repro_torch.train``, the examples ``train_lm`` and
+          ``train_svm_e2e``).  m1: ``train_lm --full`` at h2o-danube-1.8b's
+          published widths (24 layers, d 2,560, 32 heads / 8 KV heads of
+          80, SwiGLU 6,912, vocab 32,000 untied; 1.831 B bfloat16
+          parameters, float32 AdamW state, every block rematerialised),
+          B = 4, S = 1,024 from ``TokenPipeline(seed=0)``, 8 steps at the
+          JAX script's settings (lr 1e-3, warm-up 20): every loss and grad
+          norm finite, the last loss below the first, one eval step; ms a
+          step (median of steps 2-8), tokens a second, peak memory against
+          the 29.3 GB of parameters, grads and AdamW state, a 2-step
+          profiled window (device launches, idle share, device ms) beside
+          the step's bound (8 N tokens bf16 FLOPs at the dense bf16 peak
+          plus the float32 score products at the float32 peak).  m2: a
+          float32 train step of reduced h2o-danube-1.8b (S = 80, past its
+          window of 64), deepseek-v2-lite-16b (MLA, MoE, a non-zero aux)
+          and xlstm-125m on the card and the CPU from the same weights and
+          batches: loss, ce, aux and grad norm within 1e-5 relative, every
+          grad within 1e-4 of its leaf's max |g|, the parameters after
+          step 1 within 1e-6 where |g| is above 1e-3 of the leaf's max
+          (Adam's first step moves a weight by about lr whatever its
+          grad's size), the losses of 3 steps within 1e-4 relative.  m3:
+          ``train_svm_e2e``'s default nu fit (non_separable(20000, 256),
+          10 % held out) on the card, --iters cut from 20,000 to 2,000:
+          the objective falls and never rises above its first record, the
+          checkpoint (in a temporary directory) restores w_ and b_ bit for
+          bit; its kernel calls (rows 1-3) are recorded for phase 5.
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -315,7 +342,7 @@ no CPU fallback):
   6. card vs CPU -- a serial fit (n=4,000, d=128, 2,000 iterations) on the
                    card and on the CPU with the same signs and schedule;
                    the serial fits of paths a and d (path a's nu fit over
-                   its first 2,000 of 8,000 steps, a cut of depth, and
+                   its first 1,000 of 8,000 steps, a cut of depth, and
                    the B=40,000 one, whose rounding a block of most of d
                    amplifies, over its first 8, each run again on the
                    card over those steps, w, the history and, for the nu
@@ -324,8 +351,9 @@ no CPU fallback):
                    path e replayed on the CPU with the coordinates the
                    card sampled.
 
-A line before the last gives the script's seconds in all, paths k's and
-l's and the nu fit's CPU replay's; then the card's name and power limit.  The
+A line before the last gives the script's seconds in all, paths k's, l's
+and m's and the nu fit's CPU replay's; then the card's name and power
+limit.  The
 next-to-last line of standard output is a JSON object listing every
 kernel at every path shape with its launches, error, times and bound;
 the last line is ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -1010,8 +1038,9 @@ WIDE_FITS = (
 # (1e-4 apart after 8 steps), is printed.  Path a's nu fit is a cut of
 # depth, not of accuracy: its CPU replay of all 8,000 steps took 107.4 s
 # of the script's 1,200 on a slow host, so the CPU replays its first
-# 2,000, with w, b and the history held as for a whole fit.
-REPLAY_PREFIX = {WIDE_FITS[1][0]: (8, False), FITS[0][0]: (2000, True)}
+# 1,000 (2,000 until PR 24), with w, b and the history held as for a
+# whole fit.
+REPLAY_PREFIX = {WIDE_FITS[1][0]: (8, False), FITS[0][0]: (1000, True)}
 
 
 def wide_path(torch, rec: PathRecorder):
@@ -1539,13 +1568,17 @@ def check_service_calls(torch, timer, rec) -> list:
 # tensors (copied to the host and back) and NCCL runs at world size 1, in
 # this process.  One spawn of F_RANKS gloo ranks runs every gloo case: the
 # whole group is Figure 3 at the paper's k = 20, ranks 0-3 the k = 4 fits,
-# ranks 0-1 the serving chunk's two placements.  Cut to fit ~2 minutes:
-# 600 / 200 / 120 steps (paths b's 6,000 / 5,000), 2 chunks of the bucket.
+# ranks 0-1 the serving chunk's two placements.  Cut to 200 / 40 / 40
+# steps (paths b's 6,000 / 5,000; 600 / 200 / 120 until path m came), 2
+# chunks of the bucket: most of the spawn is fixed cost (start-up, the
+# ranks' first profiler sessions, exit; f_time_split), and a gloo
+# all-reduce between device synchronisations costs 3-14 ms, 29 of them a
+# Figure 4 step.
 F_RANKS = 20
-F_K4 = (("Figure 3 hard margin k=4", 0, dict(num_iters=600,
-                                              record_every=200)),
-        ("Figure 4 nu-SVM k=4", 1, dict(num_iters=200, record_every=100)))
-F_K20_STEPS = 120
+F_K4 = (("Figure 3 hard margin k=4", 0, dict(num_iters=200,
+                                              record_every=100)),
+        ("Figure 4 nu-SVM k=4", 1, dict(num_iters=40, record_every=20)))
+F_K20_STEPS = 40
 F_SERVE = dict(k=2, lanes=8, n_pad=8192, d=256, chunk_steps=64, chunks=2,
                drop=(3, 1), ns=[5000 + 400 * i for i in range(8)])
 F_TIMEOUT_S = 600
@@ -1647,11 +1680,20 @@ def f_rank(world, data_path: str) -> dict:
 
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as meshlib
     from repro_torch.utils import comm_audit
 
+    marks = [("in f_rank", time.time())]      # epoch seconds: the parent
+    torch.zeros(1, device=world.device)       # compares them with its own
+    # a process's first profiler session takes seconds; the audits' would
+    # take them in lockstep at their collectives, so take it here, while
+    # the later ranks still start
+    with profile(activities=[ProfilerActivity.CPU]):
+        pass
+    marks.append(("CUDA context and a first profiler session", time.time()))
     data = np.load(data_path)
     g4 = meshlib.sub_group(world, range(4))
     g2 = meshlib.sub_group(world, range(F_SERVE["k"]))
@@ -1670,16 +1712,20 @@ def f_rank(world, data_path: str) -> dict:
         out["k20"] = f_solve(world, xp, xm, F_RANKS, num_iters=F_K20_STEPS,
                              record_every=F_K20_STEPS,
                              idx_schedule=data["sched0"])
+        marks.append((f"k = {F_RANKS} fit", time.time()))
         out["k20 audit"] = comm_audit.audit_runner(
             world, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=0.0)
+        marks.append((f"k = {F_RANKS} audit", time.time()))
         if g4 is not None:
             for label, i, kw in F_K4:
                 xp, xm = data[f"xp{i}"], data[f"xm{i}"]
                 nu = float(data[f"nu{i}"])
                 arm(label)
                 out[label] = f_solve(g4, xp, xm, 4, nu=nu, **kw)
+                marks.append((label, time.time()))
                 out[label + " audit"] = comm_audit.audit_runner(
                     g4, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=nu)
+                marks.append((label + " audit", time.time()))
         if g2 is not None:
             lanes = [(data[f"sxp{i}"], data[f"sxm{i}"])
                      for i in range(F_SERVE["lanes"])]
@@ -1696,11 +1742,14 @@ def f_rank(world, data_path: str) -> dict:
             out["dropped"] = f_serve_run(
                 torch, g2, "points", f_serve_batch(torch, lanes, g2.device),
                 drop=F_SERVE["drop"])
+            marks.append(("serving chunks and audits", time.time()))
     if rec is not None:
         out["rec"] = rec.host_copy()
         out["rec"]["counts"] = dict(ops.launch_counts)
     if g2 is not None:
         out["g"] = g_rank(g2, g_requests() if g2.rank == 0 else [])
+        marks.append(("path g", time.time()))
+    out["marks"] = marks
     return out
 
 
@@ -1808,8 +1857,10 @@ def f_parent(torch, dist_fits, rec, rec_g, serve):
     from repro_torch.utils import comm_audit
 
     ops.launch_counts.clear()
+    t0 = time.perf_counter()
     with rec:
         arrays, refs = f_references(torch, dist_fits)
+    secs = {"references": time.perf_counter() - t0}
     counts = {}
 
     # NCCL at world size 1 in this process, then the spawned gloo ranks
@@ -1835,19 +1886,25 @@ def f_parent(torch, dist_fits, rec, rec_g, serve):
                     g1, n1=len(xp), n2=len(xm), d=xp.shape[1], nu=0.0))
             counts["f"] = dict(ops.launch_counts)
             ops.launch_counts.clear()
+            secs["NCCL k=1"] = time.perf_counter() - t0 - secs["references"]
             with rec_g:
                 refs["g"] = g_parent(torch, g1, serve, rec_g)
             counts["g"] = dict(ops.launch_counts)
+            secs["path g's NCCL service"] = (time.perf_counter() - t0
+                                             - sum(secs.values()))
         finally:
             torch.distributed.destroy_process_group()
         np.savez(tmp / "data.npz", **arrays)
         t0 = time.perf_counter()
+        refs["spawn_epoch"] = time.time()
         ranks = meshlib.spawn_clients(f_rank, F_RANKS, backend="gloo",
                                       device="cuda", timeout_s=F_TIMEOUT_S,
                                       args=(str(tmp / "data.npz"),))
         spawn_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print("path f in the parent: " + "; ".join(
+        f"{k} {v:.2f} s" for k, v in secs.items()))
     return ranks, spawn_s, arrays, refs, counts
 
 
@@ -1893,6 +1950,25 @@ def f_references(torch, dist_fits):
     return arrays, dict(sims=sims, sim20=sim20, serial=serial, whole=whole)
 
 
+def f_time_split(ranks, spawn_epoch: float, spawn_s: float) -> None:
+    """Where the spawn's seconds go: from the spawn to the last rank's
+    entry into ``f_rank`` (interpreters, imports, the gloo rendezvous),
+    its CUDA context and first profiler session, then rank 0's phases
+    (each ends at a collective all its group's ranks share), and the rest
+    (the ranks' exit and their results' trip back)."""
+    entry = max(r["marks"][0][1] for r in ranks) - spawn_epoch
+    ctx = max(r["marks"][1][1] - r["marks"][0][1] for r in ranks)
+    parts = [f"start-up to the last rank in f_rank {entry:.2f} s",
+             f"the slowest CUDA context and first profiler session "
+             f"{ctx:.2f} s"]
+    marks = ranks[0]["marks"]
+    for (_, t0), (label, t1) in zip(marks[1:], marks[2:]):
+        parts.append(f"{label} {t1 - t0:.2f} s")
+    rest = spawn_s - (marks[-1][1] - spawn_epoch)
+    parts.append(f"exit and results {rest:.2f} s")
+    print("path f time split (rank 0): " + "; ".join(parts))
+
+
 def f_check(ranks, spawn_s, arrays, refs) -> None:
     """Path f's holds: every run against its reference and the models."""
     import numpy as np
@@ -1919,6 +1995,7 @@ def f_check(ranks, spawn_s, arrays, refs) -> None:
     f_check_audit("NCCL k=1", refs["nccl_audit"], 3)
     print(f"path f: {F_RANKS} gloo ranks on the card, {spawn_s:.2f} s from "
           "spawn to the last result")
+    f_time_split(ranks, refs["spawn_epoch"], spawn_s)
     d = xp.shape[1]
 
     def w_diff(runs, ref):
@@ -2730,7 +2807,9 @@ I_RING = dict(prompt=4500, steps=32, compare=8)
 I_RING_RTOL = 5e-2
 I_REPLAY = dict(layers=2, prompt=16, steps=8)
 I_REPLAY_RTOL = 1e-4   # card vs CPU, float32 weights: of max |logit|
-I_PROBE = dict(n=100, seq=24, feats=128)
+# the JAX example's 6,000 iterations cut to 3,000 (to pay for path m; the
+# probe has no class signal at full width: test accuracy 0.5000)
+I_PROBE = dict(n=100, seq=24, feats=128, iters=3000)
 
 
 def i_requests(cfg):
@@ -3035,7 +3114,7 @@ def i_probe(torch, model, rec: PathRecorder, card):
     require(np.isfinite(feats).all(), "i4: non-finite features")
     perm = rng.permutation(2 * n)
     tr, te = perm[:int(1.6 * n)], perm[int(1.6 * n):]
-    kw = dict(alpha=0.6, eps=1e-3, beta=0.1, num_iters=6000)
+    kw = dict(alpha=0.6, eps=1e-3, beta=0.1, num_iters=I_PROBE["iters"])
     with rec:
         t0 = time.perf_counter()
         clf = SaddleNuSVC(device="cuda", **kw).fit(feats[tr], y[tr])
@@ -3993,6 +4072,239 @@ def multimodal_path(torch) -> float:
     return secs
 
 
+# ---------------------------------------------------------------- path m
+# Training (``repro_torch.train``, ``examples/train_lm.py`` and
+# ``examples/train_svm_e2e.py``).  m1: h2o-danube-1.8b at full width through
+# train_lm's code with --full: bfloat16 parameters, float32 AdamW state,
+# every block rematerialised, B = 4, S = 1,024 from TokenPipeline(seed=0),
+# JAX's example settings (lr 1e-3, warm-up 20).  gemma-7b (8.54 B) would
+# need ~137 GB of parameters, grads and AdamW state, deepseek-v2-lite-16b
+# more: neither fits one card.  m2: a float32 train step of three reduced
+# configs on the card and the CPU.  m3: train_svm_e2e's nu fit on the card
+# (kernels 1-3, recorded for phase 5), its iterations cut.
+M_TRAIN = ["--full", "--arch", "h2o-danube-1.8b", "--batch", "4",
+           "--seq", "1024", "--steps", "8"]
+M_PROFILED = 2
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 (data sheet)
+M_REPLAY = (("h2o-danube-1.8b", 80),       # above the reduced window of 64
+            ("deepseek-v2-lite-16b", 32),  # MLA, MoE, a non-zero aux
+            ("xlstm-125m", 32))            # mLSTM and sLSTM
+M_REPLAY_STEPS = 3
+M_METRIC_RTOL, M_GRAD_RTOL, M_LOSS_RTOL = 1e-5, 1e-4, 1e-4
+M_PARAM_ATOL = 1e-6   # after step 1, where |g| > 1e-3 of the leaf's max
+M_SVM = ["--n", "20000", "--d", "256", "--variant", "nu"]
+M_SVM_ITERS = (20_000, 2_000)   # the script's default, the cut
+
+
+def m_bound(cfg, n_params: int, tokens: int, batch: int, seq: int):
+    """A step's least time: the bf16 FLOPs of forward, remat and backward
+    (8 N tokens) over the dense bf16 peak, plus the chunked attention's
+    float32 score products (q k^T of every query against every key, as
+    the port computes them: forward, remat and the backward's two, 4 x 2
+    B H S^2 Dh a layer) over the float32 peak.  Returns (ms, bf16 FLOPs,
+    float32 FLOPs)."""
+    bf16 = 8 * n_params * tokens
+    f32 = (4 * 2 * batch * cfg.num_heads * seq * seq * cfg.head_dim
+           * cfg.num_layers)
+    return (bf16 / BF16_OPS_PER_S + f32 / F32_OPS_PER_S) * 1e3, bf16, f32
+
+
+def m_train(torch, card) -> None:
+    """m1: train_lm --full at h2o-danube-1.8b's published widths."""
+    import numpy as np
+
+    from repro_torch.examples import train_lm
+    from repro_torch.models import transformer as tf
+
+    args = train_lm.parse_args(M_TRAIN)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = train_lm.Trainer(args)
+    torch.cuda.synchronize()
+    model, st = tr.state.model, tr.state.opt_state
+    n = tf.count_params(model)
+    def nbytes(tensors) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    p_bytes = nbytes(model.parameters())
+    state_bytes = (2 * p_bytes + nbytes(st.master.values())
+                   + nbytes(st.m.values()) + nbytes(st.v.values()))
+    print(f"m1: {tr.cfg.name} at full width, {n:,} parameters "
+          f"({tr.cfg.param_dtype}), AdamW state {tr.ocfg.state_dtype}, "
+          f"remat {model.remat}; B = {args.batch}, S = {args.seq}; "
+          f"parameters, grads and AdamW state {state_bytes / 1e9:.2f} GB; "
+          f"set up in {time.perf_counter() - t0:.2f} s [{card}]")
+    out = tr.train(args.steps, log_every=1)
+    losses, norms = out["loss"], out["grad_norm"]
+    require(bool(np.isfinite(losses).all() and np.isfinite(norms).all()),
+            "m1: a non-finite loss or grad norm")
+    require(losses[-1] < losses[0], f"m1: the loss did not fall "
+            f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    ms = statistics.median(out["step_s"][1:]) * 1e3
+    tokens = args.batch * args.seq
+    peak = torch.cuda.max_memory_allocated()
+    ev = tr.evaluate()
+    require(math.isfinite(ev["loss"]), "m1: a non-finite eval loss")
+    bound, bf16, f32 = m_bound(tr.cfg, n, tokens, args.batch, args.seq)
+    print(f"m1: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {args.steps} "
+          f"steps (eval {ev['loss']:.4f}); {ms:.3f} ms a step (median of "
+          f"steps 2-{args.steps}; step 1 {out['step_s'][0] * 1e3:.1f} ms), "
+          f"{tokens / ms * 1e3:.1f} tokens a second; peak memory "
+          f"{peak / 1e9:.2f} GB against {state_bytes / 1e9:.2f} GB of "
+          f"state [{card}]")
+    prof = profile_window(torch, f"m1 train steps of {tr.cfg.name} [{card}]",
+                          M_PROFILED, lambda: tr.train(M_PROFILED))
+    print(f"m1 bound: {bf16:.3e} bf16 FLOPs (8 N tokens) at "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s + {f32:.3e} float32 FLOPs "
+          f"(the score products) at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s = "
+          f"{bound:.3f} ms a step; measured {ms:.3f} ms ({ms / bound:.2f}x)"
+          + ("" if prof is None else
+             f", device {prof['device_ms']:.3f} ms, "
+             f"{prof['launches']:.1f} launches and idle "
+             f"{prof['idle']:.4f} a step") + f" [{card}]")
+    del tr, model, st
+
+
+def m_replay(torch, card) -> None:
+    """m2: a float32 train step of each M_REPLAY config on the card and
+    the CPU from the same seed-drawn weights and batches."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps
+
+    for arch, seq in M_REPLAY:
+        cfg = get_config(arch).reduced()
+        ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=4)
+        cpu = steps.init_train_state(cfg, ocfg, seed=0, device="cpu")
+        model = copy.deepcopy(cpu.model).to(resolve_device())
+        gpu = steps.TrainState(model, opt.init(model, ocfg))
+        pipe = TokenPipeline(cfg.vocab_size, seq, 2, seed=0)
+        batches = [pipe.next_batch() for _ in range(M_REPLAY_STEPS)]
+        metrics, grads, params = {}, {}, {}
+        t0 = time.perf_counter()
+        for name, st in (("card", gpu), ("cpu", cpu)):
+            dev = st.model.device
+            tb = [{"tokens": torch.as_tensor(b.tokens, device=dev),
+                   "targets": torch.as_tensor(b.targets, device=dev)}
+                  for b in batches]
+            train_step = steps.make_train_step(cfg, ocfg)
+            loss, _, g = steps.value_and_grad(st.model, cfg, tb[0])
+            grads[name] = {n: t.float().cpu() for n, t in g.items()}
+            ms = []
+            for i, b in enumerate(tb):
+                st, m = train_step(st, b)
+                ms.append({k: float(v) for k, v in m.items()})
+                if i == 0:
+                    params[name] = {n: p.detach().cpu().clone() for n, p in
+                                    st.model.named_parameters()}
+            metrics[name] = ms
+            require(abs(float(loss) - ms[0]["loss"]) == 0.0,
+                    f"m2 {arch} {name}: value_and_grad and the train step "
+                    "disagree")
+        first = {k: (metrics["card"][0][k], metrics["cpu"][0][k])
+                 for k in ("loss", "ce", "aux", "grad_norm")}
+        rel = {k: abs(a - b) / max(abs(b), 1e-30) for k, (a, b)
+               in first.items()}
+        gerr = max(float((grads["card"][k] - g).abs().max())
+                   / max(float(g.abs().max()), 1e-30)
+                   for k, g in grads["cpu"].items())
+        perr = 0.0
+        for k, g in grads["cpu"].items():
+            big = g.abs() > 1e-3 * g.abs().max()
+            diff = (params["card"][k] - params["cpu"][k]).float()[big]
+            if diff.numel():
+                perr = max(perr, float(diff.abs().max()))
+        lrel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b
+                   in zip(metrics["card"], metrics["cpu"]))
+        print(f"m2 {arch} (S = {seq}, float32, {M_REPLAY_STEPS} steps, "
+              f"{time.perf_counter() - t0:.1f} s): step 1 "
+              + ", ".join(f"{k} {a:.6f} / {b:.6f}" for k, (a, b)
+                          in first.items())
+              + f" (card / CPU; largest relative difference "
+              f"{max(rel.values()):.3e}, tol {M_METRIC_RTOL:g}); grads "
+              f"{gerr:.3e} of their leaf's max (tol {M_GRAD_RTOL:g}); "
+              f"parameters after step 1 {perr:.3e} where |g| > 1e-3 of the "
+              f"max (tol {M_PARAM_ATOL:g}); losses of {M_REPLAY_STEPS} steps "
+              f"{lrel:.3e} (tol {M_LOSS_RTOL:g}) [{card}]")
+        require(max(rel.values()) <= M_METRIC_RTOL and gerr <= M_GRAD_RTOL
+                and perr <= M_PARAM_ATOL and lrel <= M_LOSS_RTOL,
+                f"m2 {arch}: the card's train step differs from the CPU's")
+        if arch.startswith("deepseek"):
+            require(first["aux"][0] > 0, "m2: deepseek's aux is zero")
+        del model, gpu, cpu
+
+
+def m_svm(torch, rec: PathRecorder, card) -> None:
+    """m3: train_svm_e2e's default nu fit on the card, its checkpoint in
+    a temporary directory."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.examples import train_svm_e2e
+    from repro_torch.train import checkpoint
+
+    full, cut = M_SVM_ITERS
+    print(f"m3: train_svm_e2e {' '.join(M_SVM)}, --iters cut from the "
+          f"script's {full:,} to {cut:,} (serial nu runs 3.4-4.4 ms a step, "
+          f"PERF.md section 5)")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_m_"))
+    try:
+        ckpt = str(tmp / "svm_e2e.npz")
+        with rec:
+            out = train_svm_e2e.main(M_SVM + ["--iters", str(cut), "--ckpt",
+                                              ckpt])
+        clf = out["clf"]
+        back = checkpoint.restore(ckpt, {"w": clf.w_,
+                                         "b": np.asarray(clf.b_)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    objs = [o for _, o in out["history"]]
+    print(f"m3: {len(objs)} records, objective {objs[0]:.6f} -> "
+          f"{objs[-1]:.6f}; fit {out['seconds']:.3f} s "
+          f"({out['seconds'] / cut * 1e3:.3f} ms a step); train accuracy "
+          f"{out['train_acc']:.4f}, test accuracy {out['test_acc']:.4f} "
+          f"[{card}]")
+    require(bool(np.isfinite(objs).all()) and objs[-1] < objs[0]
+            and max(objs) <= objs[0], "m3: the objective did not fall or "
+            "rose above its first record")
+    require(np.array_equal(back["w"], clf.w_) and back["w"].dtype
+            == clf.w_.dtype and float(back["b"]) == clf.b_,
+            "m3: the checkpoint does not restore w_ and b_ bit for bit")
+    print("m3: the checkpoint restores w_ and b_ bit for bit")
+
+
+def training_path(torch, rec: PathRecorder) -> float:
+    """Path m: training, counts reset just before and read just after;
+    m3's kernel calls recorded by ``rec``.  Its models are freed before
+    it returns; returns its seconds."""
+    from repro_torch.kernels import ops
+
+    card = card_line()
+    ops.launch_counts.clear()
+    t_path = t0 = time.perf_counter()
+    m_train(torch, card)
+    torch.cuda.empty_cache()
+    print(f"m1: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m_replay(torch, card)
+    torch.cuda.empty_cache()
+    print(f"m2: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m_svm(torch, rec, card)
+    print(f"m3: {time.perf_counter() - t0:.1f} s")
+    counts = dict(ops.launch_counts)
+    secs = time.perf_counter() - t_path
+    print(f"path m launches {counts}; {secs:.1f} s")
+    rec.check_counts(counts, ("fwht",) + PACKED)
+    return secs
+
+
 def serial_vs_dist(torch, fits):
     """Each distributed fit refit serially on the coordinates it drew."""
     from repro_torch.core import saddle
@@ -4874,7 +5186,9 @@ def check_kernels(torch, timer, recs) -> list[dict]:
 # ---------------------------------------------------------------- phase 4
 def profile_window(torch, label, steps, fn):
     """Device busy share and kernel time by name over one call of ``fn``
-    (``steps`` solver steps), warm."""
+    (``steps`` solver steps), warm; returns the idle share, device
+    launches, device ms and wall ms a step (None if the profiler saw no
+    device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4908,13 +5222,19 @@ def profile_window(torch, label, steps, fn):
           f"launches/step, {busy / steps * 1e3:.4f} device ms/step")
     for dev_us, key, count in rows[:12]:
         print(f"  {dev_us / 1e3:10.3f} ms  {count:7d}x  {key[:90]}")
+    return dict(idle=1 - busy / wall, launches=launches / steps,
+                device_ms=busy / steps * 1e3, ms=wall / steps * 1e3)
+
+
+PROFILED_STEPS = 100   # 300 until PR 24: reading a window's trace back
+#                        (key_averages) took most of the phase's ~118 s
 
 
 def profiles(torch, dist_fits, serve):
-    """300 steps of the serial nu-SVM solve at the Figure 2 shape, and of
-    each distributed fit on its own data and coordinates; 4 chunks of
-    path e's service over its 8 requests of bucket (8,192, 256): intake,
-    the chunks and the recovery."""
+    """PROFILED_STEPS steps of the serial nu-SVM solve at the Figure 2
+    shape, and of each distributed fit on its own data and coordinates; 4
+    chunks of path e's service over its 8 requests of bucket (8,192,
+    256): intake, the chunks and the recovery."""
     from repro_torch.core import distributed as dist
     from repro_torch.core import preprocess as pp
     from repro_torch.core import saddle
@@ -4926,15 +5246,16 @@ def profiles(torch, dist_fits, serve):
     pre = pp.preprocess(xp, xm, generator=torch.Generator().manual_seed(0),
                         device="cuda")
     nu = 1.0 / (0.85 * min(len(xp), len(xm)))
-    kw = dict(eps=1e-3, beta=0.1, nu=nu, num_iters=300, device="cuda")
-    profile_window(torch, "serial nu-SVM n=50000 d=512", 300,
+    n = PROFILED_STEPS
+    kw = dict(eps=1e-3, beta=0.1, nu=nu, num_iters=n, device="cuda")
+    profile_window(torch, "serial nu-SVM n=50000 d=512", n,
                    lambda: saddle.solve(pre.xp, pre.xm, **kw))
     for fit in dist_fits:
         label, _data, fkw, _alpha = fit["spec"]
-        fkw = dict(fkw, num_iters=300, record_every=300)
-        profile_window(torch, label, 300, lambda: dist.solve_distributed(
+        fkw = dict(fkw, num_iters=n, record_every=n)
+        profile_window(torch, label, n, lambda: dist.solve_distributed(
             fit["pre"].xp, fit["pre"].xm, nu=fit["nu"], device="cuda",
-            idx_schedule=fit["sched"][:300], **fkw))
+            idx_schedule=fit["sched"][:n], **fkw))
 
     from repro_torch.serve.solver_service import FitRequest, SolverService
     mates = [(ds, kw) for label, ds, kw in serve["reqs"]
@@ -5082,29 +5403,57 @@ def main() -> int:
     print(f"card: {card}, torch {torch.__version__}, cuda "
           f"{torch.version.cuda}")
 
+    laps = [("build", time.perf_counter() - t0)]
+    t0 = time.perf_counter()
+
+    def lap(label: str) -> None:
+        nonlocal t0
+        laps.append((label, time.perf_counter() - t0))
+        t0 = time.perf_counter()
+
     recs = [PathRecorder(name) for name in ("a", "b", "c", "d")]
     recs += [PathRecorder("e", keep=False), PathRecorder("f"),
              PathRecorder("g", keep=False)]
     fits = main_path(torch, recs[0])
+    lap("a")
     dist_fits = dist_path(torch, recs[1])
+    lap("b")
     reference_path(torch, recs[2], dist_fits[0])
+    lap("c")
     fits += wide_path(torch, recs[3])
+    lap("d")
     serve = service_path(torch, recs[4])
     serve_vs_solo(torch, serve)
+    lap("e")
     recs += collectives_path(torch, dist_fits, serve, recs[5], recs[6])
+    lap("f and g")
     recs.append(PathRecorder("h"))
     baselines_path(torch, recs[-1], dist_fits)
+    lap("h")
     recs.append(PathRecorder("i"))
     lm_path(torch, recs[-1])
+    lap("i")
     deepseek_path(torch)
+    lap("j")
     k_secs = recurrent_path(torch)
+    lap("k")
     l_secs = multimodal_path(torch)
+    lap("l")
+    recs.append(PathRecorder("m"))
+    m_secs = training_path(torch, recs[-1])
+    lap("m")
     serial_vs_dist(torch, dist_fits)
+    lap("phase 3")
     profiles(torch, dist_fits, serve)
+    lap("phase 4")
     entries = check_kernels(torch, Timer(torch), recs)
+    lap("phase 5")
     replay_secs = card_vs_cpu(torch, fits)
     dist_card_vs_cpu(torch, dist_fits[1])
     serve_replay_cpu(torch, serve)
+    lap("phase 6")
+    print("chip_smoke seconds by path and phase: " + ", ".join(
+        f"{label} {secs:.1f}" for label, secs in laps))
 
     steps = REPLAY_PREFIX[FITS[0][0]][0]
     nu = f"{FITS[0][0]}, its first {steps} steps"
@@ -5112,7 +5461,7 @@ def main() -> int:
     whole = cpu * FITS[0][2]["num_iters"] / steps
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all "
           f"(build included); path k {k_secs:.1f} s; path l {l_secs:.1f} "
-          f"s; the CPU replay of "
+          f"s; path m {m_secs:.1f} s; the CPU replay of "
           f"{nu} {cpu:.1f} s and its rerun on the card {card_s:.1f} s, "
           f"against ~{whole:.1f} s for all {FITS[0][2]['num_iters']} "
           f"steps (linear in steps): the cut saves "

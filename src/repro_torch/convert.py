@@ -7,7 +7,10 @@ arrays) and python ints; :func:`to_port` builds the port's NamedTuple of
 the same field names on a chosen device, and :func:`to_numpy` goes back.
 The LM side's weights cross by :func:`lm_params_from_jax` (the JAX
 package's ``init_lm`` pytree, numpy leaves, into the port's model) and
-:func:`lm_params_to_numpy` (back).  This module imports neither JAX nor
+:func:`lm_params_to_numpy` (back); a pytree of that shape (grads,
+optimizer moments) maps onto the port's parameter names by
+:func:`lm_tree_to_named`, and an AdamW state by
+:func:`opt_state_from_jax`.  This module imports neither JAX nor
 the JAX package.
 """
 
@@ -120,25 +123,76 @@ def _unstack(stack, plan) -> list[dict]:
     return layers + list(stack["tail"])
 
 
-def _load_stack(blocks, final_norm, stack, plan, name: str, dev) -> None:
-    """Copy a JAX stack's weights into ``blocks`` (a ModuleList) and
-    ``final_norm``: every leaf of a block must have its parameter, and
-    every parameter its leaf."""
-    layers = _unstack(stack, plan)
-    if len(layers) != len(blocks):
-        raise ValueError(f"{len(layers)} layers in the tree, "
-                         f"{len(blocks)} in {name}")
-    for i, (block, src) in enumerate(zip(blocks, layers)):
-        leaves = dict(_leaves(src))
-        params = dict(block.named_parameters())
-        if leaves.keys() != params.keys():
-            raise ValueError(
-                f"layer {i}: leaves {sorted(leaves)} in the tree, "
-                f"parameters {sorted(params)} in {name}")
-        for pname, param in params.items():
-            param.copy_(_tensor_from_numpy(leaves[pname], dev))
-    final_norm.scale.copy_(_tensor_from_numpy(stack["final_norm"]["scale"],
-                                              dev))
+def _stack_named(stack, plan, prefix: str) -> dict:
+    """A JAX stack's leaves by the port's parameter names:
+    ``{prefix}layers.{i}.{block leaf path}`` and
+    ``{prefix}final_norm.scale``."""
+    out = {}
+    for i, layer in enumerate(_unstack(stack, plan)):
+        for name, leaf in _leaves(layer):
+            out[f"{prefix}layers.{i}.{name}"] = leaf
+    out[f"{prefix}final_norm.scale"] = stack["final_norm"]["scale"]
+    return out
+
+
+def lm_tree_to_named(tree, cfg) -> dict[str, np.ndarray]:
+    """A pytree of the JAX package's ``init_lm`` shape (its weights, or
+    grads or optimizer moments of the same shape) as numpy arrays by the
+    port's parameter names (``LM.named_parameters``), without building a
+    model: the stacked period axis of ``tree["decoder"]["blocks"]`` (and
+    of an encoder-decoder's ``tree["encoder"]``) unstacked in the JAX
+    package's layer order (head, periods, tail)."""
+    from repro_torch.models import transformer as tf
+
+    out = {f"embed.{k}": v for k, v in tree["embed"].items()}
+    out.update(_stack_named(tree["decoder"], tf.layer_plan(cfg), ""))
+    if cfg.is_encoder_decoder:
+        out.update(_stack_named(tree["encoder"],
+                                tf.layer_plan(tf.encoder_cfg(cfg)),
+                                "encoder."))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def lm_params_from_jax(tree, cfg, device=None):
+    """The port's model for ``cfg`` with the weights of the JAX package's
+    ``init_lm`` pytree ``tree`` (leaves as numpy arrays, bfloat16 as
+    ``ml_dtypes.bfloat16``), mapped by ``lm_tree_to_named``.  Every leaf
+    must have its parameter, and every parameter its leaf: a layer without
+    an MLP (mLSTM, sLSTM) carries its norm and mixer only, a decoder block
+    of an encoder-decoder its ``norm_x`` and ``cross`` too, and a leaf
+    keeps its dtype (RG-LRU's ``lam`` is float32 in a bfloat16 model)."""
+    from repro_torch.models import transformer as tf
+
+    model = tf.LM(cfg, device)
+    named = lm_tree_to_named(tree, cfg)
+    params = dict(model.named_parameters())
+    if named.keys() != params.keys():
+        raise ValueError(
+            f"{cfg.name}: leaves {sorted(named.keys() - params.keys())} "
+            f"have no parameter, parameters "
+            f"{sorted(params.keys() - named.keys())} no leaf")
+    with torch.no_grad():
+        for name, param in params.items():
+            param.copy_(_tensor_from_numpy(named[name], model.device))
+    return model
+
+
+def opt_state_from_jax(state, cfg, device=None):
+    """The port's ``train.optimizer.OptState`` of the JAX package's
+    (``master``, ``m``, ``v``, ``step``), each tree mapped by
+    ``lm_tree_to_named`` onto ``device``."""
+    from repro_torch.train.optimizer import OptState
+
+    dev = resolve_device(device)
+
+    def tensors(tree):
+        return {k: _tensor_from_numpy(v, dev)
+                for k, v in lm_tree_to_named(tree, cfg).items()}
+
+    return OptState(master=tensors(state.master), m=tensors(state.m),
+                    v=tensors(state.v),
+                    step=torch.tensor(int(np.asarray(state.step)),
+                                      dtype=torch.int32, device=dev))
 
 
 def _stack_tree(blocks, final_norm, plan) -> dict:
@@ -153,36 +207,6 @@ def _stack_tree(blocks, final_norm, plan) -> dict:
     return {"head": trees[:nh], "blocks": stacked,
             "tail": trees[nh + plan.n_periods * per:],
             "final_norm": {"scale": _numpy_from_tensor(final_norm.scale)}}
-
-
-def lm_params_from_jax(tree, cfg, device=None):
-    """The port's model for ``cfg`` with the weights of the JAX package's
-    ``init_lm`` pytree ``tree`` (leaves as numpy arrays, bfloat16 as
-    ``ml_dtypes.bfloat16``): the stacked period axis of
-    ``tree["decoder"]["blocks"]`` (and of an encoder-decoder's
-    ``tree["encoder"]``) is unstacked into the per-layer blocks, in the
-    JAX package's layer order (head, periods, tail).  Every leaf of a block
-    must have its parameter, and every parameter its leaf: a layer without
-    an MLP (mLSTM, sLSTM) carries its norm and mixer only, a decoder block
-    of an encoder-decoder its ``norm_x`` and ``cross`` too, and a leaf
-    keeps its dtype (RG-LRU's ``lam`` is float32 in a bfloat16 model)."""
-    from repro_torch.models import transformer as tf
-
-    model = tf.LM(cfg, device)
-    dev = model.device
-    with torch.no_grad():
-        _load_stack(model.layers, model.final_norm, tree["decoder"],
-                    tf.layer_plan(cfg), cfg.name, dev)
-        if model.encoder is not None:
-            enc = model.encoder
-            _load_stack(enc.layers, enc.final_norm, tree["encoder"],
-                        tf.layer_plan(enc.cfg), f"{cfg.name}'s encoder", dev)
-        model.embed.embedding.copy_(
-            _tensor_from_numpy(tree["embed"]["embedding"], dev))
-        if model.embed.lm_head is not None:
-            model.embed.lm_head.copy_(
-                _tensor_from_numpy(tree["embed"]["lm_head"], dev))
-    return model
 
 
 def lm_params_to_numpy(model) -> dict:

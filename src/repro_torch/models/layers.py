@@ -188,7 +188,10 @@ class Embedding(nn.Module):
                     generator)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embedding[tokens].to(compute_dtype(self.cfg))
+        # F.embedding, not ``embedding[tokens]``: the same rows, and a
+        # backward that adds a repeated token's grads in a fixed order
+        # (indexing's accumulating index_put_ on the CPU does not)
+        x = F.embedding(tokens, self.embedding).to(compute_dtype(self.cfg))
         if self.cfg.emb_scale:
             x = x * math.sqrt(self.cfg.d_model)
         return x

@@ -28,6 +28,13 @@ token embeddings where a mask is set, and M-RoPE (``rope_kind="mrope"``)
 rotates by (3, B, S) t/h/w positions; 1-D positions stand for three equal
 streams, and the attention mask reads stream 0.
 
+Training (``repro_torch.train``): the weights do not require grad until
+a trainer turns that on; a forward then records the graph, checkpoints
+every block (``run_block``, as the JAX package's ``jax.checkpoint`` of
+each period) and, with ``return_aux``, returns the decoder's MoE
+load-balance losses summed (the JAX package's ``aux``).  Serving runs
+under ``torch.no_grad()`` (``serve.engine``) and is unchanged by it.
+
 Decode (one token a row against a cache) runs on a row-padded batch of
 ``rows`` rows (default ``decode_rows(B)``, a multiple of
 ``DECODE_ROW_TILE``), the rows after B zero-token padding.  Every
@@ -52,6 +59,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -124,7 +132,9 @@ class Block(nn.Module):
     """Pre-norm block of one kind (``init_block`` / ``apply_block``): the
     mixer (GQA, MLA, RG-LRU, mLSTM or sLSTM) and its residual; with
     ``cross``, a cross attention to the encoder and its residual; then, for
-    the kinds that have one, a GLU or MoE MLP and its residual."""
+    the kinds that have one, a GLU or MoE MLP and its residual.  Its
+    forward returns (x, aux): the MoE's load-balance loss, None for any
+    other block."""
 
     def __init__(self, cfg, device, kind: str, mlp: str | None,
                  cross: bool = False):
@@ -177,14 +187,32 @@ class Block(nn.Module):
             x = x + self.cross(self.norm_x(x), enc_out=enc_out, cache=cache,
                                lanes=lanes)
         if self.mlp is None:
-            return x
+            return x, None
         h = self.norm2(x)
         if isinstance(self.mlp, MoE):
             # decode routes each row alone; else the JAX package's groups
             decode = cache is not None and x.shape[1] == 1
-            out, _aux = self.mlp(h, groups=x.shape[0] if decode else None)
-            return x + out
-        return x + self.mlp(h)
+            out, aux = self.mlp(h, groups=x.shape[0] if decode else None)
+            return x + out, aux
+        return x + self.mlp(h), None
+
+
+def grads_on(module: nn.Module) -> bool:
+    """Whether a forward of ``module`` now records a graph for its
+    weights: grad mode on and a parameter that requires grad."""
+    return torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in module.parameters())
+
+
+def run_block(block: Block, x, remat: bool, **kw):
+    """``block(x, **kw)``; with ``remat``, checkpointed
+    (``torch.utils.checkpoint``, non-reentrant): its activations are not
+    kept for the backward but computed again there, as the JAX package's
+    ``jax.checkpoint`` of each period does in training.  The values are
+    the same either way."""
+    if remat:
+        return checkpoint(block, x, use_reentrant=False, **kw)
+    return block(x, **kw)
 
 
 def encoder_cfg(cfg):
@@ -215,28 +243,40 @@ class Encoder(nn.Module):
         for block in self.layers:
             block.reset_parameters(generator)
 
-    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+    def forward(self, frames: torch.Tensor,
+                remat: bool = False) -> torch.Tensor:
         """(B, T_enc, D) frame embeddings -> (B, T_enc, D), in the
-        frames' dtype where the weights' do not promote it."""
+        frames' dtype where the weights' do not promote it; each block
+        checkpointed with ``remat`` (``run_block``).  The blocks' aux is
+        dropped, as the JAX package's ``encode`` drops it."""
         b, t, _ = frames.shape
         pe = sinusoidal_positions(torch.arange(t, device=frames.device),
                                   self.cfg.d_model)
         x = frames + pe.to(frames.dtype)
         positions = torch.full((b, t), t - 1, device=frames.device)
         for block in self.layers:
-            x = block(x, positions=positions, rope=None)
+            x, _aux = run_block(block, x, remat, positions=positions,
+                                rope=None)
         return self.final_norm(x)
 
 
 class LM(nn.Module):
     """An LM: embedding, ``num_layers`` decoder blocks, final norm, LM
     head (tied to the embedding where the config says so), and for an
-    encoder-decoder the ``encoder``."""
+    encoder-decoder the ``encoder``.
+
+    Its weights do not require grad (serving); a trainer turns that on
+    (``repro_torch.train.steps``).  A forward then records the graph
+    (``grads_on``) and, with ``remat`` (the default, as the JAX package
+    trains), checkpoints every block of the decoder and the encoder
+    (``run_block``).  Without grads, and with a cache, nothing is
+    checkpointed."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.remat = True
         self.embed = Embedding(cfg, dev)
         self.layers = nn.ModuleList(
             Block(cfg, dev, kind, mlp, cross=cfg.is_encoder_decoder)
@@ -257,18 +297,20 @@ class LM(nn.Module):
         if self.encoder is not None:
             self.encoder.reset_parameters(generator)
 
-    @torch.no_grad()
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """The encoder's output over (B, T_enc, D) frame embeddings."""
         if self.encoder is None:
             raise ValueError(f"{self.cfg.name} has no encoder")
-        return self.encoder(frames)
+        return self.encoder(frames, remat=self.remat and grads_on(self))
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *, cache=None, positions=None,
                 rows: int | None = None, enc_frames=None,
-                vision_embeds=None, vision_mask=None):
-        """Returns (logits (B, S, padded_vocab), cache).
+                vision_embeds=None, vision_mask=None,
+                return_aux: bool = False):
+        """Returns (logits (B, S, padded_vocab), cache), and with
+        ``return_aux`` (logits, cache, aux) as the JAX package's
+        ``forward``: aux the decoder's MoE load-balance losses summed in
+        layer order, a float32 zero for a model without MoE.
 
         Without a cache: the causal forward at positions ``arange(S)``.
         With a cache and S > 1: a prefill into an empty cache (its
@@ -331,21 +373,31 @@ class LM(nn.Module):
         if cfg.vision_embeds and vision_embeds is not None:
             x = torch.where(vision_mask[..., None],
                             vision_embeds.to(x.dtype), x)
+        remat = cache is None and self.remat and grads_on(self)
         enc_out = None
         if cfg.is_encoder_decoder:
             x = x + sinusoidal_positions(pos1d, cfg.d_model).to(x.dtype)
             if enc_frames is not None:
-                enc_out = self.encoder(enc_frames)
+                enc_out = self.encoder(enc_frames, remat=remat)
+        aux_total = None
         for i, block in enumerate(self.layers):
-            x = block(x, positions=pos1d, rope=rope,
-                      cache=None if cache is None else cache["layers"][i],
-                      index=None if cache is None else cache["index"],
-                      lanes=lanes, enc_out=enc_out)
+            x, aux = run_block(
+                block, x, remat, positions=pos1d, rope=rope,
+                cache=None if cache is None else cache["layers"][i],
+                index=None if cache is None else cache["index"],
+                lanes=lanes, enc_out=enc_out)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
         logits = self.embed.unembed(self.final_norm(x))
         if cache is not None:
             cache["index"] += s
         if lanes is not None:
             logits = logits[:lanes]
+        if return_aux:
+            if aux_total is None:
+                aux_total = torch.zeros((), dtype=torch.float32,
+                                        device=logits.device)
+            return logits, cache, aux_total
         return logits, cache
 
 
