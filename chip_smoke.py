@@ -8,7 +8,7 @@ no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- thirteen paths, each driven with the launch counts reset
+  2. paths      -- fourteen paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -143,8 +143,9 @@ no CPU fallback):
           after run 1; device memory back to its level after each drain.
           Then ms a chunk and a step of 4 busy lanes, and one profiled
           chunk (idle share, device launches a step).  i4: the SVM probe
-          on gemma-7b's pooled logits (the JAX package's
-          ``examples/svm_probe_lm.py``: 2 x 100 sequences of 24 tokens
+          on gemma-7b's pooled logits through the port's
+          ``repro_torch.examples.svm_probe_lm`` (``tokens``, ``features``,
+          ``split``, ``fit_probe``; 2 x 100 sequences of 24 tokens
           from two vocabulary ranges, features ``logits.mean(1)[:,
           :128]``), ``SaddleNuSVC(alpha=0.6, num_iters=3000)`` (the
           example's 6,000 cut) on the
@@ -281,6 +282,38 @@ no CPU fallback):
           the objective falls and never rises above its first record, the
           checkpoint (in a temporary directory) restores w_ and b_ bit for
           bit; its kernel calls (rows 1-3) are recorded for phase 5.
+       n. the analysis gate and the examples.  n1: the lint
+          (``repro_torch.analysis.lint``) of its seven serial targets
+          (the packed chunk, the slot chunk, the whole-solve loop with
+          and without the gap check, the warm-start state, reduced
+          gemma-7b's bucketed prefill and decode chunk) with the CUDA
+          kernels: every chunk under ``set_sync_debug_mode("error")``,
+          the solve loop's read-backs pinned by count, no float64, no
+          collective, the same work every step with exactly 2 packed
+          launches a step by the tally, no second copy of the state by
+          ``memory_allocated``; zero unsuppressed findings; one profiled
+          packed chunk of 8 steps shows 8 device launches of each packed
+          kernel.  The lint's k = 8 targets run on the CPU only.  n3:
+          the examples ``quickstart`` (separable(2000, 64),
+          non_separable(3000, 64)) and ``distributed_svm``
+          (separable(4000, 128), k = 20) at their data sizes, iterations
+          cut (N_QUICKSTART, N_DISTRIBUTED): each nu objective falls and
+          never rises above its first record, test accuracies printed,
+          the Saddle-SVC margin beside Gilbert's distance, comm in k d
+          units equal to ``CommModel``'s and the tallied client
+          reductions equal to its multiset; their kernel calls (rows
+          1-3) recorded for phase 5.  n2 (after the counts are read):
+          the launch-plan audit (``analysis.kernel_audit``, zero
+          findings), ``MAX_SMEM`` equal to the card's opt-in shared
+          memory a block, each kernel's compiled static shared memory
+          equal to its plan's, every audited plan's grid and dynamic
+          shared memory equal to what the C launchers derive for the same
+          arguments (``launch_geometry`` / ``fwht_geometry``), and each
+          kernel at one audited shape (a
+          packed rung, K = 20 n = 251 B = 128, the FWHT at d = 65,536 in
+          two passes) with its outputs and the workspace's scratch
+          filled with NaN first: every element written, within phase 5's
+          tolerances of the plain version.
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -351,8 +384,8 @@ no CPU fallback):
                    path e replayed on the CPU with the coordinates the
                    card sampled.
 
-A line before the last gives the script's seconds in all, paths k's, l's
-and m's and the nu fit's CPU replay's; then the card's name and power
+A line before the last gives the script's seconds in all, paths k's, l's,
+m's and n's and the nu fit's CPU replay's; then the card's name and power
 limit.  The
 next-to-last line of standard output is a JSON object listing every
 kernel at every path shape with its launches, error, times and bound;
@@ -372,8 +405,6 @@ from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM memory rate (data sheet)
-F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 CSRC = "src/repro_torch/kernels/csrc"
 KERNELS = ("fwht", "momentum_dot_packed", "mwu_update_packed",
            "momentum_dot", "mwu_update")
@@ -395,6 +426,12 @@ SOURCES = {"fwht": f"{CSRC}/fwht.cu",
 FIT_ATOL, HIST_RTOL = 1e-4, 1e-3
 SESSIONS = 3          # profiler sessions a group of kernel jobs may take
 CLIENT_ATOL, REF_ATOL = 1e-6, 1e-5
+
+
+# The H100 SXM's data-sheet peaks, bound by main() from
+# repro_torch.utils.roofline once the checkout's src is on the path: HBM
+# bytes/s, float32 FLOP/s outside the tensor cores, dense bf16 FLOP/s.
+HBM_BW = F32_FLOPS = PEAK_FLOPS = None
 
 
 class PhaseError(RuntimeError):
@@ -523,8 +560,8 @@ class Timer:
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3089,46 +3126,41 @@ def i_replay(torch, card, arch: str = "gemma-7b", label: str = "i3",
 
 
 def i_probe(torch, model, rec: PathRecorder, card):
-    """i4: a nu-SVM probe on gemma-7b's pooled logits (the JAX package's
-    ``examples/svm_probe_lm.py`` at full width), fit on the card, then
-    replayed on the CPU with the card's coordinates."""
+    """i4: the port's ``examples/svm_probe_lm.py`` at full width on
+    gemma-7b: its features (pooled logits) and its nu-SVM probe, fit on
+    the card (iterations cut to I_PROBE's), then replayed on the CPU with
+    the card's coordinates."""
     import numpy as np
 
-    from repro_torch.core.svm import SaddleNuSVC
+    from repro_torch.examples import svm_probe_lm as probe
 
-    cfg = model.cfg
-    n, seq, nf = I_PROBE["n"], I_PROBE["seq"], I_PROBE["feats"]
+    n, iters = I_PROBE["n"], I_PROBE["iters"]
+    require((I_PROBE["seq"], I_PROBE["feats"]) == (probe.SEQ, probe.FEATS),
+            "i4: the probe's shapes changed")
     rng = np.random.default_rng(0)
-    toks_a = rng.integers(0, cfg.vocab_size // 4, size=(n, seq))
-    toks_b = rng.integers(cfg.vocab_size // 2, cfg.vocab_size - 1,
-                          size=(n, seq))
-    toks = torch.as_tensor(np.vstack([toks_a, toks_b]), device=model.device)
-    y = np.r_[np.ones(n), -np.ones(n)]
+    toks, y = probe.tokens(model.cfg, n, rng)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, _ = model(toks)
-    feats = logits.mean(dim=1)[:, :nf].float().cpu().numpy()
-    print(f"i4 features: {tuple(toks.shape)} tokens -> {feats.shape} in "
+    feats = probe.features(model, toks)
+    print(f"i4 features: {toks.shape} tokens -> {feats.shape} in "
           f"{time.perf_counter() - t0:.3f} s [{card}]")
-    del logits
     require(np.isfinite(feats).all(), "i4: non-finite features")
-    perm = rng.permutation(2 * n)
-    tr, te = perm[:int(1.6 * n)], perm[int(1.6 * n):]
-    kw = dict(alpha=0.6, eps=1e-3, beta=0.1, num_iters=I_PROBE["iters"])
+    tr, te = probe.split(len(y), rng)
     with rec:
         t0 = time.perf_counter()
-        clf = SaddleNuSVC(device="cuda", **kw).fit(feats[tr], y[tr])
+        fit = probe.fit_probe(feats, y, tr, te, device="cuda",
+                              num_iters=iters)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     sched = rec.take_schedule()
-    print(f"i4 probe fit: {secs:.3f} s for {kw['num_iters']} steps; train "
-          f"accuracy "
-          f"{clf.score(feats[tr], y[tr]):.4f}, test accuracy "
-          f"{clf.score(feats[te], y[te]):.4f} [{card}]")
+    clf = fit["clf"]
+    print(f"i4 probe fit: {secs:.3f} s for {iters} steps; train accuracy "
+          f"{fit['train_acc']:.4f}, test accuracy {fit['test_acc']:.4f} "
+          f"[{card}]")
     require(np.isfinite(clf.w_).all(), "i4: non-finite probe")
     t0 = time.perf_counter()
-    cpu = SaddleNuSVC(device="cpu", **kw).fit(feats[tr], y[tr],
-                                              idx_schedule=sched)
+    cpu = probe.fit_probe(feats, y, tr, te, device="cpu", num_iters=iters,
+                          idx_schedule=sched)["clf"]
     print(f"i4 probe replayed on the CPU with the card's coordinates: "
           f"{time.perf_counter() - t0:.1f} s")
     compare_fits("  card vs CPU, i4 probe", clf, cpu, history=True)
@@ -3304,10 +3336,10 @@ def j_slots(torch, model, card):
     i_decode_timing(torch, model, reqs, card, slots=J_SLOTS, label="j1")
     every, routed = j_weight_bounds(model)
     print(f"j1 weight-read bound a decode step: every expert "
-          f"{every / 1e9:.2f} GB -> {every / HBM_BYTES_PER_S * 1e3:.2f} ms; "
+          f"{every / 1e9:.2f} GB -> {every / HBM_BW * 1e3:.2f} ms; "
           f"one token's {model.cfg.moe_top_k} routed experts "
-          f"{routed / 1e9:.2f} GB -> {routed / HBM_BYTES_PER_S * 1e3:.2f} ms "
-          f"(at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+          f"{routed / 1e9:.2f} GB -> {routed / HBM_BW * 1e3:.2f} ms "
+          f"(at {HBM_BW / 1e12:.2f} TB/s)")
 
 
 def j_decode_vs_forward(torch, model, prompt, steps: int,
@@ -3545,8 +3577,8 @@ def k_decode_timing(torch, model, st, card, label: str,
     nbytes = k_weight_bytes(model) if nbytes is None else nbytes
     print(f"{label} solo decode (B = 1, {tf.decode_rows(1)} rows): {ms:.3f} "
           f"ms a step over {K_TIMED} steps; read bound "
-          f"{nbytes / 1e9:.3f} GB -> {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
-          f"a step (at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) [{card}]")
+          f"{nbytes / 1e9:.3f} GB -> {nbytes / HBM_BW * 1e3:.3f} ms "
+          f"a step (at {HBM_BW / 1e12:.2f} TB/s) [{card}]")
     profile_window(torch, f"{label} solo decode of {model.cfg.name}, "
                    f"{K_PROFILED} steps [{card}]", K_PROFILED,
                    lambda: steps(K_PROFILED))
@@ -3946,8 +3978,8 @@ def l_qwen(torch, card) -> None:
     i_decode_timing(torch, model, reqs, card, slots=K_SLOTS, label="l2")
     nbytes = l_weight_bytes(model)
     print(f"l2 weight-read bound a decode step: {nbytes / 1e9:.2f} GB -> "
-          f"{nbytes / HBM_BYTES_PER_S * 1e3:.2f} ms (at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); {tf.count_params(model):,} "
+          f"{nbytes / HBM_BW * 1e3:.2f} ms (at "
+          f"{HBM_BW / 1e12:.2f} TB/s); {tf.count_params(model):,} "
           f"parameters")
     del model
 
@@ -4085,7 +4117,6 @@ def multimodal_path(torch) -> float:
 M_TRAIN = ["--full", "--arch", "h2o-danube-1.8b", "--batch", "4",
            "--seq", "1024", "--steps", "8"]
 M_PROFILED = 2
-BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 (data sheet)
 M_REPLAY = (("h2o-danube-1.8b", 80),       # above the reduced window of 64
             ("deepseek-v2-lite-16b", 32),  # MLA, MoE, a non-zero aux
             ("xlstm-125m", 32))            # mLSTM and sLSTM
@@ -4106,7 +4137,7 @@ def m_bound(cfg, n_params: int, tokens: int, batch: int, seq: int):
     bf16 = 8 * n_params * tokens
     f32 = (4 * 2 * batch * cfg.num_heads * seq * seq * cfg.head_dim
            * cfg.num_layers)
-    return (bf16 / BF16_OPS_PER_S + f32 / F32_OPS_PER_S) * 1e3, bf16, f32
+    return (bf16 / PEAK_FLOPS + f32 / F32_FLOPS) * 1e3, bf16, f32
 
 
 def m_train(torch, card) -> None:
@@ -4155,8 +4186,8 @@ def m_train(torch, card) -> None:
     prof = profile_window(torch, f"m1 train steps of {tr.cfg.name} [{card}]",
                           M_PROFILED, lambda: tr.train(M_PROFILED))
     print(f"m1 bound: {bf16:.3e} bf16 FLOPs (8 N tokens) at "
-          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s + {f32:.3e} float32 FLOPs "
-          f"(the score products) at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s = "
+          f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s + {f32:.3e} float32 FLOPs "
+          f"(the score products) at {F32_FLOPS / 1e12:.0f} TFLOP/s = "
           f"{bound:.3f} ms a step; measured {ms:.3f} ms ({ms / bound:.2f}x)"
           + ("" if prof is None else
              f", device {prof['device_ms']:.3f} ms, "
@@ -4302,6 +4333,335 @@ def training_path(torch, rec: PathRecorder) -> float:
     secs = time.perf_counter() - t_path
     print(f"path m launches {counts}; {secs:.1f} s")
     rec.check_counts(counts, ("fwht",) + PACKED)
+    return secs
+
+
+# ---------------------------------------------------------------- path n
+# The analysis gate on the card and the examples.  n1: the lint's serial
+# targets (``analysis.lint.serial_targets``) with the CUDA kernels, every
+# chunk under set_sync_debug_mode("error"), STATE-001 by memory_allocated,
+# STEP-001 by the launch tally; one profiled packed chunk (2 device
+# launches of the packed kernels a step).  The k = 8 targets run on the
+# CPU only (path f's spawn is already the script's largest fixed cost).
+# n2: the launch-plan audit, MAX_SMEM, the compiled static shared memory
+# and the launchers' geometry against the plans, and three audited shapes
+# with every output filled with NaN first.  n3: the examples quickstart and distributed_svm
+# at their data sizes, iterations cut (N_QUICKSTART / N_DISTRIBUTED beside
+# the scripts' own counts).
+N_QUICKSTART = dict(hm_iters=4000, gilbert_iters=3000, nu_iters=1500)
+N_QUICKSTART_FULL = dict(hm_iters=20000, gilbert_iters=3000, nu_iters=10000)
+N_DISTRIBUTED = dict(hm_iters=2000, gilbert_iters=2000, nu_iters=1000,
+                     record_every=250, gilbert_every=500)
+N_DISTRIBUTED_FULL = dict(hm_iters=8000, gilbert_iters=2000, nu_iters=6000)
+N_PROFILED = 8          # steps of the profiled packed chunk
+# n2's shapes: a packed rung, the unpacked reference step's client shape
+# at B = 128, the FWHT in two passes
+N_NAN_PACKED = (8, 256, 2048, 8)            # S, d, n_pad, b
+N_NAN_UNPACKED = (20, 251, 128)             # K, n, B
+N_NAN_FWHT = (195, 65_536)                  # n, d
+
+
+def n_lint(torch) -> None:
+    """n1: the lint's serial targets on the card, zero findings."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.analysis import lint
+
+    t0 = time.perf_counter()
+    targets = lint.serial_targets()
+    records, findings = lint.lint_all(targets, "cuda")
+    live, waived = lint.apply_suppressions(findings)
+    for rec in records:
+        print(f"  n1 {rec}")
+    for f in findings:
+        print(f"  n1 FINDING {f.rule} {f.target}: {f.detail}")
+    print(f"n1 lint on the card: {len(records)} targets, {len(findings)} "
+          f"findings, {len(live)} unsuppressed, {len(waived)} suppressed, "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(not live, f"n1: {len(live)} unsuppressed lint findings")
+    # the card's own check: a read-back planted in the packed step must be
+    # refused by the sync debug mode
+    from repro_torch.core import engine
+    step = engine._step_packed_core
+
+    def planted(*args, **kw):
+        out = step(*args, **kw)
+        out.w.sum().item()
+        return out
+
+    engine._step_packed_core = planted
+    try:
+        _, caught = lint.lint_target(targets[0], "cuda")
+    finally:
+        engine._step_packed_core = step
+    print(f"n1 planted .item() in the packed step: {caught}")
+    require(any(f.rule == "SYNC-001" and "set_sync_debug_mode" in f.detail
+                for f in caught), "n1: the planted .item() was not caught")
+    for t, rec in zip(targets, records):
+        want = {k: v for k, v in t.per_unit.items() if k in PACKED}
+        require(rec.get("calls_per_unit", {}) == want,
+                f"n1 {t.name}: packed launches a unit "
+                f"{rec.get('calls_per_unit')}, want {want}")
+    # one profiled chunk: the device's own launches of the packed kernels,
+    # after a warm-up cycle of the profiler (a first cycle can miss the
+    # kernels launched while device tracing starts)
+    target = targets[0]
+    ctx = target.setup(torch.device("cuda"), None)
+    target.run(ctx, target.init(ctx), N_PROFILED)
+    torch.cuda.synchronize()
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            target.run(ctx, target.init(ctx), N_PROFILED)
+            torch.cuda.synchronize()
+            prof.step()
+    require(len(traced) == 1, "n1: the profiler gave no active cycle")
+    kernels = Counter()
+    for ev in traced[0]:
+        if ev.device_type == DeviceType.CUDA:
+            for name in PACKED:
+                if name + "_kernel" in ev.key:
+                    kernels[name] += ev.count
+    print(f"n1 profiled chunk of {target.name}, {N_PROFILED} steps: device "
+          f"launches {dict(kernels)}")
+    require(kernels == Counter({name: N_PROFILED for name in PACKED}),
+            "n1: want 2 packed device launches a step")
+
+
+def n_nan_check(torch, name, fn, plain, real, label) -> None:
+    """One wrapper call with every tensor it allocates (its outputs) and
+    the kernels' workspace scratch filled with NaN first: every element
+    must come out written and within phase 5's tolerances of the plain
+    version."""
+    from repro_torch.kernels import saddle_update as su
+
+    for _counters, scratch in su._workspace.values():
+        scratch.fill_(math.nan)
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def nan_empty(*args, **kw):
+        return empty(*args, **kw).fill_(math.nan)
+
+    def nan_empty_like(*args, **kw):
+        return empty_like(*args, **kw).fill_(math.nan)
+
+    torch.empty, torch.empty_like = nan_empty, nan_empty_like
+    try:
+        got = fn()
+    finally:
+        torch.empty, torch.empty_like = empty, empty_like
+    want = plain()
+    outs = (got,) if isinstance(got, torch.Tensor) else got
+    written = all(not torch.isnan(o).any().item() for o in outs)
+    if name == "fwht":
+        errs = {"out": ((got - want).abs().max().item(), 1e-4)}
+    elif name in PACKED:
+        errs = packed_errors(torch, name, got, want, real)
+    else:
+        errs = unpacked_errors(torch, name, got, want, real)
+    print(f"  n2 {name}{label}: every output element written {written}; "
+          + ", ".join(f"{k} {e:.3e} (tol {t})" for k, (e, t) in errs.items()))
+    require(written, f"n2 {name}{label}: an output element was not written")
+    require(all(e <= t for e, t in errs.values()),
+            f"n2 {name}{label}: {errs}")
+
+
+def geometry_mismatches(ctypes, build, kernel_audit) -> list:
+    """Every audited plan's launches beside the grid, threads and dynamic
+    shared memory the C launchers derive for the same arguments (the
+    libraries' ``launch_geometry`` / ``fwht_geometry``): [(case, plan's,
+    library's)] where they differ."""
+    which = {"momentum_dot_packed": 0, "mwu_update_packed": 1,
+             "momentum_dot": 2, "mwu_update": 3}
+    saddle, fwht_lib = build.library("saddle_update"), build.library("fwht")
+    reg = kernel_audit.registry()
+    out = (ctypes.c_uint * 4)()
+    differ = []
+    for c in kernel_audit.audit_cases():
+        plan = reg[c.kernel](**c.kwargs)
+        for p in kernel_audit.launches(plan):
+            mine = (*p["grid"], p["dynamic_smem"])
+            if c.kernel == "fwht":
+                a = p["args"]
+                build.check(fwht_lib.fwht_geometry(
+                    a["rows"], a["d2"] or 0, a["log_m"] or 0, out),
+                    "fwht_geometry")
+                mine = (p["grid"][0], p["threads"], p["dynamic_smem"])
+                theirs = tuple(out[:3])
+            else:
+                kw = c.kwargs
+                g = list(p["args"].values())
+                build.check(saddle.launch_geometry(
+                    which[c.kernel], kw.get("s", kw.get("k")),
+                    kw.get("n_pad", kw.get("n")), kw["b"], g[0],
+                    g[1] if len(g) > 1 else 0, out), "launch_geometry")
+                theirs = tuple(out[:4])
+            if mine != theirs:
+                differ.append((f"{c.kernel} [{c.case}]", mine, theirs))
+    return differ
+
+
+def n_audit(torch) -> None:
+    """n2: the launch-plan audit beside the card."""
+    import ctypes
+
+    from repro_torch.analysis import kernel_audit
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import saddle_update as su
+
+    t0 = time.perf_counter()
+    records, findings = kernel_audit.audit_all()
+    print(f"n2 audit: {len(records)} kernel cases, {len(findings)} findings "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for f in findings:
+        print(f"  n2 FINDING {f.rule} {f.kernel} [{f.case}]: {f.detail}")
+    require(not findings, "n2: audit findings")
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    print(f"n2 MAX_SMEM {su.MAX_SMEM} B, the card's opt-in limit {optin} B")
+    require(su.MAX_SMEM == optin, "n2: MAX_SMEM is not the card's limit")
+    lib = build.library("saddle_update")
+    compiled = []
+    for i, name in enumerate(kernel_audit.STATIC_SMEM_ORDER):
+        v = ctypes.c_int(-1)
+        build.check(lib.static_smem(i, ctypes.byref(v)), "static_smem")
+        compiled.append((name, v.value, kernel_audit.STATIC_SMEM[name]))
+    print(f"n2 static shared memory (kernel, compiled, plan): {compiled}")
+    require(all(c == p for _, c, p in compiled),
+            "n2: the plans' static shared memory is not the compiled one")
+    differ = geometry_mismatches(ctypes, build, kernel_audit)
+    print(f"n2 launch geometry: {len(records)} plans against the "
+          f"libraries' launch_geometry / fwht_geometry, {len(differ)} "
+          f"differ")
+    for case, plan, lib_says in differ[:5]:
+        print(f"  n2 GEOMETRY {case}: plan {plan}, library {lib_says}")
+    require(not differ, "n2: a plan's grid or shared memory is not the "
+            "launcher's")
+
+    g = torch.Generator(device="cuda").manual_seed(25)
+    s, d, n_pad, b = N_NAN_PACKED
+    x_t = torch.randn((s, d, n_pad), generator=g, device="cuda") / 16
+    sign = torch.zeros((s, n_pad), device="cuda")
+    sign[:, :n_pad // 3], sign[:, n_pad // 3:n_pad - 100] = 1.0, -1.0
+    x_t[:, :, n_pad - 100:] = 0.0
+    a = step_inputs(torch, g, x_t, sign, b)
+    real = sign != 0
+    for name, args in (
+            ("momentum_dot_packed", (x_t, a["idx"], a["ll"], a["lp"], sign,
+                                     a["theta"])),
+            ("mwu_update_packed", (x_t, a["idx"], a["ll"], a["u"], a["dw"],
+                                   sign, a["mwu_c"], a["mwu_dot"],
+                                   a["d_eff"]))):
+        n_nan_check(torch, name,
+                    lambda name=name, args=args: getattr(ops, name)(*args),
+                    lambda name=name, args=args:
+                    getattr(ref, name + "_ref")(*args),
+                    real, f"[S={s},d={d},n_pad={n_pad},b={b}]")
+    k, n, b = N_NAN_UNPACKED
+    cols = torch.randn((k, n, b), generator=g, device="cuda")
+    ll = torch.randn((k, n), generator=g, device="cuda") - math.log(n)
+    lp = ll + 0.1 * torch.randn((k, n), generator=g, device="cuda")
+    u = 0.1 * torch.randn((k, n), generator=g, device="cuda")
+    dw = 0.01 * torch.randn((k, b), generator=g, device="cuda")
+    label = f"[K={k},n={n},B={b}]"
+    scal = (-1.0, 1e-3, 40.0, float(b))
+    for name, fn, plain in (
+            ("momentum_dot", lambda: ops.momentum_dot(cols, ll, lp, 0.95),
+             lambda: ref.momentum_dot_ref(cols, ll, lp, 0.95)),
+            ("mwu_update", lambda: ops.mwu_update(cols, ll, u, dw, *scal,
+                                                  normalize=False),
+             lambda: ref.mwu_update_ref(cols, ll, u, dw, *scal,
+                                        normalize=False))):
+        n_nan_check(torch, name, fn, plain,
+                    torch.ones_like(ll, dtype=torch.bool), label)
+    n, d = N_NAN_FWHT
+    x = torch.randn((n, d), generator=g, device="cuda")
+    n_nan_check(torch, "fwht", lambda: ops.fwht(x),
+                lambda: ref.fwht_ref(x), None, f"[n={n},d={d}, two passes]")
+
+
+def falls(objs) -> bool:
+    """The objective ends below its first record and never rises above
+    it."""
+    return objs[-1] < objs[0] and max(objs) <= objs[0]
+
+
+def n_examples(torch, card) -> None:
+    """n3: quickstart and distributed_svm on the card, iterations cut."""
+    from repro_torch.core import distributed, engine, projections
+    from repro_torch.examples import distributed_svm, quickstart
+
+    print(f"n3 quickstart, iterations {N_QUICKSTART} (the script's "
+          f"{N_QUICKSTART_FULL}) [{card}]")
+    q = quickstart.run("cuda", **N_QUICKSTART)
+    nu_objs = [o for _, o in q["nu"].history_]
+    print(f"n3 quickstart: hard margin {q['hm_seconds']:.2f} s, test "
+          f"accuracy {q['hm_acc']:.4f}, Saddle-SVC margin "
+          f"{q['hm'].margin_:.6f} beside Gilbert's distance "
+          f"{q['gilbert_distance']:.6f}; nu {q['nu_seconds']:.2f} s, test "
+          f"accuracy {q['nu_acc']:.4f}, objective history {nu_objs}")
+    require(all(math.isfinite(o) for o in nu_objs) and falls(nu_objs),
+            "n3 quickstart: the nu objective does not fall")
+    require(math.isfinite(q["hm"].margin_) and q["hm"].margin_ > 0,
+            "n3 quickstart: no margin")
+
+    print(f"n3 distributed_svm, iterations {N_DISTRIBUTED} (the script's "
+          f"{N_DISTRIBUTED_FULL})")
+    colls = Counter(engine.collective_counts)
+    out = distributed_svm.run("cuda", **N_DISTRIBUTED)
+    colls = Counter(engine.collective_counts) - colls
+    k, d = out["k"], out["pre"].xp.shape[1]
+    want = Counter()
+    for key, rows, rounds in (
+            ("hm", "hm_rows", 0.0),
+            ("nu", "nu_rows", float(projections.BISECT_ROUNDS_SOLVER))):
+        model = distributed.CommModel(k=k, nu_rounds_per_iter=rounds)
+        units = [model.scalars_per_iteration() * it / (k * d)
+                 for it, _, _ in out[rows]]
+        objs = [o for *_, o in out[rows]]
+        print(f"  {key}: {out[key + '_seconds']:.2f} s, rows {out[rows]}")
+        require([u for _, u, _ in out[rows]] == units,
+                f"n3 distributed_svm {key}: comm differs from CommModel")
+        require(all(math.isfinite(o) for o in objs) and falls(objs),
+                f"n3 distributed_svm {key}: the objective does not fall")
+        steps = out[rows][-1][0]
+        want.update(expected_collectives(out[key], steps, d))
+    print(f"  distributed Gilbert: {out['gilbert_seconds']:.2f} s, rows "
+          f"{out['gilbert_rows']}")
+    print(f"  tallied client reductions {dict(colls)}")
+    require(colls == want, "n3 distributed_svm: the tallied client "
+            "reductions differ from CommModel")
+
+
+def analysis_path(torch, rec: PathRecorder) -> float:
+    """Path n: n1 and n3 with the launch counts reset just before and read
+    just after (n1's calls counted but not kept, n3's recorded for phase
+    5), then n2, whose comparison launches are not the path's.  Returns
+    its seconds."""
+    from repro_torch.kernels import ops
+
+    card = card_line()
+    t_path = time.perf_counter()
+    ops.launch_counts.clear()
+    rec.keep = False
+    with rec:
+        n_lint(torch)
+        torch.cuda.empty_cache()
+        rec.keep = True
+        t0 = time.perf_counter()
+        n_examples(torch, card)
+        print(f"n3: {time.perf_counter() - t0:.1f} s")
+    counts = dict(ops.launch_counts)
+    print(f"path n launches {counts}")
+    rec.check_counts(counts, ("fwht",) + PACKED)
+    t0 = time.perf_counter()
+    n_audit(torch)
+    print(f"n2: {time.perf_counter() - t0:.1f} s")
+    secs = time.perf_counter() - t_path
+    print(f"path n: {secs:.1f} s [{card}]")
     return secs
 
 
@@ -5389,7 +5749,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    global HBM_BW, F32_FLOPS, PEAK_FLOPS
     from repro_torch.kernels import build
+    from repro_torch.utils.roofline import F32_FLOPS, HBM_BW, PEAK_FLOPS
 
     card = card_line()
     t_script = t0 = time.perf_counter()
@@ -5442,6 +5804,9 @@ def main() -> int:
     recs.append(PathRecorder("m"))
     m_secs = training_path(torch, recs[-1])
     lap("m")
+    recs.append(PathRecorder("n"))
+    n_secs = analysis_path(torch, recs[-1])
+    lap("n")
     serial_vs_dist(torch, dist_fits)
     lap("phase 3")
     profiles(torch, dist_fits, serve)
@@ -5461,7 +5826,8 @@ def main() -> int:
     whole = cpu * FITS[0][2]["num_iters"] / steps
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all "
           f"(build included); path k {k_secs:.1f} s; path l {l_secs:.1f} "
-          f"s; path m {m_secs:.1f} s; the CPU replay of "
+          f"s; path m {m_secs:.1f} s; path n {n_secs:.1f} s; the CPU replay "
+          f"of "
           f"{nu} {cpu:.1f} s and its rerun on the card {card_s:.1f} s, "
           f"against ~{whole:.1f} s for all {FITS[0][2]['num_iters']} "
           f"steps (linear in steps): the cut saves "

@@ -490,7 +490,10 @@ def chunk_body_packed(state: PackedState, x_t: torch.Tensor,
         raise ValueError("clients= and group= are exclusive")
     rows = x_t.shape[0]
     d, b = params.d, params.block_size
-    sc = stack_slot_params([slot_params_row(params)] * rows, x_t.device)
+    # the float32 scalars filled on the device: no upload inside the chunk
+    sc = SlotParams(*(torch.full((rows,), float(v), dtype=torch.float32,
+                                 device=x_t.device)
+                      for v in slot_params_row(params)))
     all_sum, all_max = (client_hooks(clients) if group is None
                         else group_hooks(group))
     if idx is None:

@@ -36,6 +36,8 @@ SIGNATURES = {
                           ctypes.c_float, _P],
         "fwht_strided_f32": [_P, ctypes.c_longlong, _I, _I, ctypes.c_float,
                              _P],
+        "fwht_geometry": [ctypes.c_longlong, _I, _I,
+                          ctypes.POINTER(ctypes.c_uint)],
     },
     "saddle_update": {
         "momentum_dot_packed_f32": [_P] * 9 + [_I] * 5 + [_P],
@@ -45,6 +47,8 @@ SIGNATURES = {
                             + [_I] * 6 + [_P],
         "mwu_update_f32": [_P] * 4 + [ctypes.c_float] * 4 + [_I]
                           + [_P] * 5 + [_I] * 6 + [_P],
+        "static_smem": [_I, ctypes.POINTER(_I)],
+        "launch_geometry": [_I] * 6 + [ctypes.POINTER(ctypes.c_uint)],
     },
 }
 

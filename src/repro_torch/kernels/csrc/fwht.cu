@@ -313,6 +313,28 @@ extern "C" int fwht_rows_f32(const float* x, float* out, long long rows,
   return (int)cudaGetLastError();
 }
 
+// The grid, threads and dynamic shared memory, out[0..2], of the row pass
+// over ``rows`` rows of length d (log_m = 0), or of the strided pass over
+// ``rows`` columns of 2^log_m values, as the launchers here launch them.
+// The launch plans that analysis.kernel_audit checks are held equal to it
+// on the card.
+extern "C" int fwht_geometry(long long rows, int d, int log_m,
+                             unsigned* out) {
+  if (log_m > 0) {
+    out[0] = grid_of(rows, STRIDED_THREADS);
+    out[1] = STRIDED_THREADS, out[2] = 0;
+    return 0;
+  }
+  const int log_d = log2_exact(d);
+  if (log_d < 0 || log_d > 15) return (int)cudaErrorInvalidValue;
+  out[0] = grid_of(rows, log_d <= 4 ? THREAD_ROWS : log_d <= 10 ? WARP_ROWS
+                                                                : 1);
+  out[1] = log_d <= 4 ? THREAD_ROWS : log_d <= 10 ? WARP * WARP_ROWS
+                                                  : WARP << (log_d - 10);
+  out[2] = log_d <= 10 ? 0 : CHUNK * (1 << (log_d - 10)) * sizeof(float);
+  return 0;
+}
+
 // In place on data (``columns`` 2^log_m columns, i.e. columns * 2^log_m
 // floats): the stages h = 2^log_s .. 2^(log_s + log_m - 1), then / norm.
 extern "C" int fwht_strided_f32(float* data, long long columns, int log_s,

@@ -21,6 +21,14 @@ kernels assume one stream at a time.
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
 runs the plain version in :mod:`repro_torch.kernels.ref`.
 
+Each launch comes from a :class:`Launch` (:func:`packed_launch`,
+:func:`momentum_dot_launch`, :func:`mwu_update_launch`, memoised by
+shape): the C launcher's geometry arguments, the grid and dynamic shared
+memory it derives from them, and the workspace the wrapper allocates.
+``repro_torch.analysis.kernel_audit`` builds its launch plans from the
+same tuples, and ``launch_geometry`` in the library reports the C side's
+grid and shared memory for a check on the card.
+
 ``idx`` must hold distinct coordinates in [0, d) (the solver's sampler
 and ``saddle.solve``'s injected schedules are validated where they are
 made).  An index outside that range raises ``IndexError`` on the CPU; on
@@ -29,6 +37,9 @@ skip the row and the outputs it touches are NaN.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -136,6 +147,34 @@ def packed_smem(b: int) -> int:
     return nbuf * STAGE_FLOATS * 4 + -(-min(b, CHUNK_ROWS) * 4 // 16) * 16
 
 
+class Launch(NamedTuple):
+    """One launch of a kernel: ``args``, the C launcher's geometry
+    arguments (``(tpb,)``, or ``(lanes, points)``); the ``grid`` (x, y, z)
+    and ``dynamic_smem`` bytes the launcher derives from them; and the
+    workspace the wrapper allocates, ``counters`` ticket counters and
+    ``floats`` floats of per-block partials."""
+
+    args: tuple
+    grid: tuple
+    dynamic_smem: int
+    counters: int
+    floats: int
+
+
+@functools.lru_cache(maxsize=None)
+def packed_launch(kernel: str, s: int, n_pad: int, b: int) -> Launch:
+    """The launch of packed ``kernel`` (``momentum_dot_packed`` or
+    ``mwu_update_packed``) for S = ``s`` slots of ``n_pad`` points and b
+    sampled rows: a block of ``packed_tiles_per_block(b)`` tiles a slot,
+    a partial of b (rounded up to 4) floats or of the 4 (m, s) floats a
+    tile, a counter a slot."""
+    tpb = packed_tiles_per_block(b)
+    tiles = n_pad // LANE
+    part = -(-b // 4) * 4 if kernel == "momentum_dot_packed" else 4
+    return Launch((tpb,), (-(-tiles // tpb), s, 1), packed_smem(b), s,
+                  s * tiles * part)
+
+
 # device index -> (counters (S,) int32, zero between launches; scratch)
 _workspace: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -183,14 +222,14 @@ def momentum_dot_packed(x_t: torch.Tensor, idx: torch.Tensor,
         return ref.momentum_dot_packed_ref(x_t, idx, log_lam, log_prev,
                                            sign, theta)
     out = torch.empty((s, b), dtype=torch.float32, device=x_t.device)
-    counters, parts = workspace(x_t.device, s,
-                                s * (n_pad // LANE) * (-(-b // 4) * 4))
+    ln = packed_launch("momentum_dot_packed", s, n_pad, b)
+    counters, parts = workspace(x_t.device, ln.counters, ln.floats)
     _launch("momentum_dot_packed",
             build.library("saddle_update").momentum_dot_packed_f32,
             x_t.device, x_t.data_ptr(), idx.data_ptr(), log_lam.data_ptr(),
             log_prev.data_ptr(), sign.data_ptr(), theta.data_ptr(),
             out.data_ptr(), parts.data_ptr(), counters.data_ptr(), s, d,
-            n_pad, b, packed_tiles_per_block(b))
+            n_pad, b, *ln.args)
     return out
 
 
@@ -212,7 +251,8 @@ def mwu_update_packed(x_t: torch.Tensor, idx: torch.Tensor,
     log_new = torch.empty_like(log_lam)
     u_new = torch.empty_like(u)
     ms = torch.empty((2, s, 2), dtype=torch.float32, device=x_t.device)
-    counters, parts = workspace(x_t.device, s, s * (n_pad // LANE) * 4)
+    ln = packed_launch("mwu_update_packed", s, n_pad, b)
+    counters, parts = workspace(x_t.device, ln.counters, ln.floats)
     _launch("mwu_update_packed",
             build.library("saddle_update").mwu_update_packed_f32,
             x_t.device, x_t.data_ptr(), idx.data_ptr(), dw.data_ptr(),
@@ -220,7 +260,7 @@ def mwu_update_packed(x_t: torch.Tensor, idx: torch.Tensor,
             mwu_c.data_ptr(), mwu_dot.data_ptr(), float(d_eff),
             log_new.data_ptr(), u_new.data_ptr(), ms.data_ptr(),
             parts.data_ptr(), counters.data_ptr(), s, d, n_pad, b,
-            packed_tiles_per_block(b))
+            *ln.args)
     return log_new, u_new, ms[0], ms[1]
 
 
@@ -260,6 +300,17 @@ def momentum_dot_geometry(k: int, n: int,
     return lanes, -(-n // blocks), blocks, chunks(lanes)
 
 
+@functools.lru_cache(maxsize=None)
+def momentum_dot_launch(k: int, n: int, b: int) -> Launch:
+    """The launch of :func:`momentum_dot` for k clients of n points and
+    B = ``b`` columns, from :func:`momentum_dot_geometry`: grid (point
+    blocks, column chunks, clients), a counter a client and chunk, and
+    DOT_COLS floats of partial a block."""
+    lanes, points, blocks, chunks = momentum_dot_geometry(k, n, b)
+    return Launch((lanes, points), (-(-n // points), chunks, k), 0,
+                  k * chunks, k * chunks * blocks * DOT_COLS)
+
+
 def mwu_update_geometry(k: int, n: int, b: int) -> tuple[int, int, int]:
     """(lanes per row, points per block, point blocks) of the unpacked
     MWU for k clients of n points and B = ``b`` columns.  A warp puts
@@ -286,6 +337,17 @@ def mwu_update_geometry(k: int, n: int, b: int) -> tuple[int, int, int]:
     while 2 * k * blocks <= SMS and -(-n // (2 * blocks)) >= THREADS // lanes:
         blocks *= 2
     return lanes, -(-n // blocks), blocks
+
+
+@functools.lru_cache(maxsize=None)
+def mwu_update_launch(k: int, n: int, b: int) -> Launch:
+    """The launch of :func:`mwu_update` for k clients of n points and
+    B = ``b`` columns, from :func:`mwu_update_geometry`: grid (point
+    blocks, clients), 3 ``points`` floats of shared memory, a counter a
+    client and an (m, s) partial a block."""
+    lanes, points, blocks = mwu_update_geometry(k, n, b)
+    return Launch((lanes, points), (-(-n // points), k, 1), 3 * points * 4,
+                  k, 2 * k * blocks)
 
 
 def check_unpacked(cols: torch.Tensor, vectors: dict[str, torch.Tensor],
@@ -322,15 +384,14 @@ def momentum_dot(cols: torch.Tensor, log_lam: torch.Tensor,
     if cols.device.type == "cpu":
         return ref.momentum_dot_ref(cols, log_lam, log_prev, float(theta))
     k = lead[0] if lead else 1
-    lanes, points, blocks, chunks = momentum_dot_geometry(k, n, b)
+    ln = momentum_dot_launch(k, n, b)
     out = torch.empty(lead + (b,), dtype=torch.float32, device=cols.device)
-    counters, parts = workspace(cols.device, k * chunks,
-                                k * chunks * blocks * DOT_COLS)
+    counters, parts = workspace(cols.device, ln.counters, ln.floats)
     vec4 = b % 4 == 0 and cols.data_ptr() % 16 == 0
     _launch("momentum_dot", build.library("saddle_update").momentum_dot_f32,
             cols.device, cols.data_ptr(), log_lam.data_ptr(),
             log_prev.data_ptr(), float(theta), out.data_ptr(),
-            parts.data_ptr(), counters.data_ptr(), k, n, b, lanes, points,
+            parts.data_ptr(), counters.data_ptr(), k, n, b, *ln.args,
             int(vec4))
     return out
 
@@ -350,17 +411,17 @@ def mwu_update(cols: torch.Tensor, log_lam: torch.Tensor, u: torch.Tensor,
         return ref.mwu_update_ref(cols, log_lam, u, dw, *scalars,
                                   normalize=normalize)
     k = lead[0] if lead else 1
-    lanes, points, blocks = mwu_update_geometry(k, n, b)
+    ln = mwu_update_launch(k, n, b)
     log_new = torch.empty_like(log_lam)
     u_new = torch.empty_like(u)
     ms = torch.empty((2, k), dtype=torch.float32, device=cols.device)
-    counters, parts = workspace(cols.device, k, 2 * k * blocks)
+    counters, parts = workspace(cols.device, ln.counters, ln.floats)
     vec4 = b % 4 == 0 and cols.data_ptr() % 16 == 0
     _launch("mwu_update", build.library("saddle_update").mwu_update_f32,
             cols.device, cols.data_ptr(), log_lam.data_ptr(), u.data_ptr(),
             dw.data_ptr(), *scalars, int(normalize), log_new.data_ptr(),
             u_new.data_ptr(), ms.data_ptr(), parts.data_ptr(),
-            counters.data_ptr(), k, n, b, lanes, points, int(vec4))
+            counters.data_ptr(), k, n, b, *ln.args, int(vec4))
     m, s = ms if lead else ms[:, 0]
     if normalize:
         return log_new, u_new
