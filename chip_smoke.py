@@ -8,7 +8,7 @@ no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- fourteen paths, each driven with the launch counts reset
+  2. paths      -- fifteen paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -104,14 +104,14 @@ no CPU fallback):
           Table 4 scripts, each timed and printed beside the card:
           h1 Table 1: separable(10000, 512) through ``save_libsvm`` /
           ``load_libsvm`` (bit-equal to the values the file states),
-          preprocessed, Saddle-SVC for 20,000 steps (depth cut: Theorem
-          6 gives 59,975; 20,000 is the JAX script's quick cap) against
+          preprocessed, Saddle-SVC for 2,000 steps (depth cut: Theorem
+          6 gives 59,975; the JAX script's quick cap is 20,000) against
           Gilbert (20,000 iterations, tol 1e-6): Gilbert's history never
           rises, its weights sum to 1 (1e-5) and give its z (1e-4), its
           first 200 iterations replayed on the CPU (z within 1e-4).
           h2 Figure 1: non_separable(20000, 128)'s training split, QP
           nu-SVM (FISTA, 1,000 iterations; JAX 4,000 + 2,000) and
-          nu-Saddle-SVC (4,000 steps; JAX 12,000): the QP's duals in the
+          nu-Saddle-SVC (3,000 steps; JAX 12,000): the QP's duals in the
           capped simplex, both objectives finite and below that of the
           uniform duals both start from, the QP's first 20 iterations
           replayed on the CPU (1e-5).  Every baseline is profiled (5 QP
@@ -314,6 +314,23 @@ no CPU fallback):
           two passes) with its outputs and the workspace's scratch
           filled with NaN first: every element written, within phase 5's
           tolerances of the plain version.
+       o. the launch family (``repro_torch.launch``).  o1: one rank of
+          each of the dry-run's solver and serving entries
+          (``launch.dryrun.run_one_saddle`` / ``run_one_saddle_serve``)
+          at both production meshes, on a fake group of k = 256 or 512
+          ranks with its shard on the card: Saddle-DSVC's client of 1M
+          points in d = 256 (4,096 / 2,048 points, b = 128 / 1), the
+          lanes entry's own 2 / 1 lanes (no collective) and a model
+          column's 2 lanes of 65,536 / 32,768 points (b = 128); each
+          entry's collectives a step (and, for the points placement, a
+          chunk) equal to ``CommModel`` / ``ServeCommModel`` (each fake
+          group this process's default group while its entry runs); its
+          packed calls recorded, one step of each entry copied, for
+          phase 5.  o2: ``launch.train`` on a
+          reduced h2o-danube-1.8b, 2 steps, as a user calls it; the
+          same launcher's trainer again on the card (the same losses,
+          bit for bit) and on the CPU from the card's starting weights
+          (losses within 1e-4, relative) (no kernel).
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -375,7 +392,7 @@ no CPU fallback):
   6. card vs CPU -- a serial fit (n=4,000, d=128, 2,000 iterations) on the
                    card and on the CPU with the same signs and schedule;
                    the serial fits of paths a and d (path a's nu fit over
-                   its first 1,000 of 8,000 steps, a cut of depth, and
+                   its first 500 of 8,000 steps, a cut of depth, and
                    the B=40,000 one, whose rounding a block of most of d
                    amplifies, over its first 8, each run again on the
                    card over those steps, w, the history and, for the nu
@@ -385,7 +402,7 @@ no CPU fallback):
                    card sampled.
 
 A line before the last gives the script's seconds in all, paths k's, l's,
-m's and n's and the nu fit's CPU replay's; then the card's name and power
+m's, n's and o's and the nu fit's CPU replay's; then the card's name and power
 limit.  The
 next-to-last line of standard output is a JSON object listing every
 kernel at every path shape with its launches, error, times and bound;
@@ -1075,9 +1092,9 @@ WIDE_FITS = (
 # (1e-4 apart after 8 steps), is printed.  Path a's nu fit is a cut of
 # depth, not of accuracy: its CPU replay of all 8,000 steps took 107.4 s
 # of the script's 1,200 on a slow host, so the CPU replays its first
-# 1,000 (2,000 until PR 24), with w, b and the history held as for a
-# whole fit.
-REPLAY_PREFIX = {WIDE_FITS[1][0]: (8, False), FITS[0][0]: (1000, True)}
+# 500 (2,000 and then 1,000 before), with w, b and the history
+# held as for a whole fit.
+REPLAY_PREFIX = {WIDE_FITS[1][0]: (8, False), FITS[0][0]: (500, True)}
 
 
 def wide_path(torch, rec: PathRecorder):
@@ -2455,14 +2472,16 @@ def g_check(torch, ranks, nccl) -> None:
 # The paper's comparisons, at the full sizes of the JAX package's figure
 # and table scripts (benchmarks/table1_hard_margin.py, fig1_nusvm_
 # convergence.py, fig3_dist_hard_margin.py, table4_density.py), with
-# depth cuts: Table 1's Saddle-SVC 20,000 steps (Theorem 6 gives 59,975;
-# 20,000 is the JAX script's quick cap), Figure 1's QP 1,000 iterations
-# (JAX: 4,000 + 2,000) and its Saddle-SVC 4,000 steps (JAX: 12,000).
+# depth cuts: Table 1's Saddle-SVC 2,000 steps (Theorem 6 gives 59,975;
+# the JAX script's quick cap is 20,000, run here before; only its
+# finiteness is checked), Figure 1's QP 1,000 iterations (JAX: 4,000 +
+# 2,000) and its Saddle-SVC 3,000 steps (JAX: 12,000; 4,000 here before:
+# the QP must end below it, so fewer steps would loosen that check).
 H_EPS, H_BETA, H_ALPHA = 1e-3, 0.1, 0.85
-H_TABLE1 = dict(n=10_000, d=512, seed=512, saddle_steps=20_000,
+H_TABLE1 = dict(n=10_000, d=512, seed=512, saddle_steps=2_000,
                 gilbert_iters=20_000, tol=1e-6, record_every=200)
 H_FIG1 = dict(n=20_000, d=128, beta2=0.2, qp_iters=1000, qp_every=200,
-              saddle_steps=4000, saddle_every=1000)
+              saddle_steps=3000, saddle_every=500)
 H_FIG3 = dict(n=10_000, d=256, k=20, iters=1500, every=300,
               hogwild_iters=2000)
 H_TABLE4 = dict(n=100_000, d=128, fracs=(0.1, 0.5, 0.9), lam=1e-4,
@@ -4665,6 +4684,92 @@ def analysis_path(torch, rec: PathRecorder) -> float:
     return secs
 
 
+# ---------------------------------------------------------------- path o
+# The launch family (``repro_torch.launch``).  o1: the launch dry-run's
+# solver and serving entries, one rank each on a fake group of k = 256 or
+# 512 ranks (``launch.mesh.init_fake_group``) with its shard on the card:
+# kernels 1-2 at the dry-run's shard shapes (S = 1, d = 256, n_pad 4,096 /
+# 2,048, b = 128 / 1), the lanes entry's (S = 2 / 1, d = 64, n_pad 4,096,
+# b = 1) and a model column's points (S = 2, d = 256, n_pad 65,536 /
+# 32,768, b = 128), one step of each entry copied for phase 5.  A fake
+# group is its process's default group: path f destroyed its own, so each
+# entry makes one in this process and destroys it (a spawned child would
+# add ~10 s of start-up and exit to the path).  The fake backend takes CUDA
+# tensors (torch 2.11.0+cu128).  o2: ``launch.train`` at world size 1 on
+# a reduced config as a user calls it; then the launcher's trainer again
+# on the card (its losses bit for bit: the same entry) and on the CPU from
+# the card's starting weights (the card's draw differs from the CPU's), at
+# path m2's loss tolerance (no SVM kernel on it).  The CPU tests hold the
+# launcher to the JAX package's.
+O_TRAIN = ["--arch", "h2o-danube-1.8b", "--steps", "2"]
+
+
+def o_train(torch) -> None:
+    """o2: ``launch.train`` on the card; its trainer again on the card
+    and on the CPU from the same starting weights."""
+    import copy
+
+    from repro_torch.launch import train
+    from repro_torch.train import optimizer as opt, steps
+
+    got = train.main(O_TRAIN)
+    args = train.parse_args(O_TRAIN)
+    card = train.make_trainer(args)
+    cpu = train.make_trainer(train.parse_args(O_TRAIN + ["--device", "cpu"]))
+    model = copy.deepcopy(card.state.model).to("cpu")
+    cpu.state = steps.TrainState(model, opt.init(model, cpu.ocfg))
+    n = len(got)
+    again, ref = card.train(n)["loss"], cpu.train(n)["loss"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(again, ref))
+    print(f"o2 launch.train {O_TRAIN} on the card: losses {got!r}; its "
+          f"trainer again {again!r}; on the CPU from the same weights "
+          f"{ref!r} (largest relative difference {rel:.3e}, tol "
+          f"{M_LOSS_RTOL:g})")
+    require(n == 2 and got == again,
+            "o2: launch.train's losses change between two runs on the card")
+    require(rel <= M_LOSS_RTOL,
+            "o2: launch.train's losses on the card differ from the CPU's")
+
+
+def launch_path(torch, rec: PathRecorder) -> float:
+    """Path o: o1 (its packed calls recorded by ``rec``, one step of each
+    entry copied) and o2, with the launch counts reset just before and
+    read just after; o2 must add none.  Returns its seconds."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, specs
+
+    card = card_line()
+    t_path = time.perf_counter()
+    require(not torch.distributed.is_initialized(),
+            "path o: a default process group is still up")
+    entries = ([(specs.SOLVER_ARCH, n, dryrun.run_one_saddle)
+                for n in specs.SADDLE_DSVC_SHAPES]
+               + [(specs.SERVE_ARCH, n, dryrun.run_one_saddle_serve)
+                  for n in specs.SADDLE_SERVE_SHAPES])
+    ops.launch_counts.clear()
+    with rec:
+        for entry, name, run in entries:
+            for multi_pod in (False, True):
+                rec.arm(f"{entry} {name} "
+                        f"{'multi' if multi_pod else 'single'}", skip=0)
+                ca = run(name, multi_pod, device="cuda")["comm_audit"]
+                require(ca["match"] and ca["device"] == "cuda",
+                        f"o1 {entry} {name}: {ca}")
+    torch.cuda.synchronize()
+    o1_s = time.perf_counter() - t_path
+    print(f"o1: {len(entries) * 2} dry-run records on the card, each equal "
+          f"to its model, {o1_s:.1f} s")
+    o_train(torch)
+    counts = dict(ops.launch_counts)
+    print(f"path o launches {counts}")
+    rec.check_counts(counts, PACKED)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_path
+    print(f"path o: {secs:.1f} s (o1 {o1_s:.1f}, o2 {secs - o1_s:.1f}) "
+          f"[{card}]")
+    return secs
+
+
 def serial_vs_dist(torch, fits):
     """Each distributed fit refit serially on the coordinates it drew."""
     from repro_torch.core import saddle
@@ -5807,6 +5912,9 @@ def main() -> int:
     recs.append(PathRecorder("n"))
     n_secs = analysis_path(torch, recs[-1])
     lap("n")
+    recs.append(PathRecorder("o", keep=False))
+    o_secs = launch_path(torch, recs[-1])
+    lap("o")
     serial_vs_dist(torch, dist_fits)
     lap("phase 3")
     profiles(torch, dist_fits, serve)
@@ -5826,7 +5934,8 @@ def main() -> int:
     whole = cpu * FITS[0][2]["num_iters"] / steps
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all "
           f"(build included); path k {k_secs:.1f} s; path l {l_secs:.1f} "
-          f"s; path m {m_secs:.1f} s; path n {n_secs:.1f} s; the CPU replay "
+          f"s; path m {m_secs:.1f} s; path n {n_secs:.1f} s; path o "
+          f"{o_secs:.1f} s; the CPU replay "
           f"of "
           f"{nu} {cpu:.1f} s and its rerun on the card {card_s:.1f} s, "
           f"against ~{whole:.1f} s for all {FITS[0][2]['num_iters']} "

@@ -55,6 +55,9 @@ import numpy as np
 from repro_torch.kernels import fwht
 from repro_torch.kernels import saddle_update as su
 from repro_torch.kernels.saddle_update import MAX_SMEM
+from repro_torch.launch.mesh import PRODUCTION_LAYOUTS
+from repro_torch.launch.specs import (SADDLE_DSVC_SHAPES,
+                                      saddle_dsvc_client_shape)
 
 MAX_GRID_X = 2**31 - 1
 MAX_GRID_YZ = 65_535
@@ -514,9 +517,10 @@ def audit_cases() -> list[AuditCase]:
     block sizes the engines launch, the packed kernels above 32,768
     features and sampled rows, the unpacked kernels at the reference
     step's client shapes, the FWHT at every power of two to 131,072 (one
-    pass and two), and every shape ``PERF.md`` section 6 lists.  The
-    per-client shard shapes of the launch dry-run join when
-    ``launch/specs.py`` is ported."""
+    pass and two), every shape ``PERF.md`` section 6 lists, and the
+    per-client shard shapes of the launch dry-run at k = 256 and 512
+    (``launch.specs.saddle_dsvc_client_shape``; the JAX auditor's
+    labels)."""
     cases: list[AuditCase] = []
 
     def packed(label, **kw):
@@ -554,6 +558,12 @@ def audit_cases() -> list[AuditCase]:
                            (2, 512, 32_768, 1), (4, 256, 32_768, 1)):
         packed(f"PERF.md S={s} d={d} n_pad={n_pad} b={b}", s=s, d=d,
                n_pad=n_pad, b=b)
+    for k in (layout.size for layout in PRODUCTION_LAYOUTS.values()):
+        for shape in SADDLE_DSVC_SHAPES.values():
+            cs = saddle_dsvc_client_shape(shape, k)
+            packed(f"dryrun {shape.name} k={k} n_pad={cs['n_pad']} "
+                   f"d={cs['d']} b={cs['b']}", s=1, d=cs["d"],
+                   n_pad=cs["n_pad"], b=cs["b"])
     # ... and the unpacked ones (K, n, B)
     for k, n, b in ((20, 250, 1), (20, 251, 1), (20, 250, 128),
                     (20, 251, 128), (1, 4_999, 1), (1, 5_001, 1)):

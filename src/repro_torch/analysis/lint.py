@@ -109,7 +109,8 @@ class LintTarget(NamedTuple):
     per-step multiset`` of collectives; ``chunk`` the (module, name) of
     the chunk function that runs under the sync debug mode's "error" on a
     card where the solve loop reads back between chunks; ``group`` whether the
-    target runs on a process group."""
+    target runs on a process group; ``fake_k`` the size of the fake group
+    it runs on (the launch dry-run's production meshes; 0: none)."""
     name: str
     setup: Callable
     init: Callable
@@ -121,6 +122,7 @@ class LintTarget(NamedTuple):
     comm: object = "serial"
     chunk: tuple | None = None
     group: bool = False
+    fake_k: int = 0
 
 
 # ------------------------------------------------------------ measuring
@@ -688,7 +690,8 @@ def _sharded_serve_target(placement: str) -> LintTarget:
 def group_targets() -> list[LintTarget]:
     """The k = 8 targets: run by :func:`lint_all` over one spawn of
     ``DIST_K`` gloo ranks (``launch.mesh.spawn_clients``).  The launch
-    dry-run's mesh targets join when ``launch/specs.py`` is ported."""
+    dry-run's targets at the production meshes' k are
+    :func:`dryrun_mesh_targets`."""
     return [_sharded_runner_target(), _sharded_serve_target("lanes"),
             _sharded_serve_target("points")]
 
@@ -696,6 +699,50 @@ def group_targets() -> list[LintTarget]:
 def default_targets() -> list[LintTarget]:
     """Every hot path linted by the gate (the JAX ``default_targets``)."""
     return serial_targets() + group_targets()
+
+
+def _dryrun_target(shape_name: str, k: int) -> LintTarget:
+    """One client of the launch dry-run's Saddle-DSVC entry
+    (``launch.specs.build_saddle_dsvc_runner``: its shard of 1M points in
+    d = 256) on a fake group of k ranks: its steps' collectives against
+    ``CommModel`` at k."""
+    from repro_torch.core import engine
+    from repro_torch.launch import specs
+
+    shape = specs.SADDLE_DSVC_SHAPES[shape_name]
+    nu = specs._nu(shape)
+
+    def setup(device, group):
+        fn, args, meta = specs.build_saddle_dsvc_runner(group, shape)
+        return dict(fn=fn, x_t=args[1], sign=args[2], idx=args[3],
+                    model=meta["model"])
+
+    def init(ctx):
+        return engine.init_packed_state(ctx["sign"], shape.n1, shape.n2,
+                                        shape.d)
+
+    def run(ctx, state, steps):
+        return ctx["fn"](state, ctx["x_t"], ctx["sign"], ctx["idx"][:steps])
+
+    return LintTarget(
+        f"dryrun.{shape.name}[k={k}]", setup, init, run,
+        per_unit=_packed_step_calls(nu),
+        comm=lambda ctx: ctx["model"].collective_multiset(shape.block_size),
+        group=True, fake_k=k)
+
+
+def dryrun_mesh_targets() -> list[LintTarget]:
+    """Both Saddle-DSVC entries of the launch dry-run at the production
+    meshes' sizes (k = 256 single pod, k = 512 multi-pod): one client
+    each on a fake default group of k ranks.  :func:`lint_all` runs them
+    in a spawned process of their own (a fake group is its process's
+    default group); ``python -m repro_torch.analysis.run
+    --dryrun-meshes`` adds them to the gate."""
+    from repro_torch.launch import mesh, specs
+
+    return [_dryrun_target(name, mesh.production_layout(multi_pod).size)
+            for multi_pod in (False, True)
+            for name in specs.SADDLE_DSVC_SHAPES]
 
 
 def _rank_lint(group, names: list[str]) -> tuple[list[dict], list]:
@@ -710,12 +757,37 @@ def _rank_lint(group, names: list[str]) -> tuple[list[dict], list]:
     return records, findings
 
 
+def _fake_lint(names: list[str], device) -> tuple[list[dict], list]:
+    """A spawned process: lint the named :func:`dryrun_mesh_targets` with
+    their shards on ``device``, each on a fake default group of its k (one
+    group a k, made and destroyed in turn).  Returns plain data (records,
+    findings as tuples)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    by_name = {t.name: t for t in dryrun_mesh_targets()}
+    records, findings = [], []
+    for k in sorted({by_name[n].fake_k for n in names}):
+        group = mesh.init_fake_group(k, device)
+        try:
+            for name in names:
+                if by_name[name].fake_k == k:
+                    rec, fs = lint_target(by_name[name], group.device, group)
+                    records.append(dict(rec, fake_k=k))
+                    findings += [tuple(f) for f in fs]
+        finally:
+            dist.destroy_process_group()
+    return records, findings
+
+
 def lint_all(targets: list[LintTarget] | None = None, device="cpu",
              *, timeout_s: float = 240.0
              ) -> tuple[list[dict], list[Finding]]:
     """Lint every target: the serial ones in this process on ``device``,
     the group ones over one spawn of ``DIST_K`` gloo ranks on the CPU
-    (each rank's findings, deduplicated)."""
+    (each rank's findings, deduplicated), the dry-run's fake-group ones
+    in one spawned process on ``device``."""
     if targets is None:
         targets = default_targets()
     records, findings = [], []
@@ -725,7 +797,15 @@ def lint_all(targets: list[LintTarget] | None = None, device="cpu",
         rec, fs = lint_target(t, device)
         records.append(rec)
         findings.extend(fs)
-    grouped = [t.name for t in targets if t.group]
+    faked = [t.name for t in targets if t.fake_k]
+    if faked:
+        from repro_torch.launch import mesh
+
+        recs, fs = mesh.run_in_child(_fake_lint, faked, str(device),
+                                     timeout_s=timeout_s)
+        records += recs
+        findings += [Finding(*f) for f in fs]
+    grouped = [t.name for t in targets if t.group and not t.fake_k]
     if grouped:
         from repro_torch.launch import mesh
 

@@ -1,15 +1,19 @@
 """The analysis gate: both layers, failing on any unsuppressed finding.
 
     PYTHONPATH=src python -m repro_torch.analysis.run [--device cpu|cuda]
-        [--json PATH] [--skip-lint]
+        [--json PATH] [--skip-lint] [--dryrun-meshes]
 
 Layer 1 (``kernel_audit``) sweeps every CUDA kernel's launch plan over its
-shape cases: plain index arithmetic, no device.  Layer 2 (``lint``) runs
-the hot paths on ``--device`` (the card unless ``cpu`` is asked for; no
-card raises) and lints what they dispatch; on the CPU it also lints the
-k = 8 targets over one spawn of 8 gloo ranks.  Exits 1 on any
-unsuppressed finding.  The report's keys are the JAX gate's
-(``repro.analysis.run``).
+shape cases, the launch dry-run's per-client shard shapes at k = 256 and
+512 among them: plain index arithmetic, no device.  Layer 2 (``lint``)
+runs the hot paths on ``--device`` (the card unless ``cpu`` is asked for;
+no card raises) and lints what they dispatch; on the CPU it also lints the
+k = 8 targets over one spawn of 8 gloo ranks.  ``--dryrun-meshes`` adds
+the launch dry-run's Saddle-DSVC entries at k = 256 and 512
+(``lint.dryrun_mesh_targets``: one client on a fake group of k ranks, in a
+spawned process, its shard on ``--device``), as the JAX gate's flag adds
+its production-mesh lowerings.  Exits 1 on any unsuppressed finding.  The
+report's keys are the JAX gate's (``repro.analysis.run``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="write the full report to PATH")
     ap.add_argument("--skip-lint", action="store_true",
                     help="Layer 1 only (nothing runs)")
+    ap.add_argument("--dryrun-meshes", action="store_true",
+                    help="also lint the launch dry-run's k=256/k=512 "
+                         "entries (fake groups, in a spawned process)")
     args = ap.parse_args(argv)
 
     from repro_torch.analysis import kernel_audit, lint
@@ -44,6 +51,8 @@ def main(argv: list[str] | None = None) -> int:
     if not args.skip_lint:
         targets = (lint.default_targets() if device.type == "cpu"
                    else lint.serial_targets())
+        if args.dryrun_meshes:
+            targets += lint.dryrun_mesh_targets()
         lint_records, lint_findings = lint.lint_all(targets, device)
         print(f"[analysis] layer 2: {len(lint_records)} lint records on "
               f"{device.type}, {len(lint_findings)} findings")

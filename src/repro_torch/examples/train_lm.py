@@ -42,16 +42,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def _line(i: int, out: dict, secs: float) -> str:
+    return (f"  step {i:5d}  loss {out['loss'][-1]:.4f}"
+            f"  grad_norm {out['grad_norm'][-1]:.3f}  ({secs:.1f}s)")
+
+
 class Trainer:
     """What the script trains: the config, AdamW's settings (the JAX
     script's: ``warmup_steps=20``, the config's state dtype), the model
-    and its optimizer state from seed 0, and the token pipeline (seed 0)."""
+    and its optimizer state from seed 0, and the token pipeline (seed 0).
+    ``warmup_steps`` overrides the script's 20 (``launch.train`` passes
+    the JAX launcher's 10)."""
 
-    def __init__(self, args: argparse.Namespace, device=None):
+    def __init__(self, args: argparse.Namespace, device=None, *,
+                 warmup_steps: int = 20):
         cfg = get_config(args.arch)
         self.cfg = cfg if args.full else cfg.reduced()
         self.ocfg = opt.AdamWConfig(
-            lr=args.lr, warmup_steps=20,
+            lr=args.lr, warmup_steps=warmup_steps,
             state_dtype=self.cfg.optimizer_state_dtype)
         self.state = steps.init_train_state(self.cfg, self.ocfg, seed=0,
                                             device=device)
@@ -80,9 +88,12 @@ class Trainer:
                                             device=dev)
         return out
 
-    def train(self, n: int, log_every: int | None = None) -> dict:
+    def train(self, n: int, log_every: int | None = None,
+              line=None) -> dict:
         """``n`` steps; each step's loss and grad norm read back (which
-        waits for the step) and its wall seconds, batch included."""
+        waits for the step) and its wall seconds, batch included.  Every
+        ``log_every`` steps and at the last it prints ``line(i, out,
+        seconds so far)`` (default: step, loss and grad norm)."""
         out = {"loss": [], "grad_norm": [], "step_s": []}
         t_start = time.perf_counter()
         for i in range(n):
@@ -92,9 +103,7 @@ class Trainer:
             out["grad_norm"].append(float(metrics["grad_norm"]))
             out["step_s"].append(time.perf_counter() - t0)
             if log_every and (i % log_every == 0 or i == n - 1):
-                print(f"  step {i:5d}  loss {out['loss'][-1]:.4f}"
-                      f"  grad_norm {out['grad_norm'][-1]:.3f}"
-                      f"  ({time.perf_counter() - t_start:.1f}s)")
+                print((line or _line)(i, out, time.perf_counter() - t_start))
         return out
 
     def evaluate(self) -> dict:

@@ -18,6 +18,18 @@ start method, ``file://`` rendezvous in a temporary directory, so no
 port is needed) and returns what each rank returned.  The function is
 pickled by its import path, so it must live in a module the children
 can import, not in a ``__main__`` they cannot see or inside a test.
+:func:`run_in_child` runs a function in ONE fresh process, whose default
+process group is then its own to make (the launch dry-run's fake groups).
+
+The JAX package's production meshes (``make_production_mesh``: 16x16
+``(data, model)`` and 2x16x16 ``(pod, data, model)``) are rank layouts
+here (:class:`Layout`, :data:`PRODUCTION_LAYOUTS`): rank r sits at the
+row-major coordinates of r, the last axis fastest, as ``jax.make_mesh``
+lays out devices.  :func:`init_fake_group` makes the default group torch's
+fake backend of k ranks, where one process stands in for one rank of a
+k = 256 or 512 group: every collective returns at once, so the values it
+reduces mean nothing, but the collectives issued and their shapes are
+this rank's own.
 
 The SPMD fit service (``serve.solver_service.SolverService(mesh=)``) moves
 its own traffic with three helpers: :func:`broadcast_object` (rank 0's
@@ -35,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import datetime
+import math
 import multiprocessing
 import pickle
 import queue
@@ -127,6 +140,81 @@ def sub_group(parent: ClientGroup, ranks) -> ClientGroup | None:
     return ClientGroup(group=pg, rank=ranks.index(parent.rank),
                        size=len(ranks), device=parent.device,
                        timeout_s=parent.timeout_s)
+
+
+# ------------------------------------------------------------------------
+# The production layouts and the fake group of the launch dry-run.
+# ------------------------------------------------------------------------
+
+class Layout(NamedTuple):
+    """A mesh of ranks: its name (``"16x16"``), axis names and extents.
+    Rank r sits at the row-major coordinates of r (the last axis
+    fastest), as ``jax.make_mesh`` lays out its devices."""
+    name: str
+    axis_names: tuple
+    shape: tuple
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def axis_sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+    def coords(self, rank: int) -> dict:
+        """Rank ``rank``'s coordinate on every axis."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not in the {self.name} layout")
+        return {a: int(c) for a, c in
+                zip(self.axis_names, np.unravel_index(rank, self.shape))}
+
+    def column_ranks(self, column: int) -> list[int]:
+        """The ranks whose ``model`` coordinate is ``column``, in rank
+        order: one model column's data ranks (``pod x data`` on the
+        multi-pod layout)."""
+        ranks = np.arange(self.size).reshape(self.shape)
+        return np.take(ranks, column, axis=self.axis_names.index("model")
+                       ).reshape(-1).tolist()
+
+
+PRODUCTION_LAYOUTS = {
+    "16x16": Layout("16x16", ("data", "model"), (16, 16)),
+    "2x16x16": Layout("2x16x16", ("pod", "data", "model"), (2, 16, 16)),
+}
+
+
+def production_layout(multi_pod: bool = False) -> Layout:
+    """Single pod: 16x16 (data, model), k = 256.  Multi-pod: 2x16x16
+    (pod, data, model), k = 512."""
+    return PRODUCTION_LAYOUTS["2x16x16" if multi_pod else "16x16"]
+
+
+def init_fake_group(k: int, device=None, rank: int = 0) -> ClientGroup:
+    """Make the default process group torch's fake backend of ``k`` ranks,
+    with this process as rank ``rank``, and return its
+    :class:`ClientGroup` on ``device`` (the card unless the CPU is
+    asked for).  Its collectives move nothing: each returns at once,
+    leaving this rank's data as it was.  The caller destroys the group
+    (``torch.distributed.destroy_process_group()``)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dev = _client_device(device, rank)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=k)
+    return ClientGroup(group=dist.group.WORLD, rank=rank, size=k, device=dev)
+
+
+def column_groups(world: ClientGroup, layout: Layout) -> list:
+    """Every model column's :func:`sub_group` of the default group
+    ``world`` laid out as ``layout``, made in column order (every rank
+    must make every one: ``new_group``'s rule); None for each column that
+    does not hold this rank."""
+    if world.size != layout.size:
+        raise ValueError(f"a group of {world.size} ranks is not the "
+                         f"{layout.name} layout ({layout.size} ranks)")
+    return [sub_group(world, layout.column_ranks(c))
+            for c in range(layout.axis_sizes["model"])]
 
 
 # ------------------------------------------------------------------------
@@ -253,6 +341,70 @@ def _stop(procs) -> None:
         p.join(timeout=30)
 
 
+def _collect(procs, results, deadline: float, who: str) -> dict:
+    """Every process's result by rank from ``results`` (``(rank, ok,
+    payload)`` tuples), waiting until ``deadline``: a process that failed
+    has its traceback raised as a RuntimeError, one that exited without a
+    result raises too, and a timeout raises TimeoutError.  The caller
+    stops the processes."""
+    n, out = len(procs), {}
+    while len(out) < n:
+        left = deadline - time.monotonic()
+        if left <= 0:
+            raise TimeoutError(f"{who}: {n - len(out)} of {n} processes "
+                               "gave no result in time; all were killed")
+        try:
+            rank, ok, payload = results.get(timeout=min(left, 0.5))
+        except queue.Empty:
+            dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                    if r not in out and p.exitcode is not None]
+            if not dead:
+                continue
+            try:                          # what an exited one sent, if any
+                rank, ok, payload = results.get(timeout=1.0)
+            except queue.Empty:
+                raise RuntimeError(f"{who}: process {dead[0][0]} exited "
+                                   f"with code {dead[0][1]} without a "
+                                   "result") from None
+        if not ok:
+            raise RuntimeError(f"{who}: process {rank} of {n} failed:\n"
+                               f"{payload}")
+        out[rank] = payload
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.monotonic()))
+    return out
+
+
+def _child_main(fn, args, results) -> None:
+    try:
+        results.put((0, True, fn(*args)))
+    except BaseException:                 # reported, then the child exits
+        results.put((0, False, traceback.format_exc()))
+
+
+def run_in_child(fn: Callable, *args, timeout_s: float):
+    """``fn(*args)`` in one spawned process, and its result here.
+
+    The child's default process group is its own to make (a fake group of
+    k ranks, say).  As with :func:`spawn_clients`, ``fn`` must be
+    importable by the child, the arguments and the result travel pickled
+    (numpy, not tensors), the child's traceback is re-raised here as a
+    RuntimeError, and when ``timeout_s`` (start-up included) runs out the
+    child is killed and TimeoutError raised.  The child does not outlive
+    this call."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_child_main, args=(fn, args, results),
+                         daemon=True)]
+    deadline = time.monotonic() + timeout_s
+    try:
+        procs[0].start()
+        return _collect(procs, results, deadline, "run_in_child")[0]
+    finally:
+        _stop(procs)
+        results.close()
+
+
 def spawn_clients(fn: Callable, k: int, *, backend: str, device,
                   timeout_s: float, args: tuple = ()) -> list:
     """Run ``fn(group, *args)`` on k spawned processes, one rank each, and
@@ -276,32 +428,10 @@ def spawn_clients(fn: Callable, k: int, *, backend: str, device,
                                timeout_s, args, results), daemon=True)
              for r in range(k)]
     deadline = time.monotonic() + timeout_s
-    out: dict = {}
     try:
         for p in procs:
             p.start()
-        while len(out) < k:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise TimeoutError(
-                    f"spawn_clients: {k - len(out)} of {k} clients gave no "
-                    f"result within {timeout_s} s; all were killed")
-            try:
-                rank, ok, payload = results.get(timeout=min(left, 0.5))
-            except queue.Empty:
-                dead = [(r, p.exitcode) for r, p in enumerate(procs)
-                        if r not in out and p.exitcode not in (None, 0)]
-                if dead:
-                    raise RuntimeError(f"spawn_clients: client {dead[0][0]} "
-                                       f"exited with code {dead[0][1]} "
-                                       "without a result")
-                continue
-            if not ok:
-                raise RuntimeError(
-                    f"spawn_clients: client {rank} of {k} failed:\n{payload}")
-            out[rank] = payload
-        for p in procs:
-            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        out = _collect(procs, results, deadline, "spawn_clients")
     finally:
         _stop(procs)
         results.close()
