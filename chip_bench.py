@@ -36,10 +36,12 @@ the card's name and power limit:
     on the card, wall seconds (median of 5, synchronised);
   * the main path's ms per step: path a's two serial fits
     (``saddle.solve``) and Figure 3 at k = 20 (``solve_distributed``),
-    SOLVE_STEPS steps each on preprocessed data, host clock, synchronised
-    (median of 3 after a warm run);
+    SOLVE_STEPS steps each, and path d's B = 40,000 fit, 200 steps, on
+    preprocessed data, host clock, synchronised (median of 3 after a warm
+    run);
   * the packed momentum dot and MWU at the shapes of ``chip_smoke.py``'s
-    paths a-e and at b = 32,768 / 32,769 / 40,000 / 65,536 of d = 65,536:
+    paths a-e and at b = 32,768 / 32,769 / 40,000 / 65,536 of d = 65,536,
+    each with its row splits R (1 in a tree that has no split axis):
     wrapper ms by events, kernel device ms, device launches a call, the
     plain version's ms by events (the tree's ``kernels.ref``), and for
     the dot where every slot shares one block the one-call yardstick
@@ -93,9 +95,9 @@ def host_ms(torch, fn, calls: int = 200) -> float:
 
 def solve_steps(torch) -> list[dict]:
     """ms per step of the main path's solves on the card: path a's two
-    serial fits and Figure 3 at k = 20, SOLVE_STEPS steps each (the
-    budget is in rows, so B times as many) on data preprocessed once
-    (median of 3 after a warm run)."""
+    serial fits and Figure 3 at k = 20, SOLVE_STEPS steps each, and path
+    d's B = 40,000 fit, its 200 steps (the budget is in rows, so B times
+    as many) on data preprocessed once (median of 3 after a warm run)."""
     from repro_torch.core import distributed as dist
     from repro_torch.core import preprocess as pp
     from repro_torch.core import saddle
@@ -111,20 +113,24 @@ def solve_steps(torch) -> list[dict]:
              synthetic.separable(20_000, 256, seed=256),
              dict(block_size=128)),
             ("Figure 3 k=20 n=10000 d=256",
-             synthetic.separable(10_000, 256, seed=0), dict(k=20))):
+             synthetic.separable(10_000, 256, seed=0), dict(k=20)),
+            ("path d hard-margin n=1500 d=40000 B=40000",
+             synthetic.separable(1_500, 40_000, seed=40_000),
+             dict(block_size=40_000, steps=200))):
         xp, xm = split_classes(ds.x, ds.y)
         pre = pp.preprocess(xp, xm, generator=torch.Generator().manual_seed(0),
                             device="cuda")
         alpha = kw.pop("alpha", None)
+        steps = kw.pop("steps", SOLVE_STEPS)
         nu = 0.0 if alpha is None else 1.0 / (alpha * min(len(xp), len(xm)))
         common = dict(eps=1e-3, beta=0.1, nu=nu,
-                      num_iters=SOLVE_STEPS * kw.get("block_size", 1),
-                      record_every=SOLVE_STEPS, device="cuda", **kw)
+                      num_iters=steps * kw.get("block_size", 1),
+                      record_every=steps, device="cuda", **kw)
         solve = dist.solve_distributed if "k" in kw else saddle.solve
-        runs.append((label, lambda pre=pre, solve=solve, common=common:
-                     solve(pre.xp, pre.xm, **common)))
+        runs.append((label, steps, lambda pre=pre, solve=solve,
+                     common=common: solve(pre.xp, pre.xm, **common)))
     out = []
-    for label, fn in runs:
+    for label, steps, fn in runs:
         secs = []
         for _ in range(4):
             torch.cuda.synchronize()
@@ -132,13 +138,13 @@ def solve_steps(torch) -> list[dict]:
             res = fn()
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
-            if res.history[-1][0] != SOLVE_STEPS:
+            if res.history[-1][0] != steps:
                 raise RuntimeError(f"{label}: ran {res.history[-1][0]} "
-                                   f"steps, not {SOLVE_STEPS}")
-        ms = statistics.median(secs[1:]) / SOLVE_STEPS * 1e3
-        print(f"  solve {label}: {ms:.4f} ms/step ({SOLVE_STEPS} steps, "
+                                   f"steps, not {steps}")
+        ms = statistics.median(secs[1:]) / steps * 1e3
+        print(f"  solve {label}: {ms:.4f} ms/step ({steps} steps, "
               f"median of 3 after a warm run)")
-        out.append(dict(run=label, steps=SOLVE_STEPS, ms_per_step=ms))
+        out.append(dict(run=label, steps=steps, ms_per_step=ms))
     return out
 
 
@@ -216,7 +222,10 @@ def packed_kernels(torch, timer) -> list[dict]:
 
     from repro_torch.core import engine, saddle
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import saddle_update as su
 
+    # a tree from before the row splits has none: R = 1 everywhere
+    splits_of = getattr(su, "packed_row_splits", lambda n_pad, b: 1)
     rows, jobs = [], []
     for k, (s, d, n_pad, b, distinct) in enumerate(PACKED_SHAPES):
         g = torch.Generator(device="cuda").manual_seed(k)
@@ -252,7 +261,8 @@ def packed_kernels(torch, timer) -> list[dict]:
                 ("mwu_update_packed", (x_t, idx, ll, u, dw, sign, sp.mwu_c,
                                        sp.mwu_dot, d / b), None)):
             fn = getattr(ops, name)
-            row = dict(kernel=name, s=s, d=d, n_pad=n_pad, b=b)
+            row = dict(kernel=name, s=s, d=d, n_pad=n_pad, b=b,
+                       splits=splits_of(n_pad, b))
             try:
                 out = fn(*args)
             except ValueError as err:
@@ -276,7 +286,8 @@ def packed_kernels(torch, timer) -> list[dict]:
         row["device_ms"], row["device_launches"] = ms, per_call
         lib = row["library_ms"]
         print(f"  {row['kernel']} S={row['s']} d={row['d']} n_pad="
-              f"{row['n_pad']} b={row['b']}: wrapper {row['ms']:.4f} ms "
+              f"{row['n_pad']} b={row['b']} R={row['splits']}: wrapper "
+              f"{row['ms']:.4f} ms "
               f"(host {row['host_ms']:.4f} ms), kernel device {ms:.4f} ms ({per_call:.2f} device launches a"
               f" call), plain {row['plain_ms']:.4f} ms, x_t[:, idx] @ mom "
               f"{'null' if lib is None else f'{lib:.4f}'} ms, output sha1 "

@@ -4958,12 +4958,19 @@ def packed_faults(torch, name, b, args, got, sign) -> dict:
     momentum_dot_packed with theta taken as 0, or with the kernel's last
     row group (rows j = G - 1 mod G, G = 8 / tiles per block) left out of
     delta; mwu_update_packed with u left out, or with each slot's last
-    tile that holds a real point left out of the merged (m, s); and above
+    tile that holds a real point left out of the merged (m, s); above
     CHUNK_ROWS sampled rows, either kernel with the rows past the first
-    chunk left out."""
+    chunk left out; and with R > 1 row splits, the dot with its last
+    split left unmerged (its rows of delta 0) and the MWU with the last
+    split's rows left out of dv."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.saddle_update import (CHUNK_ROWS,
+                                                   packed_row_splits,
+                                                   packed_split_rows,
                                                    packed_tiles_per_block)
+
+    splits = packed_row_splits(args[0].shape[2], b)
+    last = (splits - 1) * packed_split_rows(b, splits)
 
     if name == "momentum_dot_packed":
         x_t, idx, ll, lp, sign, theta = args
@@ -4977,6 +4984,10 @@ def packed_faults(torch, name, b, args, got, sign) -> dict:
             later = got.clone()
             later[:, CHUNK_ROWS:] = 0.0
             faults["rows past the first chunk left out"] = later
+        if splits > 1:
+            unmerged = got.clone()
+            unmerged[:, last:] = 0.0
+            faults["last split left unmerged"] = unmerged
         return faults
     x_t, idx, ll, u, dw, *rest = args
     faults = {"u = 0": ref.mwu_update_packed_ref(
@@ -4988,6 +4999,11 @@ def packed_faults(torch, name, b, args, got, sign) -> dict:
             ref.mwu_update_packed_ref(
                 x_t, idx[:, :CHUNK_ROWS].contiguous(), ll, u,
                 dw[:, :CHUNK_ROWS].contiguous(), *rest)
+    if splits > 1:
+        faults["last split's rows left out of dv"] = \
+            ref.mwu_update_packed_ref(
+                x_t, idx[:, :last].contiguous(), ll, u,
+                dw[:, :last].contiguous(), *rest)
     return faults
 
 
@@ -5073,10 +5089,9 @@ def host_split(torch, name, args, calls: int = 1000) -> dict:
     x_t, idx = args[:2]
     s, d, n_pad = x_t.shape
     b = idx.shape[1]
-    tiles = n_pad // su.LANE
     dev = x_t.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tpb = su.packed_tiles_per_block(b)
+    ln = su.packed_launch(name, s, n_pad, b)
     if name == "momentum_dot_packed":
         _, _, ll, lp, sign, theta = args
 
@@ -5086,15 +5101,16 @@ def host_split(torch, name, args, calls: int = 1000) -> dict:
 
         def allocate():
             torch.empty((s, b), dtype=torch.float32, device=dev)
-            su.workspace(dev, s, s * tiles * (-(-b // 4) * 4))
+            su.workspace(dev, ln.counters, ln.floats)
 
         out = torch.empty((s, b), dtype=torch.float32, device=dev)
-        counters, parts = su.workspace(dev, s, s * tiles * (-(-b // 4) * 4))
+        counters, parts = su.workspace(dev, ln.counters, ln.floats)
         ptrs = [t.data_ptr() for t in (x_t, idx, ll, lp, sign, theta, out,
                                        parts, counters)]
 
         def call():
-            lib.momentum_dot_packed_f32(*ptrs, s, d, n_pad, b, tpb, stream)
+            lib.momentum_dot_packed_f32(*ptrs, s, d, n_pad, b, *ln.args,
+                                        stream)
 
         def whole():
             ops.momentum_dot_packed(*args)
@@ -5110,18 +5126,18 @@ def host_split(torch, name, args, calls: int = 1000) -> dict:
             torch.empty_like(ll)
             torch.empty_like(u)
             torch.empty((2, s, 2), dtype=torch.float32, device=dev)
-            su.workspace(dev, s, s * tiles * 4)
+            su.workspace(dev, ln.counters, ln.floats)
 
         outs = [torch.empty_like(ll), torch.empty_like(u),
                 torch.empty((2, s, 2), dtype=torch.float32, device=dev)]
-        counters, parts = su.workspace(dev, s, s * tiles * 4)
+        counters, parts = su.workspace(dev, ln.counters, ln.floats)
         ptrs = [t.data_ptr() for t in (x_t, idx, dw, ll, u, sign, mwu_c,
                                        mwu_dot)]
         ptrs2 = [t.data_ptr() for t in (*outs, parts, counters)]
 
         def call():
             lib.mwu_update_packed_f32(*ptrs, float(d_eff), *ptrs2, s, d,
-                                      n_pad, b, tpb, stream)
+                                      n_pad, b, *ln.args, stream)
 
         def whole():
             ops.mwu_update_packed(*args)
@@ -5154,9 +5170,11 @@ def check_packed(torch, timer, g, x_t, sign, b, launches,
     version (``packed_errors``), the MWU's (m, s) also against the plain
     merge of the per-tile partials of its own log_new, the same bits on a
     repeat call, every planted fault (``packed_faults``) breaking a
-    tolerance, the wrapper's host time split (``host_split``); returns
-    their timing jobs."""
+    tolerance, the wrapper's host time split (``host_split``); with R > 1
+    row splits the MWU also against the plain split order
+    (``ref.mwu_update_packed_ref(span=)``); returns their timing jobs."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import saddle_update as su
 
     rows, d, n_pad = x_t.shape
     a = step_inputs(torch, g, x_t, sign, b, main_path)
@@ -5164,7 +5182,8 @@ def check_packed(torch, timer, g, x_t, sign, b, launches,
         "ll", "lp", "u", "idx", "dw", "theta", "mwu_c", "mwu_dot", "d_eff"))
     tag = f",{path} operands" if main_path else ",synthetic layout"
     real = sign != 0
-    label = f"[S={rows},d={d},n_pad={n_pad},b={b}{tag}]"
+    splits = su.packed_row_splits(n_pad, b)
+    label = f"[S={rows},d={d},n_pad={n_pad},b={b},R={splits}{tag}]"
     dot_args = (x_t, idx, ll, lp, sign, theta)
     # The MWU's log_new spreads over hundreds at b = 128, so that one
     # point carries a class: each slot's last real point is raised to 1
@@ -5207,6 +5226,12 @@ def check_packed(torch, timer, g, x_t, sign, b, launches,
             merged = merged_partials(torch, got[0], sign)
             errs["merge"] = (lse_error(torch, got[2], got[3], *merged),
                              1e-4)
+            if splits > 1:
+                split_order = plain(*args, span=su.packed_split_rows(
+                    b, splits))
+                errs.update((f"{k} split order", v) for k, v in
+                            packed_errors(torch, name, got, split_order,
+                                          real).items())
         require(all(e <= tol for e, tol in errs.values()),
                 f"{name}{label}: {errs}")
         again = fn()
@@ -5237,6 +5262,48 @@ def check_packed(torch, timer, g, x_t, sign, b, launches,
         e["launches"] = launches
         jobs.append((e, fn, name + "_kernel", 1))
     return jobs
+
+
+def split_slots_alone(torch, g, x_t, sign, b, slots: int = 3) -> None:
+    """Both packed kernels at b rows cut into R > 1 row splits, on S =
+    ``slots`` slots of the one slot (x_t, sign), each slot with its own
+    rows, dw, duals and u: every slot's outputs bit-equal to a call on
+    that slot alone (R does not depend on S, so a lane's bits do not
+    depend on its batch-mates)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import saddle_update as su
+
+    _, d, n_pad = x_t.shape
+    splits = su.packed_row_splits(n_pad, b)
+    require(splits > 1, f"split_slots_alone: b = {b} over n_pad = {n_pad} "
+            "takes no row split")
+    xs = x_t.expand(slots, -1, -1).contiguous()
+    signs = sign.expand(slots, -1).contiguous()
+    a = step_inputs(torch, g, xs, signs, b)
+    idx = torch.stack([torch.randperm(d, generator=g, device="cuda")[:b]
+                       for _ in range(slots)]).to(torch.int32)
+    dw = a["dw"] * (1 + torch.rand((slots, b), generator=g, device="cuda"))
+    calls = {
+        "momentum_dot_packed": lambda i: ops.momentum_dot_packed(
+            *(v[i] for v in (xs, idx, a["ll"], a["lp"], signs,
+                             a["theta"]))),
+        "mwu_update_packed": lambda i: ops.mwu_update_packed(
+            *(v[i] for v in (xs, idx, a["ll"], a["u"], dw, signs,
+                             a["mwu_c"], a["mwu_dot"])), a["d_eff"])}
+    every = slice(None)
+    for name, call in calls.items():
+        batch = call(every)
+        batch = (batch,) if isinstance(batch, torch.Tensor) else batch
+        for k in range(slots):
+            one = slice(k, k + 1)
+            alone = call(one)
+            alone = (alone,) if isinstance(alone, torch.Tensor) else alone
+            require(all(torch.equal(p[one], q) for p, q in zip(batch, alone)),
+                    f"{name}[S={slots},b={b},R={splits}]: slot {k} differs "
+                    "from a call on it alone")
+    print(f"  S = {slots} slots at b = {b}, n_pad = {n_pad} (R = {splits}): "
+          "every slot's outputs of both packed kernels bit-equal to a call "
+          "on it alone")
 
 
 def ticket_rounds(torch, g, recs, rounds: int = 3):
@@ -5632,10 +5699,11 @@ def check_kernels(torch, timer, recs) -> list[dict]:
     # of indices or dw) and every row of d, on path d's operands
     x_t, sign = next(xs for shape, xs in recs[3].operands.items()
                      if shape[3] == 1)
-    for b in (32_769, 65_536):
+    for b in (32_768, 32_769, 65_536):
         jobs += check_packed(torch, timer, g, x_t, sign, b, None,
                              path="path d")
     report(timer, jobs)
+    split_slots_alone(torch, g, x_t, sign, 40_000)
     jobs = []
     x_t, sign = synthetic_layout(torch, g)
     # b = 3 and 300: a ragged last block of 4 tiles, and a row ring that

@@ -24,6 +24,11 @@ dict, or ``passes`` of them for the FWHT's kernel passes) holds:
                where no block writes one)
 ``ticket`` / ``counter``  whether a group's x-blocks merge by an integer
                ticket, and each group's counter
+``split``      None, or a merge over another grid ``axis`` that comes
+               first (the packed MWU's row splits): its ``partials``,
+               ``ticket`` and ``counter``, as above; the blocks it leaves
+               (one a group) write the outputs ``by`` ``blocks`` and
+               take part in the x-merge
 ``workspace``  the counters and floats the wrapper allocates
 
 and the rules:
@@ -35,7 +40,8 @@ COVER-001  every point of every slot or client, every column and every
            declared merge
 RACE-001   blocks that share an output write distinct partial slots and
            merge by a ticket on a counter of their own, so that only the
-           ticket's last block writes the merged value
+           ticket's last block writes the merged value (a split merge's
+           counters and partials distinct from the x-merge's too)
 SMEM-001   static plus dynamic shared memory is at most ``MAX_SMEM`` =
            232,448 B, the H100's opt-in limit a block (this replaces the
            JAX audit's 16 MiB VMEM-001)
@@ -133,56 +139,86 @@ def _launch_keys(ln: su.Launch, names: tuple) -> dict:
 
 
 def _packed_plan(name: str, s: int, d: int, n_pad: int, b: int,
-                 part_floats: int, reads: dict, writes: dict) -> dict:
+                 reads: dict, writes: dict) -> dict:
     ln = su.packed_launch(name, s, n_pad, b)
-    (tpb,), (gx, _, _) = ln.args, ln.grid
+    (tpb, splits), (gx, _, _) = ln.args, ln.grid
     tiles = n_pad // su.LANE
     x = _split(tiles, tpb, gx)
-    t0, t1 = x["lo"], x["hi"]
+    t0, t1 = x["lo"][:, None, None], x["hi"][:, None, None]
+    rows = _split(b, su.packed_split_rows(b, splits), splits)
+    r0, r1 = rows["lo"][None, None, :], rows["hi"][None, None, :]
     slot = np.arange(s, dtype=np.int64)[None, :, None]
-    # block (x, y) writes the partials of its tiles of slot y
-    plo = (slot * tiles + t0[:, None, None]) * part_floats
-    phi = (slot * tiles + t1[:, None, None]) * part_floats
-    return {
+    split = np.arange(splits, dtype=np.int64)[None, None, :]
+    plan = {
         "name": name, "threads": su.THREADS,
         "static_smem": STATIC_SMEM[name],
-        **_launch_keys(ln, ("tpb",)),
-        "axes": [_axis("point", t0 * su.LANE, t1 * su.LANE, n_pad),
+        **_launch_keys(ln, ("tpb", "splits")),
+        "axes": [_axis("point", x["lo"] * su.LANE, x["hi"] * su.LANE, n_pad),
                  _axis("slot", np.arange(s), np.arange(s) + 1, s),
-                 _axis(None, [0], [1], 1)],
+                 _axis("row", rows["lo"], rows["hi"], b)],
         "reads": {"x_t": ((s, d, n_pad), ("slot", None, "point")),
-                  "idx": ((s, b), ("slot", None)), **reads},
+                  "idx": ((s, b), ("slot", "row")), **reads},
         "writes": writes,
-        "partials": {"lo": plo, "hi": phi},
         "ticket": gx > 1,
-        "counter": np.arange(s, dtype=np.int64)[:, None],
+        "split": None,
     }
+    if name == "momentum_dot_packed":
+        # block (x, y, z) writes its tiles' partials of the rows of split
+        # z of slot y, and the split's last point block, by a ticket on
+        # the (slot, split)'s counter, merges them
+        bp = -(-b // 4) * 4
+        plan["partials"] = {"lo": (slot * tiles + t0) * bp + r0,
+                            "hi": (slot * tiles + t1 - 1) * bp + r1}
+        plan["counter"] = (np.arange(s, dtype=np.int64)[:, None] * splits
+                           + np.arange(splits, dtype=np.int64)[None, :])
+        return plan
+    # the MWU: one (m, s) partial a tile, written by the block that merges
+    # the point block's splits (x, y), merged over the point blocks by a
+    # ticket on the slot's counter; with R > 1 each block first writes its
+    # split's dv, (S, R, n_pad) after the (m, s) partials, merged over the
+    # splits by a ticket on the (slot, point block)'s counter
+    plan["partials"] = {"lo": (slot * tiles + t0) * 4,
+                        "hi": (slot * tiles + t1) * 4}
+    plan["counter"] = np.arange(s, dtype=np.int64)[:, None]
+    if splits > 1:
+        dv = s * tiles * 4 + (slot * splits + split) * n_pad
+        plan["split"] = {
+            "axis": 2, "ticket": True,
+            "partials": {"lo": dv + t0 * su.LANE, "hi": dv + t1 * su.LANE},
+            "counter": s + slot * gx + np.arange(gx, dtype=np.int64)[
+                :, None, None]}
+    return plan
 
 
 def momentum_dot_packed_plan(*, s: int, d: int, n_pad: int, b: int) -> dict:
     """The launch of ``saddle_update.momentum_dot_packed`` for S = ``s``
     slots of ``n_pad`` points and b sampled rows of d: grid (point blocks
-    of ``packed_tiles_per_block(b)`` tiles, slots); each block writes its
-    tiles' partials (S, tiles, b rounded up to 4) and the slot's last
-    block, by ticket, merges them into delta (S, b)."""
+    of ``packed_tiles_per_block(b)`` tiles, slots, ``packed_row_splits``
+    row splits); each block writes its tiles' partials (S, tiles, b
+    rounded up to 4) of its split's rows and the split's last point block,
+    by a ticket on the (slot, split)'s counter, merges them into the
+    split's rows of delta (S, b)."""
     vec = ((s, n_pad), ("slot", "point"))
     return _packed_plan(
-        "momentum_dot_packed", s, d, n_pad, b, -(-b // 4) * 4,
+        "momentum_dot_packed", s, d, n_pad, b,
         {name: vec for name in ("log_lam", "log_prev", "sign")}
         | {"theta": ((s,), ("slot",))},
-        {"out": {"shape": (s, b), "dims": ("slot", None), "by": "merge"}})
+        {"out": {"shape": (s, b), "dims": ("slot", "row"), "by": "merge"}})
 
 
 def mwu_update_packed_plan(*, s: int, d: int, n_pad: int, b: int) -> dict:
     """The launch of ``saddle_update.mwu_update_packed``: the grid of
-    :func:`momentum_dot_packed_plan`; each block writes log_new and u_new
-    at its points and a tile's (m, s) partial (4 floats) a tile, and the
+    :func:`momentum_dot_packed_plan`; with R > 1 row splits each block
+    writes its split's dv partial and the last split block of each
+    (slot, point block), by ticket (the plan's ``split`` merge), sums
+    them; that block (every block at R = 1) writes log_new and u_new at
+    its points and a tile's (m, s) partial (4 floats) a tile, and the
     slot's last block merges them into (m, s) (2, S, 2)."""
     vec = ((s, n_pad), ("slot", "point"))
     return _packed_plan(
-        "mwu_update_packed", s, d, n_pad, b, 4,
+        "mwu_update_packed", s, d, n_pad, b,
         {name: vec for name in ("log_lam", "u", "sign")}
-        | {"dw": ((s, b), ("slot", None)),
+        | {"dw": ((s, b), ("slot", "row")),
            **{name: ((s,), ("slot",)) for name in ("mwu_c", "mwu_dot")}},
         {"log_new": {"shape": (s, n_pad), "dims": ("slot", "point"),
                      "by": "blocks"},
@@ -414,18 +450,30 @@ def _check_blocks(p: dict, name: str, case: str, out: list) -> bool:
                 f"{p['name']}: partials reach float "
                 f"{int(part['hi'].max())} of a workspace of "
                 f"{p['workspace']['floats']}"))
-    if p["ticket"] and (p["counter"].min() < 0 or p["counter"].max()
-                        >= p["workspace"]["counters"]):
+    split = p.get("split")
+    if split and (split["partials"]["lo"].min() < 0
+                  or split["partials"]["hi"].max()
+                  > p["workspace"]["floats"]):
         out.append(Finding(
             "BLOCK-001", name, case,
-            f"{p['name']}: counter {int(p['counter'].max())} outside the "
-            f"workspace's {p['workspace']['counters']}"))
+            f"{p['name']}: split partials reach float "
+            f"{int(split['partials']['hi'].max())} of a workspace of "
+            f"{p['workspace']['floats']}"))
+    counters = ([p["counter"]] if p["ticket"] else []) + (
+        [split["counter"]] if split else [])
+    for counter in counters:
+        if counter.min() < 0 or counter.max() >= p["workspace"]["counters"]:
+            out.append(Finding(
+                "BLOCK-001", name, case,
+                f"{p['name']}: counter {int(counter.max())} outside the "
+                f"workspace's {p['workspace']['counters']}"))
     return ok
 
 
 def _check_writes(p: dict, name: str, case: str, out: list) -> None:
     """COVER-001 and RACE-001 for every output of one launch."""
     axes = p["axes"]
+    split = p.get("split")
     by_dim = {ax["dim"]: a for a, ax in enumerate(axes)
               if ax["dim"] is not None}
     for op, w in p["writes"].items():
@@ -457,13 +505,53 @@ def _check_writes(p: dict, name: str, case: str, out: list) -> None:
                     out.append(Finding(
                         "COVER-001", name, case,
                         f"{p['name']}: {op} along {ax['dim']}: {why}"))
-            elif g > 1 and not (a == 0 and merge):
+            elif g > 1 and not (a == 0 and merge) and not (
+                    split and a == split["axis"]):
                 out.append(Finding(
                     "RACE-001", name, case,
                     f"{p['name']}: the {g} blocks of grid axis {a} all "
                     f"write {op}'s same elements, with no merge"))
         if merge and len(axes[0]["lo"]) > 1:
             _check_merge(p, name, case, op, out)
+    if split:
+        _check_split(p, name, case, out)
+
+
+def _check_split(p: dict, name: str, case: str, out: list) -> None:
+    """COVER-001 and RACE-001 of a merge over the grid axis
+    ``split["axis"]`` that comes before the x-merge: the axis's ranges take
+    every item of its dim exactly once, the merge goes by ticket, and its
+    counters and partials are distinct from each other and from the
+    x-merge's."""
+    split = p["split"]
+    ax = p["axes"][split["axis"]]
+    why = _partition(ax["lo"], ax["hi"], ax["extent"])
+    if why:
+        out.append(Finding(
+            "COVER-001", name, case,
+            f"{p['name']}: the split merge takes {ax['dim']}s of which "
+            f"{why}"))
+    if not split["ticket"]:
+        out.append(Finding(
+            "RACE-001", name, case,
+            f"{p['name']}: {len(ax['lo'])} blocks merge their splits with "
+            "no ticket: each would write the merged value"))
+    counters = [np.asarray(split["counter"]).reshape(-1)]
+    if p["ticket"]:
+        counters.append(np.asarray(p["counter"]).reshape(-1))
+    counter = np.concatenate(counters)
+    if np.unique(counter).size != counter.size:
+        out.append(Finding(
+            "RACE-001", name, case,
+            f"{p['name']}: two groups of blocks take tickets on one "
+            "counter"))
+    clash = _clash([split["partials"]] + (
+        [p["partials"]] if p["partials"] is not None else []))
+    if clash:
+        out.append(Finding(
+            "RACE-001", name, case,
+            f"{p['name']}: two blocks write split partial floats {clash} "
+            "of the workspace"))
 
 
 def _check_merge(p: dict, name: str, case: str, op: str, out: list) -> None:
@@ -485,16 +573,26 @@ def _check_merge(p: dict, name: str, case: str, op: str, out: list) -> None:
             "RACE-001", name, case,
             f"{p['name']}: blocks merge {op} but write no partials"))
         return
-    lo, hi = part["lo"].reshape(-1), part["hi"].reshape(-1)
+    clash = _clash([part])
+    if clash:
+        out.append(Finding(
+            "RACE-001", name, case,
+            f"{p['name']}: two blocks write partial floats {clash} of the "
+            "workspace"))
+
+
+def _clash(parts: list) -> str:
+    """'' when the [lo, hi) ranges of floats of every partials dict in
+    ``parts`` are disjoint, else the first range two of them share."""
+    lo = np.concatenate([q["lo"].reshape(-1) for q in parts])
+    hi = np.concatenate([q["hi"].reshape(-1) for q in parts])
     order = np.argsort(lo, kind="stable")
     lo, hi = lo[order], hi[order]
     clash = np.flatnonzero(lo[1:] < hi[:-1])
-    if clash.size:
-        i = int(clash[0])
-        out.append(Finding(
-            "RACE-001", name, case,
-            f"{p['name']}: two blocks write partial floats "
-            f"[{lo[i + 1]}, {min(hi[i], hi[i + 1])}) of the workspace"))
+    if not clash.size:
+        return ""
+    i = int(clash[0])
+    return f"[{lo[i + 1]}, {min(hi[i], hi[i + 1])})"
 
 
 def audit_plan(plan: dict, *, kernel: str = "", case: str = ""

@@ -40,9 +40,9 @@ SIGNATURES = {
                           ctypes.POINTER(ctypes.c_uint)],
     },
     "saddle_update": {
-        "momentum_dot_packed_f32": [_P] * 9 + [_I] * 5 + [_P],
+        "momentum_dot_packed_f32": [_P] * 9 + [_I] * 6 + [_P],
         "mwu_update_packed_f32": [_P] * 8 + [ctypes.c_float] + [_P] * 5
-                                 + [_I] * 5 + [_P],
+                                 + [_I] * 6 + [_P],
         "momentum_dot_f32": [_P, _P, _P, ctypes.c_float, _P, _P, _P]
                             + [_I] * 6 + [_P],
         "mwu_update_f32": [_P] * 4 + [ctypes.c_float] * 4 + [_I]

@@ -3,7 +3,7 @@
 // PACKED (the production step, 2 launches per step): leading slot axis S,
 // x_t (S, d, n_pad), idx (S, b), point vectors (S, n_pad) and per-slot
 // scalars (S,).  Each wrapper call is ONE launch, grid (point block,
-// slot), and its outputs are final: no torch op runs after it.
+// slot, row split), and its outputs are final: no torch op runs after it.
 //
 // Replaces: src/repro/kernels/saddle_update.py,
 //   _momentum_dot_packed_kernel (launched by _momentum_dot_packed_jit) and
@@ -26,45 +26,67 @@
 //     is masked.  A block has 8 warps over T tiles (T = 8 / G, chosen by b
 //     in the wrapper: T = 8 at b = 1, T = 1 from b = 8): warp w takes tile
 //     w % T of the block and the ROW GROUP w / T, the rows j = g mod G.
-//   * Staging: the block's segment of every sampled row (T * 512 bytes,
-//     16-byte aligned) is copied into shared memory by the Tensor Memory
-//     Accelerator (cp.async.bulk, one per row, issued by warp 0), into a
-//     ring of up to 4 stages of 16 KB (32 / T rows a stage), each stage
-//     completing on an mbarrier that expects its bytes.  At b <= 128 every
-//     row of the block is in flight at once (64 KB); a larger b refills a
-//     stage once all warps are done with it.  The warps read rows from
-//     shared memory while later stages are still arriving.
-//   * Any b from 1 to d: after the ring the block keeps the sampled rows'
-//     indices (dot) or dw (MWU) in shared memory, all b of them up to
+//   * Row splits: many sampled rows over few points (path d's b = 40,000
+//     over n_pad = 1,536: 12 point blocks) would leave most SMs idle, each
+//     block walking all b rows.  The third grid axis then cuts a slot's b
+//     rows into R contiguous splits of ``span`` rows (the wrapper's
+//     packed_row_splits: R = 1 below 2,048 rows and wherever the point
+//     blocks alone fill the card; else about two blocks an SM, at least
+//     1,024 rows a split, R <= MAX_SPLITS; every split starts on a stage
+//     boundary of the ring and none is empty).  R does not depend on S,
+//     so a slot's bits do not depend on its batch-mates.  Block (x, s, r)
+//     walks rows [r * span, min(b, (r + 1) * span)) of slot s; with R = 1
+//     every block walks all b rows and the kernels are those of R = 1
+//     before the axis existed, bit for bit.
+//   * Staging: the block's segment of every sampled row of its split
+//     (T * 512 bytes, 16-byte aligned) is copied into shared memory by the
+//     Tensor Memory Accelerator (cp.async.bulk, one per row, issued by
+//     warp 0), into a ring of up to 4 stages of 16 KB (32 / T rows a
+//     stage), each stage completing on an mbarrier that expects its bytes.
+//     At b <= 128 every row of the block is in flight at once (64 KB); a
+//     longer split refills a stage once all warps are done with it.  The
+//     warps read rows from shared memory while later stages are still
+//     arriving.
+//   * Any b from 1 to d: after the ring the block keeps its split's rows'
+//     indices (dot) or dw (MWU) in shared memory, all of them up to
 //     CHUNK_ROWS = 32,768 (128 KB), else a chunk of CHUNK_ROWS at a time,
 //     reloaded by the whole block at the stage where the next chunk
 //     starts (the ring's copies take their row indices from global
 //     memory, so they need not wait).  The rows are summed in the same
 //     order either way.
 //   * Reductions across blocks happen inside the kernel, in a fixed
-//     order: each block writes per-tile partials to scratch, fences, and
-//     takes an integer ticket from its slot's counter (atomicAdd); the
-//     block that draws the last ticket merges the slot's partials in tile
-//     order and resets the counter to 0 for the next launch.  Only the
-//     ticket is atomic, so the merged floats do not depend on which block
+//     order: each block writes partials to scratch, fences, and takes an
+//     integer ticket from its group's counter (atomicAdd); the block that
+//     draws the last ticket merges the group's partials in a fixed order
+//     and resets the counter to 0 for the next launch.  Only the ticket
+//     is atomic, so the merged floats do not depend on which block
 //     finishes last: a repeat call gives the same bits.  (A thread block
 //     cluster holds at most 16 blocks; the paths have 3 to 391 tiles.)
-//     A slot of one block (3 or 4 tiles at b = 1) takes no ticket.  The
-//     counters and scratch belong to the wrapper, one set per device, so
-//     the packed kernels assume one stream at a time.
+//     A group of one block takes no ticket.  The counters and scratch
+//     belong to the wrapper, one set per device, so the packed kernels
+//     assume one stream at a time.
 //   * momentum_dot_packed computes the block's momentum once into shared
 //     memory; each warp dots its rows with its tile's momentum (warp
 //     shuffle sum) into per-tile partials (S, tiles, b rounded up to 4);
-//     the last block copies them into its ring by bulk copies, a piece at
-//     a time, and sums them over tiles, float4 columns by a fixed striping
-//     and a fixed tree, into delta (S, b).
+//     a counter per (slot, split); the last point block of a split copies
+//     the split's columns of the partials into its ring by bulk copies, a
+//     piece at a time, and sums them over tiles, float4 columns by a fixed
+//     striping and a fixed tree, into delta[s, split's rows].  The
+//     striping is that of R = 1 (chunks of 256 float4 columns from column
+//     0), so every row's sum is bit-equal at any R.
 //   * mwu_update_packed: each warp sums dw_j x_t[idx_j] over its row group
-//     in registers; the row groups' dv are added in shared memory in warp
-//     order; one warp a tile then writes log_new and u_new and the tile's
-//     per-class (max, sum exp(log_new - max)); the last block merges the
-//     tiles' partials (one warp: lane l takes tiles l, l + 32, ..., then a
-//     shuffle tree; the max first, then the sum of s exp(m_tile - max))
-//     into m (S, 2) and s (S, 2), lse = m + log(s).
+//     of its split in registers; the row groups' dv are added in shared
+//     memory in warp order.  With R = 1 that is the tile's dv.  With
+//     R > 1 each block writes its split's dv to the workspace (S, R,
+//     n_pad) and takes a ticket on its (slot, point block)'s counter; the
+//     last block sums the R partials in split order (so the bits differ
+//     from R = 1's in the order of the sum over rows).  One warp a tile
+//     then writes log_new and u_new and the tile's per-class (max, sum
+//     exp(log_new - max)); the last block of the slot (a ticket on the
+//     slot's counter, among the point blocks) merges the tiles' partials
+//     (one warp: lane l takes tiles l, l + 32, ..., then a shuffle tree;
+//     the max first, then the sum of s exp(m_tile - max)) into m (S, 2)
+//     and s (S, 2), lse = m + log(s).
 //
 // Padding lanes carry sign 0 and log weight -1e30, whose expf is exactly 0.
 // Per-class max / sum-exp partials are masked by sign, so a tile with no
@@ -72,9 +94,10 @@
 //
 // A sampled row index outside [0, d) is never read, not even by a bulk
 // copy: the copy takes row 0 instead, and the dot of that row, or the
-// slot's whole dv, becomes NaN, so the caller's outputs are NaN (the
-// solver's health flags then stop the slot) instead of an illegal memory
-// access that would poison the CUDA context.
+// slot's whole dv, becomes NaN (the split that holds the row makes its dv
+// partial NaN, which the merge carries to every point), so the caller's
+// outputs are NaN (the solver's health flags then stop the slot) instead
+// of an illegal memory access that would poison the CUDA context.
 //
 // UNPACKED (the per-class reference step, 4 launches per step): cols
 // (K, n, B) row-major -- the step's B sampled coordinates of each of a
@@ -162,6 +185,7 @@ constexpr int CHUNK_ROWS = 32768;   // sampled rows whose indices (dot) or
                                     // dw (MWU) a packed block holds in
                                     // shared memory at once, after the ring
 constexpr int MAX_SMEM = 232448;    // shared memory a block may use (227 KB)
+constexpr int MAX_SPLITS = 64;      // most row splits of a packed slot
 static_assert(CHUNK_ROWS % (STAGE_FLOATS / LANE) == 0,
               "a chunk ends where a stage of the ring ends, at any T");
 static_assert(MAX_STAGES * STAGE_FLOATS * 4 + CHUNK_ROWS * 4 + 8192 <=
@@ -170,6 +194,16 @@ static_assert(MAX_STAGES * STAGE_FLOATS * 4 + CHUNK_ROWS * 4 + 8192 <=
               "memory (under 8 KB), fit a block");
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
+
+// Rows of each of a packed slot's ``splits`` row splits (the last may
+// hold fewer): b / splits rounded up to a stage of the ring (32 / T rows),
+// at most b (the wrapper's packed_split_rows).
+__host__ __device__ __forceinline__ int split_span(int b, int tpb,
+                                                   int splits) {
+  const int rows = STAGE_FLOATS / (tpb * LANE);
+  const int per = ((b + splits - 1) / splits + rows - 1) / rows * rows;
+  return per < b ? per : b;
+}
 
 __device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
 
@@ -235,14 +269,15 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
 }
 
 // The ring of row stages of one packed block (see the header).  Stage k
-// holds rows [k * rows, (k + 1) * rows) of the slot's b sampled rows, in
-// buffer k % nbuf, completing on full[k % nbuf] in phase k / nbuf.
+// holds rows [k * rows, (k + 1) * rows) of the block's split (its nr
+// sampled rows, counted from the split's first), in buffer k % nbuf,
+// completing on full[k % nbuf] in phase k / nbuf.
 struct RowRing {
   float* buf;            // nbuf * STAGE_FLOATS floats of dynamic smem
   uint64_t* full;        // nbuf mbarriers, then the merge's
   const float* xs;       // x_t[s, 0, first point of the block]
-  const int* ids;        // idx[s, :]
-  int d, n_pad, b;
+  const int* ids;        // idx[s, first row of the split:]
+  int d, n_pad, nr;      // nr: rows of the block's split
   int tpb;               // tiles per block, T
   int rows;              // rows per stage, 32 / T
   int stages, nbuf;
@@ -252,7 +287,7 @@ struct RowRing {
   // copying the stage's row r, whose index is ``row``; an index outside
   // [0, d) copies row 0
   __device__ void issue(int k, int lane, int row) const {
-    const int n = min(rows, b - k * rows);
+    const int n = min(rows, nr - k * rows);
     uint64_t* bar = &full[k % nbuf];
     if (lane == 0) mbar_expect_tx(bar, n * row_bytes);
     __syncwarp();
@@ -266,35 +301,37 @@ struct RowRing {
   // the index of stage k's row ``lane`` (0 past the last row)
   __device__ int row_of(int k, int lane) const {
     const int j = k * rows + lane;
-    return lane < rows && j < b ? ids[j] : 0;
+    return lane < rows && j < nr ? ids[j] : 0;
   }
 
   // by warp 0, first thing in the block: init the barriers (the ring's
-  // and the merge's, full[nbuf]), read the
-  // indices of the first nbuf stages at once, start their copies (the
-  // caller syncs the block before any wait)
+  // and the merge's, full[nbuf]), read the indices of the first nbuf
+  // stages at once (fewer where a short last split has fewer), start
+  // their copies (the caller syncs the block before any wait)
   __device__ void start(int lane) const {
     if (lane == 0) {
       for (int i = 0; i <= nbuf; ++i) mbar_init(&full[i], 1);
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
+    const int first = min(nbuf, stages);
     int row[MAX_STAGES];
 #pragma unroll
     for (int k = 0; k < MAX_STAGES; ++k)
-      row[k] = k < nbuf ? row_of(k, lane) : 0;
+      row[k] = k < first ? row_of(k, lane) : 0;
     __syncwarp();
 #pragma unroll
     for (int k = 0; k < MAX_STAGES; ++k)
-      if (k < nbuf) issue(k, lane, row[k]);
+      if (k < first) issue(k, lane, row[k]);
   }
 
   // every thread: for each stage, wait for it, call fn(j, c, x) for the
-  // rows j of row group g, c = j % CHUNK_ROWS the row's place in the
-  // block's chunk of indices or dw, x the float4 of the lane's points of
-  // its tile in row j, then refill the stage once every warp is done with
-  // it.  Where a stage starts a new chunk (b > CHUNK_ROWS only; chunks end
-  // on stage boundaries), every warp is first done with the last chunk
-  // and reload(j0) fills the chunk of rows from j0.  The ring's copies
+  // rows j of row group g (counted from the split's first row), c =
+  // j % CHUNK_ROWS the row's place in the block's chunk of indices or dw,
+  // x the float4 of the lane's points of its tile in row j, then refill
+  // the stage once every warp is done with it.  Where a stage starts a
+  // new chunk (nr > CHUNK_ROWS only; chunks end on stage boundaries),
+  // every warp is first done with the last chunk and reload(j0) fills the
+  // chunk of rows from j0.  The ring's copies
   // read their row indices from global memory, so stages in flight do
   // not wait for the reload.
   template <class Reload, class Fn>
@@ -309,7 +346,7 @@ struct RowRing {
         __syncthreads();
       }
       mbar_wait(&full[k % nbuf], (k / nbuf) & 1);
-      const int n = min(rows, b - j0);
+      const int n = min(rows, nr - j0);
       const int c0 = j0 % CHUNK_ROWS;
       const float* st = buf + (k % nbuf) * STAGE_FLOATS + tile * LANE +
                         lane * 4;
@@ -331,11 +368,11 @@ struct RowRing {
 
   // by warp 0, once the walk is over and the block synced: copy rows
   // [p0, p0 + n) x floats [c0, c0 + w) of the row-major (rows, width)
-  // matrix at src, written by other blocks, into the ring as (n, w),
-  // completing on the merge's barrier: one bulk copy when the rows are
-  // whole, else one a row
+  // matrix at src, written by other blocks, into the ring, row r at
+  // buf + r * stride + off, completing on the merge's barrier: one bulk
+  // copy when the rows are whole, else one a row
   __device__ void fetch(const float* src, int width, int p0, int n, int c0,
-                        int w, int lane) const {
+                        int w, int stride, int off, int lane) const {
     uint64_t* bar = &full[nbuf];
     asm volatile("fence.proxy.async;" ::: "memory");
     if (lane == 0) mbar_expect_tx(bar, n * w * sizeof(float));
@@ -345,42 +382,46 @@ struct RowRing {
         bulk_copy(buf, src + (size_t)p0 * width, n * w * sizeof(float), bar);
     } else {
       for (int r = lane; r < n; r += WARP)
-        bulk_copy(buf + r * w, src + (size_t)(p0 + r) * width + c0,
-                  w * sizeof(float), bar);
+        bulk_copy(buf + r * stride + off,
+                  src + (size_t)(p0 + r) * width + c0, w * sizeof(float),
+                  bar);
     }
   }
 };
 
+// the ring of block (tile0, s) over rows [r0, r0 + nr) of slot s's b
 __device__ __forceinline__ RowRing make_ring(
     float* buf, uint64_t* full, const float* x_t, const int* idx, int s,
-    int tile0, int tiles_here, int d, int n_pad, int b, int tpb, int nbuf) {
+    int tile0, int tiles_here, int d, int n_pad, int b, int r0, int nr,
+    int tpb, int nbuf) {
   RowRing R;
   R.buf = buf;
   R.full = full;
   R.xs = x_t + (size_t)s * d * n_pad + (size_t)tile0 * LANE;
-  R.ids = idx + (size_t)s * b;
+  R.ids = idx + (size_t)s * b + r0;
   R.d = d;
   R.n_pad = n_pad;
-  R.b = b;
+  R.nr = nr;
   R.tpb = tpb;
   R.rows = STAGE_FLOATS / (tpb * LANE);
-  R.stages = (b + R.rows - 1) / R.rows;
+  R.stages = (nr + R.rows - 1) / R.rows;
   R.nbuf = nbuf;
   R.row_bytes = (unsigned)tiles_here * LANE * sizeof(float);
   return R;
 }
 
-// The block's ticket on its slot's counter: true in the block that
-// finishes last.  The block's partials are written before the call; the
-// barrier and thread 0's fence order them before the ticket.  A slot of
-// one block takes no ticket: the barrier alone makes its partials
-// visible to it.
-__device__ __forceinline__ bool last_block(int* counter, int* flag) {
+// The block's ticket on its group's counter, among ``count`` blocks: true
+// in the block that finishes last.  The block's partials are written
+// before the call; the barrier and thread 0's fence order them before the
+// ticket.  A group of one block takes no ticket: the barrier alone makes
+// its partials visible to it.
+__device__ __forceinline__ bool last_block(int* counter, int count,
+                                           int* flag) {
   __syncthreads();
-  if (gridDim.x == 1) return true;
+  if (count == 1) return true;
   if (threadIdx.x == 0) {
     __threadfence();
-    *flag = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+    *flag = atomicAdd(counter, 1) == count - 1;
   }
   __syncthreads();
   if (!*flag) return false;
@@ -397,15 +438,16 @@ __device__ __forceinline__ float momentum(float lg, float lg_prev, float sg,
 
 // delta[s, j] = sum over points i of
 //   sign_i (lam_i + theta (lam_i - lam_prev_i)) x_t[s, idx[s, j], i].
-// parts (S, tiles, bp) is scratch, bp = b rounded up to 4; counters (S,)
-// are 0 before and after the launch.
+// Block (x, s, r) takes rows [r span, min(b, (r + 1) span)) of slot s.
+// parts (S, tiles, bp) is scratch, bp = b rounded up to 4; counters
+// (S, R), one per (slot, split), are 0 before and after the launch.
 __global__ void __launch_bounds__(THREADS) momentum_dot_packed_kernel(
     const float* __restrict__ x_t, const int* __restrict__ idx,
     const float* __restrict__ log_lam, const float* __restrict__ log_prev,
     const float* __restrict__ sign, const float* __restrict__ theta,
     float* __restrict__ out, float* __restrict__ parts,
     int* __restrict__ counters, int d, int n_pad, int b, int tpb,
-    int nbuf) {
+    int nbuf, int span) {
   extern __shared__ __align__(128) float ring[];
   __shared__ uint64_t full[MAX_STAGES + 1];
   __shared__ float4 vec[THREADS];           // momentum, then merge sums
@@ -417,8 +459,10 @@ __global__ void __launch_bounds__(THREADS) momentum_dot_packed_kernel(
   const int tiles = n_pad / LANE;
   const int tile0 = blockIdx.x * tpb;
   const int tiles_here = min(tpb, tiles - tile0);
+  const int r0 = blockIdx.z * span;         // the split's first row
+  const int nr = min(span, b - r0);         // and its rows
   const RowRing R = make_ring(ring, full, x_t, idx, s, tile0, tiles_here,
-                              d, n_pad, b, tpb, nbuf);
+                              d, n_pad, b, r0, nr, tpb, nbuf);
   // the block's point operands are read first, so that their loads
   // overlap warp 0's start of the ring; float4 t of the block's points
   const bool mine = t < tiles_here * WARP;
@@ -431,13 +475,13 @@ __global__ void __launch_bounds__(THREADS) momentum_dot_packed_kernel(
   }
   if (warp == 0) R.start(lane);
 
-  // the rows' indices, after the ring, for the range check of each dot
-  // (by warps 1-7, while warp 0 starts the ring): the first chunk of
-  // CHUNK_ROWS, the later ones loaded by the walk
+  // the split's rows' indices, after the ring, for the range check of
+  // each dot (by warps 1-7, while warp 0 starts the ring): the first
+  // chunk of CHUNK_ROWS, the later ones loaded by the walk
   int* ids_s = reinterpret_cast<int*>(ring + nbuf * STAGE_FLOATS);
-  const int* ids_g = idx + (size_t)s * b;
+  const int* ids_g = idx + (size_t)s * b + r0;
   if (warp > 0) {
-    for (int j = t - WARP; j < min(b, CHUNK_ROWS); j += THREADS - WARP)
+    for (int j = t - WARP; j < min(nr, CHUNK_ROWS); j += THREADS - WARP)
       ids_s[j] = ids_g[j];
   }
   // the block's momentum, once
@@ -456,10 +500,10 @@ __global__ void __launch_bounds__(THREADS) momentum_dot_packed_kernel(
   const float4 mom = active ? vec[tile * WARP + lane]
                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const int bp = (b + 3) & ~3;
-  float* part = parts + ((size_t)s * tiles + tile0 + tile) * bp;
+  float* part = parts + ((size_t)s * tiles + tile0 + tile) * bp + r0;
   R.walk(warp / tpb, groups, tile, active,
          [&](int j0) {
-           for (int j = t; j < min(CHUNK_ROWS, b - j0); j += THREADS)
+           for (int j = t; j < min(CHUNK_ROWS, nr - j0); j += THREADS)
              ids_s[j] = ids_g[j0 + j];
          },
          [&](int j, int c, float4 xv) {
@@ -471,29 +515,38 @@ __global__ void __launch_bounds__(THREADS) momentum_dot_packed_kernel(
          });
   // the partials are read back by bulk copies (the async proxy)
   asm volatile("fence.proxy.async.global;" ::: "memory");
-  if (!last_block(counters + s, &is_last)) return;
+  int* counter = counters + (size_t)s * gridDim.z + blockIdx.z;
+  if (!last_block(counter, gridDim.x, &is_last)) return;
 
-  // delta[s, :] = the sum over tiles: thread t takes float4 column c of a
-  // chunk of up to 256 and the tile rows q, q + Q, ... of each piece of
-  // the partials staged in the ring; the Q stripes are then added by a
-  // fixed tree
+  // delta[s, split's rows] = the sum over tiles of the split's float4
+  // columns [a4, e4): the columns fall in chunks of up to 256 from column
+  // 0 (as at R = 1); thread t takes float4 column c of a chunk and the
+  // tile rows q, q + Q, ... of each piece of the partials staged in the
+  // ring; the Q stripes are then added by a fixed tree
   const float* ps = parts + (size_t)s * tiles * bp;
   const int groups4 = bp / 4;
+  const int a4 = r0 / 4;                    // r0 is a multiple of 32
+  const int e4 = (r0 + nr + 3) / 4;
   unsigned phase = 0;
-  for (int c0 = 0; c0 < groups4; c0 += THREADS) {
+  for (int c0 = a4 / THREADS * THREADS; c0 < e4; c0 += THREADS) {
     const int cg = min(THREADS, groups4 - c0);
     const int w = cg * 4;
+    const int lo = max(a4, c0);             // the split's columns of it
+    const int hi = min(e4, c0 + cg);
     const int per = nbuf * STAGE_FLOATS / w;  // tile rows a piece
     const int stripes = min(THREADS / cg, tiles);
     const int c = t % cg;
     const int q = t / cg;
+    const bool col = c0 + c >= lo && c0 + c < hi;
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     for (int p0 = 0; p0 < tiles; p0 += per) {
       const int n = min(per, tiles - p0);
-      if (warp == 0) R.fetch(ps, bp, p0, n, c0 * 4, w, lane);
+      if (warp == 0)
+        R.fetch(ps, bp, p0, n, lo * 4, (hi - lo) * 4, w, (lo - c0) * 4,
+                lane);
       mbar_wait(&full[nbuf], phase);
       phase ^= 1;
-      if (q < stripes) {
+      if (q < stripes && col) {
 #pragma unroll 4
         for (int r = q; r < n; r += stripes)
           acc = add4(acc, load4(ring + r * w + c * 4));
@@ -508,7 +561,7 @@ __global__ void __launch_bounds__(THREADS) momentum_dot_packed_kernel(
       __syncthreads();
       live = half;
     }
-    if (q == 0) {
+    if (q == 0 && col) {
       const float4 v = vec[t];
       const float vals[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -519,7 +572,7 @@ __global__ void __launch_bounds__(THREADS) momentum_dot_packed_kernel(
     }
     __syncthreads();
   }
-  if (t == 0) counters[s] = 0;
+  if (t == 0) *counter = 0;
 }
 
 __device__ __forceinline__ void class_partials(float ln, float sg, float& mp,
@@ -537,8 +590,11 @@ __device__ __forceinline__ void class_sums(float ln, float sg, float mp,
 // dv_i = sum_j dw[s, j] x_t[s, idx[s, j], i];  v = sign (u + d_eff dv);
 // log_new = mwu_c (mwu_dot log_lam - v);  u_new = u + dv;
 // ms = (m (S, 2), s (S, 2)), the per-class (+, -) max and sum of
-// exp(log_new - max) over the slot.  parts (S, tiles, 4) is scratch;
-// counters (S,) are 0 before and after the launch.
+// exp(log_new - max) over the slot.  Block (x, s, r) takes rows
+// [r span, min(b, (r + 1) span)) of slot s.  parts is scratch: (S, tiles,
+// 4) (m, s) partials, then with R > 1 the splits' dv (S, R, n_pad);
+// counters are (S,) for the slots' merge, then with R > 1 (S, point
+// blocks) for the splits' merge, all 0 before and after the launch.
 __global__ void __launch_bounds__(THREADS) mwu_update_packed_kernel(
     const float* __restrict__ x_t, const int* __restrict__ idx,
     const float* __restrict__ dw, const float* __restrict__ log_lam,
@@ -547,7 +603,7 @@ __global__ void __launch_bounds__(THREADS) mwu_update_packed_kernel(
     float d_eff, float* __restrict__ log_new, float* __restrict__ u_new,
     float* __restrict__ ms, float* __restrict__ parts,
     int* __restrict__ counters, int d, int n_pad, int b, int tpb,
-    int nbuf) {
+    int nbuf, int span) {
   extern __shared__ __align__(128) float ring[];
   __shared__ uint64_t full[MAX_STAGES + 1];
   __shared__ float4 red[THREADS];           // dv of each warp
@@ -559,8 +615,10 @@ __global__ void __launch_bounds__(THREADS) mwu_update_packed_kernel(
   const int tiles = n_pad / LANE;
   const int tile0 = blockIdx.x * tpb;
   const int tiles_here = min(tpb, tiles - tile0);
+  const int r0 = blockIdx.z * span;         // the split's first row
+  const int nr = min(span, b - r0);         // and its rows
   const RowRing R = make_ring(ring, full, x_t, idx, s, tile0, tiles_here,
-                              d, n_pad, b, tpb, nbuf);
+                              d, n_pad, b, r0, nr, tpb, nbuf);
   // warp w < tiles_here writes tile w of the block: its operands are
   // read first, so that their loads overlap warp 0's start of the ring
   const bool writer = warp < tiles_here;
@@ -574,16 +632,17 @@ __global__ void __launch_bounds__(THREADS) mwu_update_packed_kernel(
   }
   if (warp == 0) R.start(lane);
 
-  // dw after the ring (its first chunk of CHUNK_ROWS, the later ones
-  // loaded by the walk), and whether any row index is out of range (by
-  // warps 1-7, while warp 0 starts the ring)
+  // the split's dw after the ring (its first chunk of CHUNK_ROWS, the
+  // later ones loaded by the walk), and whether any of its row indices is
+  // out of range (by warps 1-7, while warp 0 starts the ring)
   float* dw_s = ring + nbuf * STAGE_FLOATS;
-  const float* dw_g = dw + (size_t)s * b;
+  const float* dw_g = dw + (size_t)s * b + r0;
+  const int* ids_g = idx + (size_t)s * b + r0;
   bool bad = false;
   if (warp > 0) {
-    for (int j = t - WARP; j < b; j += THREADS - WARP) {
+    for (int j = t - WARP; j < nr; j += THREADS - WARP) {
       if (j < CHUNK_ROWS) dw_s[j] = dw_g[j];
-      bad = bad || (unsigned)idx[(size_t)s * b + j] >= (unsigned)d;
+      bad = bad || (unsigned)ids_g[j] >= (unsigned)d;
     }
   }
   bad = __syncthreads_or(bad);              // also publishes the barriers
@@ -595,7 +654,7 @@ __global__ void __launch_bounds__(THREADS) mwu_update_packed_kernel(
   // across chunk boundaries, as one buffer of all b rows would
   R.walk(warp / tpb, groups, tile, tile < tiles_here,
          [&](int j0) {
-           for (int j = t; j < min(CHUNK_ROWS, b - j0); j += THREADS)
+           for (int j = t; j < min(CHUNK_ROWS, nr - j0); j += THREADS)
              dw_s[j] = dw_g[j0 + j];
          },
          [&](int, int c, float4 xv) {
@@ -617,6 +676,28 @@ __global__ void __launch_bounds__(THREADS) mwu_update_packed_kernel(
       const float nan = nan_f32();
       dv = make_float4(nan, nan, nan, nan);
     }
+  }
+  const int splits = gridDim.z;
+  if (splits > 1) {
+    // the split's dv to the workspace; the last split block of the point
+    // block sums the R partials in split order
+    const int slots = gridDim.y;
+    float* dvp = parts + (size_t)slots * tiles * 4 +
+                 (size_t)s * splits * n_pad + (size_t)(tile0 + warp) * LANE +
+                 lane * 4;
+    if (writer) store4(dvp + (size_t)blockIdx.z * n_pad, dv);
+    int* counter = counters + slots + (size_t)s * gridDim.x + blockIdx.x;
+    if (!last_block(counter, splits, &is_last)) return;
+    if (t == 0) *counter = 0;
+    if (writer) {
+      dv = __ldcg(reinterpret_cast<const float4*>(dvp));
+      for (int r = 1; r < splits; ++r)
+        dv = add4(dv, __ldcg(reinterpret_cast<const float4*>(
+                          dvp + (size_t)r * n_pad)));
+    }
+  }
+
+  if (writer) {
     const float c = mwu_c[s];
     const float dot = mwu_dot[s];
     float4 ln, un;
@@ -649,7 +730,7 @@ __global__ void __launch_bounds__(THREADS) mwu_update_packed_kernel(
       store4(parts + ((size_t)s * tiles + tile0 + warp) * 4,
              make_float4(mp, sp, mm, sm));
   }
-  if (!last_block(counters + s, &is_last) || warp != 0) return;
+  if (!last_block(counters + s, gridDim.x, &is_last) || warp != 0) return;
 
   // the slot's tiles, lane l taking tiles l, l + 32, ... and a shuffle
   // tree: first each class's max m over the tiles, then the sum of the
@@ -838,7 +919,7 @@ __global__ void __launch_bounds__(THREADS) momentum_dot_kernel(
   const size_t slot = (size_t)k * gridDim.y + chunk;
   float* ps = parts + slot * gridDim.x * DOT_COLS;
   if (t < width) ps[(size_t)blockIdx.x * DOT_COLS + t] = total;
-  if (!last_block(counters + slot, &is_last)) return;
+  if (!last_block(counters + slot, gridDim.x, &is_last)) return;
   if (t < width) {
     float sum = 0.0f;
     for (int p = 0; p < (int)gridDim.x; ++p)
@@ -1107,11 +1188,12 @@ __global__ void __launch_bounds__(THREADS) mwu_update_kernel(
 
 constexpr int MAX_DEVICES = 64;
 
-// Dynamic shared memory of a packed block: its row ring (one stage per
-// 32 / T rows, at most MAX_STAGES) and after it the row indices or dw of
-// one chunk: all b rows up to CHUNK_ROWS, else CHUNK_ROWS at a time.  At
-// most 64 KB + 128 KB (the static_assert above); the Python wrapper
-// mirrors both (saddle_update.packed_ring_stages / packed_smem).
+// Dynamic shared memory of a packed block that walks b rows (a split's
+// span): its row ring (one stage per 32 / T rows, at most MAX_STAGES) and
+// after it the row indices or dw of one chunk: all b rows up to
+// CHUNK_ROWS, else CHUNK_ROWS at a time.  At most 64 KB + 128 KB (the
+// static_assert above); the Python wrapper mirrors both
+// (saddle_update.packed_ring_stages / packed_smem).
 int ring_stages(int b, int tpb) {
   const int rows = STAGE_FLOATS / (tpb * LANE);
   const int stages = (b + rows - 1) / rows;
@@ -1143,10 +1225,16 @@ bool valid_tpb(int tpb) {
   return tpb == 1 || tpb == 2 || tpb == 4 || tpb == 8;
 }
 
+// Row splits of a packed launch: 1 to MAX_SPLITS, none empty.
+bool valid_splits(int b, int tpb, int splits) {
+  return splits >= 1 && splits <= MAX_SPLITS &&
+         (splits - 1) * split_span(b, tpb, splits) < b;
+}
+
 // The grids of the launchers below, from their geometry arguments (also
 // read by launch_geometry).
-dim3 packed_grid(int n_pad, int tpb, int num_slots) {
-  return dim3((n_pad / LANE + tpb - 1) / tpb, num_slots);
+dim3 packed_grid(int n_pad, int tpb, int num_slots, int splits) {
+  return dim3((n_pad / LANE + tpb - 1) / tpb, num_slots, splits);
 }
 
 int dot_chunks(int b, int lpr) { return (b + 4 * lpr - 1) / (4 * lpr); }
@@ -1189,8 +1277,9 @@ extern "C" int static_smem(int which, int* bytes) {
 // ``which`` (0 momentum_dot_packed_f32, 1 mwu_update_packed_f32, 2
 // momentum_dot_f32, 3 mwu_update_f32) derives from its arguments: ``num``
 // slots or clients of n points (n_pad for the packed ones), b rows or
-// columns, g1 = tpb (packed) or lpr, g2 = pts.  The launch plans that
-// analysis.kernel_audit checks are held equal to it on the card.
+// columns, g1 = tpb (packed) or lpr, g2 = row splits (packed) or pts.
+// The launch plans that analysis.kernel_audit checks are held equal to it
+// on the card.
 extern "C" int launch_geometry(int which, int num, int n, int b, int g1,
                                int g2, unsigned* out) {
   dim3 grid;
@@ -1198,9 +1287,13 @@ extern "C" int launch_geometry(int which, int num, int n, int b, int g1,
   switch (which) {
     case 0:
     case 1:
-      if (!valid_tpb(g1)) return (int)cudaErrorInvalidValue;
-      grid = packed_grid(n, g1, num);
-      smem = packed_smem(b, ring_stages(b, g1));
+      if (!valid_tpb(g1) || !valid_splits(b, g1, g2))
+        return (int)cudaErrorInvalidValue;
+      grid = packed_grid(n, g1, num, g2);
+      {
+        const int span = split_span(b, g1, g2);
+        smem = packed_smem(span, ring_stages(span, g1));
+      }
       break;
     case 2: grid = dot_grid(n, b, g1, g2, num); break;
     case 3:
@@ -1215,47 +1308,54 @@ extern "C" int launch_geometry(int which, int num, int n, int b, int g1,
 }
 
 // delta (S, b); parts (S, n_pad / 128, b rounded up to 4) scratch,
-// counters (S,) zero; tpb tiles per block (1, 2, 4 or 8).
+// counters (S, splits) zero; tpb tiles per block (1, 2, 4 or 8); splits
+// row splits (the wrapper's packed_row_splits).
 extern "C" int momentum_dot_packed_f32(
     const float* x_t, const int* idx, const float* log_lam,
     const float* log_prev, const float* sign, const float* theta,
     float* out, float* parts, int* counters, int num_slots, int d,
-    int n_pad, int b, int tpb, void* stream) {
+    int n_pad, int b, int tpb, int splits, void* stream) {
   static size_t allowed[MAX_DEVICES];
-  if (!valid_tpb(tpb)) return (int)cudaErrorInvalidValue;
-  const int nbuf = ring_stages(b, tpb);
-  const size_t smem = packed_smem(b, nbuf);
-  if (b < 1 || b > d || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (b < 1 || b > d || !valid_tpb(tpb) || !valid_splits(b, tpb, splits))
+    return (int)cudaErrorInvalidValue;
+  const int span = split_span(b, tpb, splits);
+  const int nbuf = ring_stages(span, tpb);
+  const size_t smem = packed_smem(span, nbuf);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int err = allow_smem((const void*)momentum_dot_packed_kernel,
                              allowed, smem);
   if (err) return err;
-  const dim3 grid = packed_grid(n_pad, tpb, num_slots);
+  const dim3 grid = packed_grid(n_pad, tpb, num_slots, splits);
   momentum_dot_packed_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       x_t, idx, log_lam, log_prev, sign, theta, out, parts, counters, d,
-      n_pad, b, tpb, nbuf);
+      n_pad, b, tpb, nbuf, span);
   return (int)cudaGetLastError();
 }
 
-// log_new, u_new (S, n_pad); ms (2, S, 2) = (m, s); parts
-// (S, n_pad / 128, 4) scratch, counters (S,) zero; tpb as above.
+// log_new, u_new (S, n_pad); ms (2, S, 2) = (m, s); parts scratch of
+// (S, n_pad / 128, 4) floats and, with splits > 1, (S, splits, n_pad)
+// after them; counters zero, (S,) and, with splits > 1, (S, point blocks)
+// after them; tpb and splits as above.
 extern "C" int mwu_update_packed_f32(
     const float* x_t, const int* idx, const float* dw, const float* log_lam,
     const float* u, const float* sign, const float* mwu_c,
     const float* mwu_dot, float d_eff, float* log_new, float* u_new,
     float* ms, float* parts, int* counters, int num_slots, int d,
-    int n_pad, int b, int tpb, void* stream) {
+    int n_pad, int b, int tpb, int splits, void* stream) {
   static size_t allowed[MAX_DEVICES];
-  if (!valid_tpb(tpb)) return (int)cudaErrorInvalidValue;
-  const int nbuf = ring_stages(b, tpb);
-  const size_t smem = packed_smem(b, nbuf);
-  if (b < 1 || b > d || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (b < 1 || b > d || !valid_tpb(tpb) || !valid_splits(b, tpb, splits))
+    return (int)cudaErrorInvalidValue;
+  const int span = split_span(b, tpb, splits);
+  const int nbuf = ring_stages(span, tpb);
+  const size_t smem = packed_smem(span, nbuf);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int err = allow_smem((const void*)mwu_update_packed_kernel,
                              allowed, smem);
   if (err) return err;
-  const dim3 grid = packed_grid(n_pad, tpb, num_slots);
+  const dim3 grid = packed_grid(n_pad, tpb, num_slots, splits);
   mwu_update_packed_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       x_t, idx, dw, log_lam, u, sign, mwu_c, mwu_dot, d_eff, log_new, u_new,
-      ms, parts, counters, d, n_pad, b, tpb, nbuf);
+      ms, parts, counters, d, n_pad, b, tpb, nbuf, span);
   return (int)cudaGetLastError();
 }
 

@@ -108,16 +108,22 @@ def mwu_update_packed_ref(x_t: torch.Tensor, idx: torch.Tensor,
                           log_lam: torch.Tensor, u: torch.Tensor,
                           dw: torch.Tensor, sign: torch.Tensor,
                           mwu_c: torch.Tensor, mwu_dot: torch.Tensor,
-                          d_eff: float):
+                          d_eff: float, span: int | None = None):
     """Packed dual update for both classes (lines 5-6 of Algorithm 2 plus
     the incremental u).  ``mwu_c`` = 1 / (gamma + d_eff / tau) and
-    ``mwu_dot`` = d_eff / tau are the per-slot (S,) step scalars.
+    ``mwu_dot`` = d_eff / tau are the per-slot (S,) step scalars.  With
+    ``span``, dv is summed in the kernel's split order: the rows cut into
+    splits of ``span`` (:func:`split_partials`), merged in split order
+    (:func:`merge_split_partials`).
 
     Returns (log_new UNNORMALIZED, u_new, m, s), m and s (S, 2) with
     column 0 the class of sign +1 and column 1 that of sign -1: the
     per-class logsumexp is m + log(s), masked by the sign vector (padding,
     sign 0, belongs to neither class)."""
-    dv = torch.bmm(dw[:, None, :], _gather_rows(x_t, idx))[:, 0, :]
+    if span is None:
+        dv = torch.bmm(dw[:, None, :], _gather_rows(x_t, idx))[:, 0, :]
+    else:
+        dv = merge_split_partials(split_partials(x_t, idx, dw, span))
     v = sign * (u + d_eff * dv)
     log_new = mwu_c[:, None] * (mwu_dot[:, None] * log_lam - v)
     masks = torch.stack([sign > 0, sign < 0], dim=1)        # (S, 2, n_pad)
@@ -152,6 +158,30 @@ def merge_class_partials(parts: torch.Tensor):
     m_t, s_t = parts[..., 0::2], parts[..., 1::2]         # (S, tiles, 2)
     m = m_t.amax(dim=1)
     return m, (s_t * torch.exp(m_t - m[:, None, :])).sum(dim=1)
+
+
+def split_partials(x_t: torch.Tensor, idx: torch.Tensor, dw: torch.Tensor,
+                   span: int) -> torch.Tensor:
+    """Per-split dv partials (S, R, n_pad) of the packed MWU: split r sums
+    dw[s, j] x_t[s, idx[s, j]] over its rows j in [r span, min(b, (r + 1)
+    span)), R = ceil(b / span).  These are the partials each row split of
+    the packed MWU kernel writes before the last block of its point block
+    merges them."""
+    b = idx.shape[1]
+    return torch.stack([
+        torch.bmm(dw[:, None, r0:r0 + span],
+                  _gather_rows(x_t, idx[:, r0:r0 + span]))[:, 0, :]
+        for r0 in range(0, b, span)], dim=1)
+
+
+def merge_split_partials(parts: torch.Tensor) -> torch.Tensor:
+    """dv (S, n_pad) of per-split partials (S, R, n_pad), added in split
+    order, ((p_0 + p_1) + p_2) + ..., as the packed MWU kernel merges
+    them."""
+    dv = parts[:, 0]
+    for r in range(1, parts.shape[1]):
+        dv = dv + parts[:, r]
+    return dv
 
 
 def block_partials(log_new: torch.Tensor, points: int):

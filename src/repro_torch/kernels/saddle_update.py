@@ -13,10 +13,12 @@ The packed kernels take a leading slot axis S: ``x_t`` (S, d, n_pad),
 ``idx`` (S, b) int32 with any b from 1 to d, point vectors (S, n_pad) and
 per-slot scalars (S,), all float32 except ``idx``.  Each call is one kernel
 launch whose outputs are final: the kernels merge their per-tile partials
-themselves, the last block of a slot taking a ticket from the slot's
-counter.  The counters and the partials' scratch are a workspace per
-device that the packed wrappers and the unpacked kernels share, so these
-kernels assume one stream at a time.
+themselves, the last block of a group taking a ticket from the group's
+counter.  Many sampled rows over few points cut a slot's rows into
+contiguous splits, a third grid axis (:func:`packed_row_splits`), whose
+partials merge the same way.  The counters and the partials' scratch are
+a workspace per device that the packed wrappers and the unpacked kernels
+share, so these kernels assume one stream at a time.
 
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
 runs the plain version in :mod:`repro_torch.kernels.ref`.
@@ -55,6 +57,8 @@ DOT_UNROLL = 8      # rows whose loads a lane of an unpacked kernel issues
 MWU_POINTS = 2_048  # most points a block of the unpacked MWU takes: their
                     # dv, log_lam and u in 24 KB of shared memory
 SMS = 132           # streaming multiprocessors of an H100
+MAX_SPLITS = 64     # most row splits of a packed slot
+SPLIT_ROWS = 1_024  # fewest rows a packed row split is cut to
 DOT_WAVE = 2 * SMS  # most blocks of an unpacked kernel before a block
                     # takes more rounds
 # The packed kernels' dynamic shared memory, as csrc/saddle_update.cu sizes
@@ -140,19 +144,47 @@ def packed_ring_stages(b: int, tpb: int) -> int:
 
 
 def packed_smem(b: int) -> int:
-    """Bytes of dynamic shared memory of a packed block for b sampled rows
-    (``packed_smem`` in the CUDA source): the ring, then one chunk of the
-    rows' indices or dw, all b up to CHUNK_ROWS, rounded up to 16 bytes."""
+    """Bytes of dynamic shared memory of a packed block that walks b
+    sampled rows (``packed_smem`` in the CUDA source): the ring, then one
+    chunk of the rows' indices or dw, all b up to CHUNK_ROWS, rounded up to
+    16 bytes.  A block of a row split walks its split's rows."""
     nbuf = packed_ring_stages(b, packed_tiles_per_block(b))
     return nbuf * STAGE_FLOATS * 4 + -(-min(b, CHUNK_ROWS) * 4 // 16) * 16
 
 
+def packed_split_rows(b: int, splits: int) -> int:
+    """Rows of each of ``splits`` row splits of b sampled rows (the last
+    may hold fewer; ``split_span`` in the CUDA source): b / splits rounded
+    up to a stage of the ring (32 / T rows), at most b."""
+    rows = STAGE_FLOATS // (packed_tiles_per_block(b) * LANE)
+    per = -(-b // splits)
+    return min(b, -(-per // rows) * rows)
+
+
+def packed_row_splits(n_pad: int, b: int) -> int:
+    """Contiguous row splits R of a packed slot's b sampled rows over
+    ``n_pad`` points: the third grid axis of both packed kernels.  A
+    slot's point blocks alone leave most of the card idle where the points
+    are few and the rows many (n_pad = 1,536: 12 blocks on 132 SMs), each
+    walking all b rows; splitting the rows puts about two blocks on every
+    SM (2 SMS blocks a slot), keeping at least SPLIT_ROWS rows a split (so
+    R = 1 below 2,048 rows) and at most MAX_SPLITS splits, each starting
+    on a stage of the ring, none empty.  R = 1 also where the point blocks
+    fill the card.  R does not depend on the slot count S: a slot's bits
+    do not depend on its batch-mates."""
+    blocks = -(-(n_pad // LANE) // packed_tiles_per_block(b))
+    want = min(MAX_SPLITS, -(-2 * SMS // blocks), b // SPLIT_ROWS)
+    if want <= 1:
+        return 1
+    return -(-b // packed_split_rows(b, want))
+
+
 class Launch(NamedTuple):
     """One launch of a kernel: ``args``, the C launcher's geometry
-    arguments (``(tpb,)``, or ``(lanes, points)``); the ``grid`` (x, y, z)
-    and ``dynamic_smem`` bytes the launcher derives from them; and the
-    workspace the wrapper allocates, ``counters`` ticket counters and
-    ``floats`` floats of per-block partials."""
+    arguments (``(tpb, splits)``, or ``(lanes, points)``); the ``grid``
+    (x, y, z) and ``dynamic_smem`` bytes the launcher derives from them;
+    and the workspace the wrapper allocates, ``counters`` ticket counters
+    and ``floats`` floats of per-block partials."""
 
     args: tuple
     grid: tuple
@@ -165,14 +197,25 @@ class Launch(NamedTuple):
 def packed_launch(kernel: str, s: int, n_pad: int, b: int) -> Launch:
     """The launch of packed ``kernel`` (``momentum_dot_packed`` or
     ``mwu_update_packed``) for S = ``s`` slots of ``n_pad`` points and b
-    sampled rows: a block of ``packed_tiles_per_block(b)`` tiles a slot,
-    a partial of b (rounded up to 4) floats or of the 4 (m, s) floats a
-    tile, a counter a slot."""
+    sampled rows: grid (point blocks of ``packed_tiles_per_block(b)``
+    tiles, slots, R = ``packed_row_splits`` row splits).  The dot: a
+    partial of b (rounded up to 4) floats a tile, a counter a (slot,
+    split).  The MWU: the 4 (m, s) floats a tile and a counter a slot,
+    and with R > 1 after them each split's dv (S, R, n_pad) and a counter
+    a (slot, point block)."""
     tpb = packed_tiles_per_block(b)
+    splits = packed_row_splits(n_pad, b)
     tiles = n_pad // LANE
-    part = -(-b // 4) * 4 if kernel == "momentum_dot_packed" else 4
-    return Launch((tpb,), (-(-tiles // tpb), s, 1), packed_smem(b), s,
-                  s * tiles * part)
+    blocks = -(-tiles // tpb)
+    grid = (blocks, s, splits)
+    smem = packed_smem(packed_split_rows(b, splits))
+    if kernel == "momentum_dot_packed":
+        return Launch((tpb, splits), grid, smem, s * splits,
+                      s * tiles * (-(-b // 4) * 4))
+    if splits == 1:
+        return Launch((tpb, 1), grid, smem, s, s * tiles * 4)
+    return Launch((tpb, splits), grid, smem, s + s * blocks,
+                  s * tiles * 4 + s * splits * n_pad)
 
 
 # device index -> (counters (S,) int32, zero between launches; scratch)

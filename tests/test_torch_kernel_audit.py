@@ -108,6 +108,59 @@ def test_merge_without_ticket_or_shared_counter_is_caught():
     assert _rules(plan) == {"RACE-001"}
 
 
+def _split_plan(kernel="mwu_update_packed"):
+    """Path d's B = 40,000 over n_pad = 1,536 at S = 2: 22 row splits."""
+    plan = ka.registry()[kernel](s=2, d=65_536, n_pad=1_536, b=40_000)
+    assert plan["grid"] == (12, 2, 22)
+    return plan
+
+
+def test_split_plans_are_clean():
+    for kernel in ("momentum_dot_packed", "mwu_update_packed"):
+        assert ka.audit_plan(_split_plan(kernel)) == []
+
+
+def test_two_splits_writing_one_dv_partial_are_caught():
+    plan = _split_plan()
+    part = plan["split"]["partials"]
+    for key in ("lo", "hi"):
+        part[key][:, :, 1] = part[key][:, :, 0]
+    assert _rules(plan) == {"RACE-001"}
+    plan = _split_plan("momentum_dot_packed")     # the dot's partials
+    for key in ("lo", "hi"):
+        plan["partials"][key][:, :, 1] = plan["partials"][key][:, :, 0]
+    assert _rules(plan) == {"RACE-001"}
+
+
+@pytest.mark.parametrize("kernel", ["momentum_dot_packed",
+                                    "mwu_update_packed"])
+def test_split_left_out_of_the_merge_is_caught(kernel):
+    plan = _split_plan(kernel)
+    gx, gy, gz = plan["grid"]
+    plan["grid"] = (gx, gy, gz - 1)
+    for key in ("lo", "hi"):
+        plan["axes"][2][key] = plan["axes"][2][key][:-1]
+    part = plan["split"]["partials"] if plan["split"] else plan["partials"]
+    for key in ("lo", "hi"):
+        part[key] = part[key][..., :-1]
+    assert _rules(plan) == {"COVER-001"}
+
+
+def test_split_merge_without_ticket_or_own_counter_is_caught():
+    plan = _split_plan()
+    plan["split"]["ticket"] = False
+    assert _rules(plan) == {"RACE-001"}
+    plan = _split_plan()
+    plan["split"]["counter"][0, 1, 0] = 0          # a slot's counter
+    assert _rules(plan) == {"RACE-001"}
+    plan = _split_plan()
+    plan["split"] = None                           # R blocks, no merge
+    assert _rules(plan) == {"RACE-001"}
+    plan = _split_plan("momentum_dot_packed")
+    plan["counter"][0, 1] = plan["counter"][0, 0]  # two splits, one counter
+    assert _rules(plan) == {"RACE-001"}
+
+
 def test_shared_memory_over_the_limit_is_caught():
     plan = _packed()
     plan["dynamic_smem"] = su.MAX_SMEM - plan["static_smem"] + 1
@@ -152,11 +205,17 @@ def _old_unpacked(name, k, n, b):
 
 
 def test_plans_give_the_parents_launch_geometry():
+    """Every case without row splits (R = 1, all but the four b >=
+    32,768 packed shapes of n_pad = 1,536): the geometry the wrappers
+    passed before the split axis existed, which is R = 1's."""
     reg = ka.registry()
     seen = 0
     for c in ka.audit_cases():
         plan = reg[c.kernel](**c.kwargs)
         kw = {k: v for k, v in c.kwargs.items() if k != "normalize"}
+        if c.kernel.endswith("_packed"):
+            if plan["args"].pop("splits") > 1:
+                continue                  # pinned by the next test
         if c.kernel == "fwht":
             n, d = kw["n"], kw["d"]
             old = fwht.fwht_plan(d)
@@ -186,6 +245,56 @@ def test_plans_give_the_parents_launch_geometry():
     assert seen > 300
 
 
+def test_split_plans_launch_geometry_by_formula():
+    """The packed cases with R > 1 row splits (b = 32,768-65,536 over
+    n_pad = 1,536: 12 point blocks): grid (point blocks, S, R) with R from
+    ``packed_row_splits``, each split of ``packed_split_rows`` rows on a
+    stage boundary, shared memory of one split's rows, and the workspace
+    and tickets of the split merges: the dot a counter per (slot, split),
+    the MWU a counter per slot and per (slot, point block) and its
+    splits' dv (S, R, n_pad) after the (m, s) partials."""
+    seen = set()
+    for c in ka.audit_cases():
+        if "n_pad" not in c.kwargs:
+            continue
+        s, n_pad, b = (c.kwargs[k] for k in ("s", "n_pad", "b"))
+        splits = su.packed_row_splits(n_pad, b)
+        if splits == 1:
+            continue
+        plan = ka.registry()[c.kernel](**c.kwargs)
+        tiles = n_pad // su.LANE
+        span = -(-b // splits // 32) * 32
+        assert su.packed_split_rows(b, splits) == span
+        assert (splits - 1) * span < b <= splits * span
+        assert plan["args"] == {"tpb": 1, "splits": splits}
+        assert plan["grid"] == (tiles, s, splits)
+        assert plan["dynamic_smem"] == 4 * 16_384 + 4 * span
+        assert list(plan["axes"][2]["lo"]) == list(range(0, b, span))
+        assert plan["ticket"] == (tiles > 1)
+        if c.kernel == "momentum_dot_packed":
+            assert plan["workspace"] == {
+                "counters": s * splits,
+                "floats": s * tiles * -(-b // 4) * 4}
+            assert sorted(plan["counter"].reshape(-1)) == list(
+                range(s * splits))
+            assert plan["split"] is None
+        else:
+            assert plan["workspace"] == {
+                "counters": s + s * tiles,
+                "floats": s * tiles * 4 + s * splits * n_pad}
+            split = plan["split"]
+            assert split["ticket"]
+            assert sorted(split["counter"].reshape(-1)) == list(
+                range(s, s + s * tiles))
+            assert split["partials"]["lo"].min() == s * tiles * 4
+            assert split["partials"]["hi"].max() == plan["workspace"][
+                "floats"]
+        seen.add((c.kernel, b))
+    assert seen == {(k, b) for k in ("momentum_dot_packed",
+                                     "mwu_update_packed")
+                    for b in (32_768, 32_769, 40_000, 65_536)}
+
+
 def test_plans_hold_the_wrappers_launch_tuples():
     """A plan's grid, shared memory, geometry arguments and workspace are
     the memoised ``saddle_update.Launch`` the wrapper launches from."""
@@ -194,7 +303,8 @@ def test_plans_hold_the_wrappers_launch_tuples():
         plan = ka.registry()[kernel](s=3, d=512, n_pad=50_048, b=1)
         ln = su.packed_launch(kernel, 3, 50_048, 1)
         assert (plan["grid"], plan["dynamic_smem"], plan["args"]) == (
-            ln.grid, ln.dynamic_smem, {"tpb": ln.args[0]})
+            ln.grid, ln.dynamic_smem, {"tpb": ln.args[0],
+                                       "splits": ln.args[1]})
         assert plan["workspace"] == {"counters": ln.counters,
                                      "floats": ln.floats}
     assert su.packed_launch.cache_info().misses == 2

@@ -375,6 +375,163 @@ def test_packed_plain_versions_above_32768_rows_match_jax():
                   float(want[4]) + np.log(float(want[5]))], atol=1e-4)
 
 
+# PERF.md section 6's packed shapes (S, d, n_pad, b) below b = 32,768
+PERF_PACKED_SHAPES = ((1, 512, 50_048, 1), (1, 256, 20_096, 128),
+                      (20, 256, 512, 1), (20, 512, 384, 1),
+                      (20, 256, 512, 128), (1, 256, 10_112, 1),
+                      (1, 65_536, 1_536, 1), (8, 256, 4_096, 1),
+                      (8, 256, 8_192, 1), (8, 512, 8_192, 1),
+                      (1, 128, 18_048, 1), (1, 128, 256, 1),
+                      (1, 256, 18_048, 1), (1, 512, 10_112, 1),
+                      (2, 256, 16_384, 1), (2, 512, 32_768, 1),
+                      (4, 256, 32_768, 1), (1, 256, 4_096, 128),
+                      (1, 256, 2_048, 128), (2, 64, 4_096, 1),
+                      (2, 256, 65_536, 128), (1, 64, 1_664, 1),
+                      (1, 64, 2_432, 1), (20, 128, 256, 1),
+                      (2, 256, 32_768, 128), (1, 256, 4_096, 1),
+                      (1, 256, 2_048, 1))
+WIDE_RUNGS = (32_768, 32_769, 40_000, 65_536)   # b over n_pad = 1,536
+
+
+@pytest.mark.parametrize("n_pad", [128 * 2 ** k for k in range(10)]
+                         + [384, 1_536, 10_112, 50_048])
+def test_packed_row_splits_are_one_up_to_128_rows(n_pad):
+    """No row split at b <= 128 (those shapes keep their bits), nor where
+    the point blocks alone fill the card."""
+    from repro_torch.kernels import saddle_update as su
+    for b in range(1, 129):
+        assert su.packed_row_splits(n_pad, b) == 1
+    if n_pad // su.LANE >= 2 * su.SMS:
+        assert su.packed_row_splits(n_pad, 65_536) == 1
+
+
+def test_packed_row_splits_only_at_the_wide_rungs():
+    """R = 1 at every packed shape PERF.md section 6 lists but the four
+    wide rungs, which split into about two blocks an SM."""
+    from repro_torch.kernels import saddle_update as su
+    for s, d, n_pad, b in PERF_PACKED_SHAPES:
+        assert su.packed_row_splits(n_pad, b) == 1, (s, d, n_pad, b)
+    for b in WIDE_RUNGS:
+        splits = su.packed_row_splits(1_536, b)
+        assert 1 < splits <= su.MAX_SPLITS
+        assert 12 * splits <= 2 * su.SMS < 12 * (splits + 1)
+    assert su.packed_row_splits(1_536, 40_000) == 22
+    assert su.packed_split_rows(40_000, 22) == 1_824
+
+
+@pytest.mark.parametrize("n_pad,b", [(1_536, b) for b in WIDE_RUNGS]
+                         + [(128, 40_000), (128, 65_537), (1_536, 2_048),
+                            (1_536, 3_000), (50_048, 40_000)])
+def test_packed_row_splits_do_not_depend_on_slots(n_pad, b):
+    """A slot's launch geometry is the same alone as in a batch of S:
+    grid (point blocks, S, R) with the same R for every S."""
+    from repro_torch.kernels import saddle_update as su
+    for kernel in ("momentum_dot_packed", "mwu_update_packed"):
+        grids = {s: su.packed_launch(kernel, s, n_pad, b).grid
+                 for s in (1, 2, 3, 8, 20)}
+        assert {(g[0], g[2]) for g in grids.values()} == {
+            (grids[1][0], su.packed_row_splits(n_pad, b))}
+        assert all(g[1] == s for s, g in grids.items())
+        assert {su.packed_launch(kernel, s, n_pad, b).args
+                for s in grids} == {su.packed_launch(kernel, 1, n_pad,
+                                                     b).args}
+
+
+@pytest.mark.parametrize("n_pad,b", [(1_536, b) for b in WIDE_RUNGS]
+                         + [(128, b) for b in (2_048, 40_000, 65_537)]
+                         + [(384, 5_000), (1_536, 2_047), (1_536, 2_080)])
+def test_packed_row_splits_partition_the_rows(n_pad, b):
+    """The R splits cut [0, b) into contiguous ranges in order, each
+    starting on a stage of the ring (32 rows at T = 1), none empty, each
+    of at least SPLIT_ROWS rows but the last, and the C launcher's rule
+    (R - 1) span < b holds."""
+    from repro_torch.kernels import saddle_update as su
+    splits = su.packed_row_splits(n_pad, b)
+    span = su.packed_split_rows(b, splits)
+    stage = su.STAGE_FLOATS // (su.packed_tiles_per_block(b) * su.LANE)
+    bounds = [min(b, r * span) for r in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == b
+    assert all(lo < hi for lo, hi in zip(bounds, bounds[1:]))
+    assert all(lo % stage == 0 for lo in bounds[:-1])
+    assert (splits - 1) * span < b <= splits * span
+    assert splits == 1 or span >= su.SPLIT_ROWS
+    assert su.packed_split_rows(b, splits) == span     # a fixed point
+
+
+@pytest.mark.parametrize("b", WIDE_RUNGS)
+def test_packed_split_shared_memory_fits(b):
+    """A block of a row split holds the ring and its split's indices or
+    dw: at most MAX_SMEM beside the kernels' static shared memory, and
+    less than R = 1 would take (one chunk of up to 32,768 rows)."""
+    from repro_torch.analysis.kernel_audit import STATIC_SMEM
+    from repro_torch.kernels import saddle_update as su
+    for kernel in ("momentum_dot_packed", "mwu_update_packed"):
+        ln = su.packed_launch(kernel, 1, 1_536, b)
+        span = su.packed_split_rows(b, ln.args[1])
+        assert ln.dynamic_smem == su.packed_smem(span)
+        assert ln.dynamic_smem + STATIC_SMEM[kernel] <= su.MAX_SMEM
+        assert ln.dynamic_smem < su.packed_smem(b)
+
+
+def test_split_partials_merge_in_split_order():
+    """``ref.split_partials`` sums each split's rows; with one split the
+    merge is the plain dv bit for bit, and with several it adds the
+    splits' dv in split order, within float32 rounding of the plain dv."""
+    rng = np.random.default_rng(17)
+    s, d, n_pad, b = 2, 4_096, 256, 3_000
+    x_t = torch.from_numpy(rng.normal(size=(s, d, n_pad)).astype(
+        np.float32) / 64)
+    idx = torch.from_numpy(np.stack([rng.choice(d, b, replace=False)
+                                     for _ in range(s)]).astype(np.int32))
+    dw = torch.from_numpy(rng.normal(size=(s, b)).astype(np.float32) / 100)
+    full = torch.bmm(dw[:, None, :], ref._gather_rows(x_t, idx))[:, 0]
+    one = ref.split_partials(x_t, idx, dw, b)
+    assert one.shape == (s, 1, n_pad)
+    assert torch.equal(ref.merge_split_partials(one), full)
+    parts = ref.split_partials(x_t, idx, dw, 1_024)
+    assert parts.shape == (s, 3, n_pad)
+    assert torch.equal(ref.merge_split_partials(parts),
+                       (parts[:, 0] + parts[:, 1]) + parts[:, 2])
+    np.testing.assert_allclose(ref.merge_split_partials(parts).numpy(),
+                               full.numpy(), atol=1e-6)
+
+
+def test_packed_split_order_plain_version_matches_jax():
+    """The packed MWU's plain version in the kernel's split order
+    (``ref.mwu_update_packed_ref(span=)``, the row splits of b = 40,000
+    over n_pad = 128: 38 of 1,056 rows) on S = 2 slots of d = 65,536,
+    each slot against the JAX package's jnp oracle: log_new and each
+    class's lse within 1e-4, u within 1e-5.  The points are scaled into
+    the unit ball, as Algorithm 1 leaves them."""
+    from repro_torch.kernels import saddle_update as su
+    rng = np.random.default_rng(40_001)
+    s, d, n_pad, b, n1, n2 = 2, 65_536, 128, 40_000, 40, 50
+    probs = [_packed_problem(rng, n_pad, n1, n2, d, b) for _ in range(s)]
+    x_t, sign, ll, idx = (np.stack([p[i] for p in probs]) for i in range(4))
+    x_t *= np.float32(1.0 / np.sqrt(d))
+    u = (0.1 * rng.normal(size=(s, n_pad))).astype(np.float32)
+    dw = (0.01 * rng.normal(size=(s, b))).astype(np.float32)
+    gamma, tau, d_eff = 1e-3, 40.0, float(d) / b
+    span = su.packed_split_rows(b, su.packed_row_splits(n_pad, b))
+    assert span == 1_056
+    t = [torch.from_numpy(a) for a in (x_t, idx, ll, u, dw, sign)]
+    got = ref.mwu_update_packed_ref(
+        *t, torch.full((s,), 1.0 / (gamma + d_eff / tau)),
+        torch.full((s,), d_eff / tau), d_eff, span=span)
+    for k in range(s):
+        want = [np.asarray(w) for w in jref.mwu_update_packed_ref(
+            *(jnp.asarray(a[k]) for a in (x_t, idx, ll, u, dw, sign)),
+            gamma, tau, d_eff)]
+        n = n1 + n2
+        np.testing.assert_allclose(got[0][k, :n].numpy(), want[0][:n],
+                                   atol=1e-4)
+        np.testing.assert_allclose(got[1][k].numpy(), want[1], atol=1e-5)
+        lse = (got[2][k] + torch.log(got[3][k])).numpy()
+        np.testing.assert_allclose(
+            lse, [float(want[2]) + np.log(float(want[3])),
+                  float(want[4]) + np.log(float(want[5]))], atol=1e-4)
+
+
 def test_packed_workspace_grows_and_keeps_counters_zero():
     """The packed kernels' per-device workspace: zeroed counters, grown
     (never shrunk) when a call needs more slots or scratch."""
