@@ -8,7 +8,7 @@ no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- fifteen paths, each driven with the launch counts reset
+  2. paths      -- sixteen paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -331,6 +331,23 @@ no CPU fallback):
           same launcher's trainer again on the card (the same losses,
           bit for bit) and on the CPU from the card's starting weights
           (losses within 1e-4, relative) (no kernel).
+       p. sharded training (``repro_torch.models.sharding``), inside
+          path f's spawn on an 8-rank ``sub_group``: ranks 0-7 as
+          ``launch.mesh.make_test_mesh`` lays 8 out, (data 2, model 4),
+          gloo's collectives on CUDA tensors.  p1: h2o-danube-1.8b at its
+          published widths through ``train_lm``'s ``Trainer(mesh=)`` with
+          path m1's settings, B = 4, S = 1,024, 2 steps: each rank's
+          bytes of the parameters and of the master / m / v equal to the
+          dry-run's count for that layout exactly, its ms a step and
+          peak memory, the collectives of step 1 by kind (counted by
+          ``dispatch_trace``), and the two losses within 1e-2 of path
+          m1's first two (unsharded, the same seed-0 weights and
+          batches).  p2: ``launch.train``'s trainer over the same mesh
+          on reduced h2o-danube-1.8b and gemma-7b, 2 float32 steps each,
+          replayed on the CPU unsharded from the card's starting weights:
+          losses within 1e-5 (relative), the gathered final parameters
+          within 1e-5 where step 1's grad is above 1e-3 of its leaf's
+          max (no kernel).
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -1751,6 +1768,7 @@ def f_rank(world, data_path: str) -> dict:
     data = np.load(data_path)
     g4 = meshlib.sub_group(world, range(4))
     g2 = meshlib.sub_group(world, range(F_SERVE["k"]))
+    pmesh = meshlib.make_test_mesh(world, ranks=range(P_RANKS))
     rec = (PathRecorder("f rank 0", keep=False, on_device=True)
            if world.rank == 0 else None)
 
@@ -1803,6 +1821,9 @@ def f_rank(world, data_path: str) -> dict:
     if g2 is not None:
         out["g"] = g_rank(g2, g_requests() if g2.rank == 0 else [])
         marks.append(("path g", time.time()))
+    if pmesh is not None:
+        out["p"] = p_rank(pmesh, str(Path(data_path).parent))
+        marks.append(("path p", time.time()))
     out["marks"] = marks
     return out
 
@@ -1864,12 +1885,13 @@ def model_colls(k: int, nu: float, steps: int, chunks: int, d: int) -> dict:
 
 
 def collectives_path(torch, dist_fits, serve, rec: PathRecorder,
-                     rec_g: PathRecorder) -> list:
-    """Paths f and g: the references on the card, NCCL at world size 1
+                     rec_g: PathRecorder) -> tuple:
+    """Paths f, g and p: the references on the card, NCCL at world size 1
     here (path f's solves, then path g's service), then the spawned gloo
-    ranks (path f, then path g on ranks 0-1); each path's counts reset
-    just before it and read after, here and on each rank, its calls here
-    recorded by ``rec`` / ``rec_g``.  Returns the ranks' recorders."""
+    ranks (path f, then path g on ranks 0-1, then path p on ranks 0-7);
+    each path's counts reset just before it and read after, here and on
+    each rank, its calls here recorded by ``rec`` / ``rec_g``.  Returns
+    (the ranks' recorders, p1's result for path m)."""
     t_path = time.perf_counter()
     ranks, spawn_s, arrays, refs, counts = f_parent(torch, dist_fits, rec,
                                                     rec_g, serve)
@@ -1893,14 +1915,15 @@ def collectives_path(torch, dist_fits, serve, rec: PathRecorder,
                           + PACKED)
         g_recs.append(grec)
     g_check(torch, [ranks[r]["g"] for r in range(2)], refs["g"])
-    return [rank0] + g_recs
+    p1 = p_check(torch, ranks, refs["p files"])
+    return [rank0] + g_recs, p1
 
 
 def f_parent(torch, dist_fits, rec, rec_g, serve):
     """Path f's data, its references on the card and the NCCL runs here,
-    path g's NCCL service, then the spawn; returns (the ranks' results,
-    the spawn's seconds, the data, the references, the launches here of
-    paths f and g)."""
+    path g's NCCL service, then the spawn (paths f, g and p); returns (the
+    ranks' results, the spawn's seconds, the data, the references with
+    path p's files, the launches here of paths f and g)."""
     import shutil
     import tempfile
 
@@ -1955,6 +1978,8 @@ def f_parent(torch, dist_fits, rec, rec_g, serve):
                                       device="cuda", timeout_s=F_TIMEOUT_S,
                                       args=(str(tmp / "data.npz"),))
         spawn_s = time.perf_counter() - t0
+        refs["p files"] = {f.stem: dict(np.load(f))
+                           for f in tmp.glob("p2 *.npz")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("path f in the parent: " + "; ".join(
@@ -2113,6 +2138,185 @@ def f_check(ranks, spawn_s, arrays, refs) -> None:
           f"{bool((dw[lane, shard * m:(shard + 1) * m] == 0).all())}")
     require(kept and (dw[lane, shard * m:(shard + 1) * m] == 0).all(),
             "path f drop_slot_shard")
+
+
+# ---------------------------------------------------------------- path p
+# Sharded training (``models.sharding``, ``launch.train --ranks``) on ranks
+# 0-7 of path f's spawn (no start-up of its own), laid out (data 2, model
+# 4) by ``launch.mesh.make_test_mesh``; the other 12 ranks have ended
+# their part by then.  p1 trains h2o-danube-1.8b at full width with path
+# m1's settings; its losses wait for m1's (path m) to be compared.  p2
+# replays launch.train's reduced runs on the CPU here.
+P_RANKS = 8
+P_STEPS = 2
+P_LOSS_ATOL = 1e-2          # p1 vs m1: bf16 sums in other orders
+P_REPLAY = ("h2o-danube-1.8b", "gemma-7b")
+P_REPLAY_ATOL = 1e-5        # p2's parameters, where step 1's grad is big
+P_LAYOUT = ("2x4", ("data", "model"), (2, 4))
+
+
+def p_rank(mesh, tmp: str) -> dict:
+    """Path p on one rank of its mesh (see P_RANKS)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import sharding as shd
+    from repro_torch.utils import dispatch_trace
+
+    def nbytes(tensors) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    t_path = time.perf_counter()
+    out = {"rank": mesh.rank, "layout": tuple(mesh.layout),
+           "device_mesh": mesh.device_mesh is not None}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = train_lm.Trainer(train_lm.parse_args(M_TRAIN), mesh=mesh)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    st = tr.state.opt_state
+    out["bytes"] = {"params": nbytes(tr.state.model.parameters()),
+                    "master": nbytes(st.master.values()),
+                    "m": nbytes(st.m.values()), "v": nbytes(st.v.values())}
+    out["want"] = specs.train_state_bytes_per_device(tr.cfg, mesh.layout)
+    losses, secs = [], []
+    for i in range(P_STEPS):
+        batch = tr.batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:            # step 1's collectives; step 2 runs untraced
+            with dispatch_trace.Trace() as trace:
+                tr.state, m = tr.train_step(tr.state, batch)
+                losses.append(float(m["loss"]))
+            stats = trace.collective_stats()
+            out["collectives"] = {"count": stats.count_by_op,
+                                  "bytes": stats.bytes_by_op}
+        else:
+            tr.state, m = tr.train_step(tr.state, batch)
+            losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    out.update(losses=losses, step_s=secs,
+               peak=torch.cuda.max_memory_allocated())
+    del tr, st, m
+    torch.cuda.empty_cache()
+    out["p1_s"] = time.perf_counter() - t_path
+    for arch in P_REPLAY:
+        tr = launch_train.make_trainer(launch_train.parse_args(
+            ["--arch", arch, "--steps", str(P_STEPS)]), mesh)
+        model = tr.state.model
+        init = {n: shd.whole(p).cpu().numpy()
+                for n, p in model.named_parameters()}
+        out[f"p2 {arch}"] = tr.train(P_STEPS)["loss"]
+        final = {n: shd.whole(p).cpu().numpy()
+                 for n, p in model.named_parameters()}
+        if mesh.rank == 0:
+            np.savez(Path(tmp) / f"p2 {arch} init.npz", **init)
+            np.savez(Path(tmp) / f"p2 {arch} final.npz", **final)
+        del tr, model
+    shd.set_mesh_axes(None)
+    torch.cuda.empty_cache()
+    out["p_s"] = time.perf_counter() - t_path
+    return out
+
+
+def p_replay(torch, arch: str, init: dict, final: dict, got: list, card
+             ) -> None:
+    """p2 on the CPU: ``launch.train``'s unsharded trainer from the card's
+    starting weights, its losses and final parameters against the
+    card's sharded run."""
+    import numpy as np
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optimizer as opt, steps
+
+    args = launch_train.parse_args(["--arch", arch, "--steps", str(P_STEPS),
+                                    "--device", "cpu"])
+    cpu = launch_train.make_trainer(args)
+    model = cpu.state.model
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(torch.from_numpy(init[n]))
+    cpu.state = steps.TrainState(model, opt.init(model, cpu.ocfg))
+    first = TokenPipeline(cpu.cfg.vocab_size, args.seq, args.batch,
+                          seed=0).next_batch()
+    _, _, g = steps.value_and_grad(model, cpu.cfg, {
+        "tokens": torch.as_tensor(first.tokens),
+        "targets": torch.as_tensor(first.targets)})
+    grads = {n: t.detach().clone() for n, t in g.items()}
+    ref = cpu.train(P_STEPS)["loss"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    perr = 0.0
+    for n, p in model.named_parameters():
+        big = grads[n].abs() > 1e-3 * grads[n].abs().max()
+        diff = (torch.from_numpy(final[n]) - p.detach())[big]
+        if diff.numel():
+            perr = max(perr, float(diff.abs().max()))
+    print(f"p2 {arch} (reduced, float32, {P_STEPS} steps, sharded "
+          f"{P_LAYOUT[0]} on the card / unsharded on the CPU): losses "
+          f"{got!r} / {ref!r} (largest relative difference {rel:.3e}, tol "
+          f"{P_REPLAY_ATOL:g}); final parameters {perr:.3e} where step 1's "
+          f"|g| > 1e-3 of its leaf's max (tol {P_REPLAY_ATOL:g}) [{card}]")
+    require(rel <= P_REPLAY_ATOL and perr <= P_REPLAY_ATOL,
+            f"p2 {arch}: the sharded run on the card differs from the CPU's")
+    require(bool(np.isfinite(got).all()), f"p2 {arch}: a non-finite loss")
+
+
+def p_check(torch, ranks, files: dict) -> dict:
+    """Path p's holds that need nothing but the ranks' results: p1's bytes
+    against the dry-run, its losses equal on every rank, its collectives;
+    then p2's replays.  Returns p1's losses for path m's comparison."""
+    from repro_torch.launch import mesh as meshlib
+
+    card = card_line()
+    rs = [r["p"] for r in ranks[:P_RANKS]]
+    r0 = rs[0]
+    require(r0["layout"] == P_LAYOUT, f"p: layout {r0['layout']}")
+    layout = meshlib.Layout(*P_LAYOUT)
+    print(f"p: {layout.name} mesh of gloo ranks on the card, its DeviceMesh "
+          f"made on {sum(r['device_mesh'] for r in rs)} of {len(rs)} ranks "
+          f"[{card}]")
+    for r in rs:
+        print(f"p1 rank {r['rank']}: bytes {r['bytes']} (dry-run "
+              f"{r['want']}); set up {r['setup_s']:.2f} s; steps "
+              f"{[round(s * 1e3, 1) for s in r['step_s']]} ms (step 1 "
+              f"traced); peak memory {r['peak'] / 1e9:.2f} GB [{card}]")
+        require(r["bytes"] == r["want"], f"p1 rank {r['rank']}: its bytes "
+                f"{r['bytes']} are not the dry-run's {r['want']} for "
+                f"{layout.name}")
+        require(r["losses"] == r0["losses"] and r["collectives"]["count"]
+                == r0["collectives"]["count"],
+                f"p1 rank {r['rank']}: its losses or collectives differ "
+                "from rank 0's")
+    colls = r0["collectives"]
+    print("p1 collectives of step 1 on rank 0 (dispatch_trace): "
+          + ", ".join(f"{k} {n} ({colls['bytes'][k] / 1e6:.1f} MB)"
+                      for k, n in sorted(colls["count"].items())))
+    require(sum(colls["count"].values()) > 0, "p1: no collective counted")
+    ms = max(r["step_s"][-1] for r in rs) * 1e3
+    print(f"p1: losses {r0['losses']!r}; step 2 {ms:.1f} ms (the slowest "
+          f"rank); p1 {max(r['p1_s'] for r in rs):.1f} s, path p "
+          f"{max(r['p_s'] for r in rs):.1f} s on the ranks [{card}]")
+    for arch in P_REPLAY:
+        got = r0[f"p2 {arch}"]
+        require(all(r[f"p2 {arch}"] == got for r in rs),
+                f"p2 {arch}: the ranks' losses differ")
+        p_replay(torch, arch, files[f"p2 {arch} init"],
+                 files[f"p2 {arch} final"], got, card)
+    return {"losses": r0["losses"]}
+
+
+def p_versus_m1(p1: dict, m1_losses: list) -> None:
+    """p1's two losses against m1's first two (the same weights and
+    batches, unsharded)."""
+    gap = max(abs(a - b) for a, b in zip(p1["losses"], m1_losses))
+    print(f"p1 vs m1: losses {p1['losses']!r} sharded / "
+          f"{m1_losses[:P_STEPS]!r} unsharded, largest gap {gap:.3e} (tol "
+          f"{P_LOSS_ATOL:g})")
+    require(gap <= P_LOSS_ATOL, "p1: the sharded losses differ from m1's")
 
 
 # ---------------------------------------------------------------- path g
@@ -4159,8 +4363,9 @@ def m_bound(cfg, n_params: int, tokens: int, batch: int, seq: int):
     return (bf16 / PEAK_FLOPS + f32 / F32_FLOPS) * 1e3, bf16, f32
 
 
-def m_train(torch, card) -> None:
-    """m1: train_lm --full at h2o-danube-1.8b's published widths."""
+def m_train(torch, card) -> list:
+    """m1: train_lm --full at h2o-danube-1.8b's published widths; returns
+    its losses."""
     import numpy as np
 
     from repro_torch.examples import train_lm
@@ -4213,6 +4418,7 @@ def m_train(torch, card) -> None:
              f"{prof['launches']:.1f} launches and idle "
              f"{prof['idle']:.4f} a step") + f" [{card}]")
     del tr, model, st
+    return losses
 
 
 def m_replay(torch, card) -> None:
@@ -4329,16 +4535,17 @@ def m_svm(torch, rec: PathRecorder, card) -> None:
     print("m3: the checkpoint restores w_ and b_ bit for bit")
 
 
-def training_path(torch, rec: PathRecorder) -> float:
+def training_path(torch, rec: PathRecorder, p1: dict) -> float:
     """Path m: training, counts reset just before and read just after;
-    m3's kernel calls recorded by ``rec``.  Its models are freed before
-    it returns; returns its seconds."""
+    m3's kernel calls recorded by ``rec``; path p's p1 held to m1's
+    losses.  Its models are freed before it returns; returns its
+    seconds."""
     from repro_torch.kernels import ops
 
     card = card_line()
     ops.launch_counts.clear()
     t_path = t0 = time.perf_counter()
-    m_train(torch, card)
+    p_versus_m1(p1, m_train(torch, card))
     torch.cuda.empty_cache()
     print(f"m1: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -5960,8 +6167,9 @@ def main() -> int:
     serve = service_path(torch, recs[4])
     serve_vs_solo(torch, serve)
     lap("e")
-    recs += collectives_path(torch, dist_fits, serve, recs[5], recs[6])
-    lap("f and g")
+    f_recs, p1 = collectives_path(torch, dist_fits, serve, recs[5], recs[6])
+    recs += f_recs
+    lap("f, g and p")
     recs.append(PathRecorder("h"))
     baselines_path(torch, recs[-1], dist_fits)
     lap("h")
@@ -5975,7 +6183,7 @@ def main() -> int:
     l_secs = multimodal_path(torch)
     lap("l")
     recs.append(PathRecorder("m"))
-    m_secs = training_path(torch, recs[-1])
+    m_secs = training_path(torch, recs[-1], p1)
     lap("m")
     recs.append(PathRecorder("n"))
     n_secs = analysis_path(torch, recs[-1])

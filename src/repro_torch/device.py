@@ -20,7 +20,8 @@ DEFAULT_DEVICE = "cuda"
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The torch device an entry point runs on: ``cuda`` by default,
-    ``cpu`` only when asked for.  Raises RuntimeError for ``cuda`` without
+    ``cpu`` only when asked for (``meta``, shapes alone, when asked
+    for: a model placed on a mesh is built there first).  Raises RuntimeError for ``cuda`` without
     a visible card and ValueError for any other device type."""
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda":
@@ -30,6 +31,6 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                 "pass device='cpu' to run the plain PyTorch versions")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {dev}")
     return dev

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenPipeline
+from repro_torch.models import sharding as shd
 from repro_torch.models import transformer as tf
 from repro_torch.train import checkpoint, optimizer as opt, steps
 
@@ -52,17 +53,26 @@ class Trainer:
     script's: ``warmup_steps=20``, the config's state dtype), the model
     and its optimizer state from seed 0, and the token pipeline (seed 0).
     ``warmup_steps`` overrides the script's 20 (``launch.train`` passes
-    the JAX launcher's 10)."""
+    the JAX launcher's 10).
+
+    With ``mesh`` (a ``models.sharding.Mesh``, which it installs, as the
+    JAX launcher installs its mesh) the model and its AdamW state are this
+    rank's blocks of the same seed-0 draw (``tf.init_lm(mesh=)``), and
+    every rank draws the same pipeline batch and keeps its own ``data``
+    rows (``sharding.batch_rows``).  Without one nothing changes."""
 
     def __init__(self, args: argparse.Namespace, device=None, *,
-                 warmup_steps: int = 20):
+                 warmup_steps: int = 20, mesh=None):
         cfg = get_config(args.arch)
         self.cfg = cfg if args.full else cfg.reduced()
         self.ocfg = opt.AdamWConfig(
             lr=args.lr, warmup_steps=warmup_steps,
             state_dtype=self.cfg.optimizer_state_dtype)
+        if mesh is not None:
+            shd.set_mesh_axes(mesh)
+        self.mesh = mesh
         self.state = steps.init_train_state(self.cfg, self.ocfg, seed=0,
-                                            device=device)
+                                            device=device, mesh=mesh)
         self.device = self.state.model.device
         self.pipe = TokenPipeline(self.cfg.vocab_size, args.seq, args.batch,
                                   seed=0)
@@ -77,6 +87,8 @@ class Trainer:
         dev, d = self.device, self.cfg.d_model
         out = {"tokens": torch.as_tensor(nb.tokens, device=dev),
                "targets": torch.as_tensor(nb.targets, device=dev)}
+        if self.mesh is not None:
+            out = {k: shd.batch_rows(v) for k, v in out.items()}
         if self.cfg.vision_embeds:
             out["vision_embeds"] = torch.zeros((b, s, d), device=dev)
             out["vision_mask"] = torch.zeros((b, s), dtype=torch.bool,

@@ -190,6 +190,68 @@ def production_layout(multi_pod: bool = False) -> Layout:
     return PRODUCTION_LAYOUTS["2x16x16" if multi_pod else "16x16"]
 
 
+def layout_for(k: int) -> Layout:
+    """The JAX package's ``make_test_mesh`` rule for k devices: ``(k //
+    model, model)`` over ``("data", "model")``, model the first of 4, 2, 1
+    that divides k."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    model = next(m for m in (4, 2, 1) if k % m == 0)
+    return Layout(f"{k // model}x{model}", ("data", "model"),
+                  (k // model, model))
+
+
+def make_test_mesh(world: ClientGroup, ranks=None, layout=None):
+    """The counterpart of ``repro.launch.mesh.make_test_mesh``: a
+    ``models.sharding.Mesh`` over ``ranks`` (ranks of the default group
+    ``world``; default: all of them) laid out by :func:`layout_for` (or
+    ``layout``, of as many ranks), its groups on ``world``'s device.
+
+    Collective over ``world``: every rank of the default group calls it
+    with the same ranks, and it makes (``sub_group``, in this order) the
+    mesh's whole group, each ``data`` column's and each ``model`` row's; a
+    rank outside ``ranks`` gets None.  Mesh position r is ``ranks[r]``,
+    row-major as ``jax.make_mesh`` lays out devices.  The mesh carries the
+    ``DeviceMesh`` over the same groups (``DeviceMesh.from_group``)."""
+    from repro_torch.models.sharding import Mesh
+
+    ranks = list(range(world.size) if ranks is None else ranks)
+    layout = layout_for(len(ranks)) if layout is None else layout
+    if layout.size != len(ranks):
+        raise ValueError(f"{len(ranks)} ranks do not fill {layout.name}")
+    grid = np.asarray(ranks).reshape(layout.shape)
+    whole = sub_group(world, ranks)
+    lines = {}
+    for i, axis in enumerate(layout.axis_names):
+        moved = np.moveaxis(grid, i, -1).reshape(-1, layout.shape[i])
+        for line in moved.tolist():
+            group = sub_group(world, line)
+            if group is not None:
+                lines[axis] = group
+    if whole is None:
+        return None
+    return Mesh(layout=layout, rank=whole.rank, world=whole, groups=lines,
+                device=world.device,
+                device_mesh=_device_mesh(world, lines, grid, layout))
+
+
+def _device_mesh(world: ClientGroup, lines: dict, grid, layout):
+    """The ``DeviceMesh`` of a mesh's groups (their global ranks as the
+    mesh tensor), or None where this torch cannot make one over them."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    global_ranks = [dist.get_global_rank(world.group, int(r))
+                    for r in grid.reshape(-1)]
+    try:
+        return DeviceMesh.from_group(
+            [lines[a].group for a in layout.axis_names],
+            world.device.type,
+            mesh=torch.tensor(global_ranks).reshape(layout.shape),
+            mesh_dim_names=tuple(layout.axis_names))
+    except (RuntimeError, ValueError, NotImplementedError):
+        return None
+
+
 def init_fake_group(k: int, device=None, rank: int = 0) -> ClientGroup:
     """Make the default process group torch's fake backend of ``k`` ranks,
     with this process as rank ``rank``, and return its

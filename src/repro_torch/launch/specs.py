@@ -17,51 +17,35 @@ constructors return a step to RUN and its arguments:
   ``launch.mesh.init_fake_group``).  Each rank's shard is drawn from a
   seed at its own shape: the 1M-point problem never exists whole.
 
-The port shards no model (``models/sharding.py`` is left out), so the
-dry-run counts bytes a device by copies of the JAX package's rules:
-:data:`DEFAULT_RULES`, :func:`spec_for` and :func:`param_spec` (of
-``repro.models.sharding``) and :func:`_leaf_logical`, applied to the
-port's own tensors by name.  A parameter's rule keys on its leaf name,
-which the port shares with the JAX pytree (``convert.lm_tree_to_named``
-maps one onto the other); the JAX package stacks a period's layers on a
-leading axis it never shards, so a layer's bytes a device are the same
-either way.  The port's GQA caches are laid out (B, KV, T, Dh) where JAX
-has (B, T, KV, Dh), and take the same logical axes in their own order.
+The dry-run counts bytes a device by the JAX package's rules, applied to
+the port's own tensors by name: :data:`DEFAULT_RULES`, :func:`spec_for`
+and :func:`param_spec` of ``models.sharding`` (the rules a sharded train
+step places its blocks by, ``launch.train --ranks``), and
+:func:`_leaf_logical` (a copy of ``repro.launch.specs``'s).  A
+parameter's rule keys on its leaf name, which the port shares with the
+JAX pytree (``convert.lm_tree_to_named`` maps one onto the other); the
+JAX package stacks a period's layers on a leading axis it never shards,
+so a layer's bytes a device are the same either way.  The port's GQA
+caches are laid out (B, KV, T, Dh) where JAX has (B, T, KV, Dh), and take
+the same logical axes in their own order.
 """
 
 from __future__ import annotations
 
 import math
-import re
 from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch.launch.shapes import SHAPES, InputShape
+# the one copy of the rules (re-exported: the dry-run and its tests read
+# them here)
+from repro_torch.models.sharding import (  # noqa: F401
+    DEFAULT_RULES, param_spec, shards, spec_for)
 
 CACHE_DTYPE = torch.bfloat16
 
 # ------------------------------------------------------- sharding rules
-# logical axis -> physical mesh axes in priority order (a copy of
-# ``repro.models.sharding.DEFAULT_RULES``)
-DEFAULT_RULES = {
-    "batch": ("pod", "data"),
-    "seq": (),
-    "seq_shard": ("data",),
-    "kv_seq": ("model", "data", "pod"),
-    "kv_seq_bp": ("data", "pod"),
-    "embed": (),
-    "act_embed": ("model",),
-    "heads": ("model",),
-    "kv_heads": ("model",),
-    "mlp": ("model",),
-    "experts": ("model",),
-    "vocab": ("model",),
-    "param_embed": ("data", "pod"),
-    "expert_capacity": (),
-}
-
-
 def _leaf_logical(path: str, shape) -> list:
     """Logical axes for a serve-state / batch leaf, by name + rank (a
     copy of ``repro.launch.specs._leaf_logical``, on the JAX layouts)."""
@@ -102,86 +86,6 @@ def _port_cache_logical(path: str, shape) -> list:
     return _leaf_logical(path, shape)
 
 
-def spec_for(logical, shape, layout, rules: dict | None = None) -> tuple:
-    """Logical names to physical axes on ``layout`` (a
-    ``launch.mesh.Layout``): a copy of ``repro.models.sharding.spec_for``
-    against a layout in place of the active mesh.  A physical axis is
-    dropped where it does not divide its dimension or an earlier one took
-    it.  Returns one entry a dimension: None, an axis name or a tuple of
-    names (``PartitionSpec``'s)."""
-    rules = DEFAULT_RULES if rules is None else rules
-    axis_sizes = layout.axis_sizes
-    out: list = []
-    used: set = set()
-    for i, name in enumerate(logical):
-        if name is None:
-            out.append(None)
-            continue
-        phys = [a for a in rules.get(name, ()) if a in axis_sizes
-                and a not in used]
-        if shape is not None:
-            keep, prod = [], 1
-            for a in phys:
-                if shape[i] % (prod * axis_sizes[a]) == 0:
-                    keep.append(a)
-                    prod *= axis_sizes[a]
-            phys = keep
-        used.update(phys)
-        out.append(None if not phys else
-                   phys[0] if len(phys) == 1 else tuple(phys))
-    return tuple(out)
-
-
-def param_spec(path: str, shape, layout, *, fsdp: bool = True,
-               embed_fsdp: bool = True) -> tuple:
-    """A parameter's spec on ``layout``, keyed on its leaf name (the last
-    component of a dotted port name or a JAX tree path): a copy of
-    ``repro.models.sharding.param_spec``'s conventions."""
-    leaf = re.split(r"[./]", path)[-1]
-    rank = len(shape)
-    if leaf in ("embedding", "lm_head"):
-        logical = ["vocab", "param_embed" if embed_fsdp else None]
-    elif leaf in ("wq", "wk", "wv"):
-        logical = ["param_embed", "heads", None]
-    elif leaf == "wo":
-        logical = ["heads", None, "param_embed"]
-    elif leaf in ("w_gate", "w_up", "w_in"):
-        logical = ["param_embed", "mlp"]
-    elif leaf in ("w_down", "w_out"):
-        logical = ["mlp", "param_embed"]
-    elif leaf.startswith("expert_"):
-        sub = {"expert_gate": ["param_embed", "mlp"],
-               "expert_up": ["param_embed", "mlp"],
-               "expert_down": ["mlp", "param_embed"]}[leaf]
-        logical = ["experts"] + sub
-    elif leaf == "router":
-        logical = ["param_embed", "experts"]
-    elif leaf in ("wkv_a", "wq_a"):
-        logical = ["param_embed", None]
-    elif leaf.startswith("wkv_b") or leaf == "wq_b":
-        logical = ["param_embed", "heads", None]
-    elif leaf in ("w_rec", "w_x", "w_gates"):
-        logical = ["param_embed", "heads", None][:rank]
-    else:
-        logical = [None] * rank
-    if not fsdp:
-        logical = [x if x != "param_embed" else None for x in logical]
-    if len(logical) < rank:
-        logical = [None] * (rank - len(logical)) + logical
-    return spec_for(logical, shape, layout)
-
-
-def shards(spec: tuple, layout) -> int:
-    """How many ways ``spec`` splits a tensor on ``layout``."""
-    sizes = layout.axis_sizes
-    n = 1
-    for entry in spec:
-        for a in (() if entry is None else
-                  (entry,) if isinstance(entry, str) else entry):
-            n *= sizes[a]
-    return n
-
-
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -197,6 +101,43 @@ def param_bytes_per_device(params, layout, *, fsdp: bool = True,
                                                embed_fsdp=embed_fsdp),
                                     layout)
                for n, t in params.items())
+
+
+def train_state_sharding(params, layout, cfg=None) -> dict:
+    """Specs of a train state on ``layout`` (``repro.launch.specs.
+    train_state_sharding``): the parameters' under the config's
+    ``fsdp_params`` / ``embed_fsdp`` (both on without a config); AdamW's
+    master and moments ALWAYS fully FSDP-sharded (ZeRO-2 where the
+    compute parameters are not); its step count replicated.  ``params``
+    is a module or a dict of tensors by the port's names (whole shapes)."""
+    from repro_torch.models.sharding import param_sharding_tree
+
+    fsdp = cfg.fsdp_params if cfg is not None else True
+    embed_fsdp = cfg.embed_fsdp if cfg is not None else True
+    full = param_sharding_tree(params, layout)
+    return {"params": param_sharding_tree(params, layout, fsdp=fsdp,
+                                          embed_fsdp=embed_fsdp),
+            "master": full, "m": full, "v": full, "step": ()}
+
+
+def train_state_bytes_per_device(cfg, layout) -> dict:
+    """Bytes a device of each part of ``cfg``'s train state on ``layout``
+    by :func:`train_state_sharding`: the parameters (their dtype), AdamW's
+    float32 master and its moments (the config's state dtype)."""
+    from repro_torch.models import transformer as tf
+
+    model = tf.LM(cfg, "meta")
+    sh = train_state_sharding(model, layout, cfg)
+    params = dict(model.named_parameters())
+    state = getattr(torch, cfg.optimizer_state_dtype)
+
+    def part(key, dtype):
+        return sum(p.numel() * (dtype or p.dtype).itemsize
+                   // shards(sh[key][n], layout) for n, p in params.items())
+
+    return {"params": part("params", None), "master": part("master",
+                                                           torch.float32),
+            "m": part("m", state), "v": part("v", state)}
 
 
 def tensor_leaves(tree, prefix: str = ""):
@@ -230,13 +171,18 @@ def argument_bytes_per_device(cfg, kind: str, args, layout) -> int:
     ``train_state_sharding``), the batch, the tokens and the serve state
     by their logical axes."""
     model = args[0].model if kind == "train" else args[0]
-    total = param_bytes_per_device(model, layout, fsdp=cfg.fsdp_params,
-                                   embed_fsdp=cfg.embed_fsdp)
-    if kind == "train":
+    if kind != "train":
+        total = param_bytes_per_device(model, layout, fsdp=cfg.fsdp_params,
+                                       embed_fsdp=cfg.embed_fsdp)
+    else:
         st = args[0].opt_state
-        for tree in (st.master, st.m, st.v):
-            total += param_bytes_per_device(tree, layout)
-        total += _nbytes(st.step)
+        sh = train_state_sharding(model, layout, cfg)
+        params = dict(model.named_parameters())
+        total = _nbytes(st.step)
+        for key, tree in (("params", params), ("master", st.master),
+                          ("m", st.m), ("v", st.v)):
+            total += sum(_nbytes(t) // shards(sh[key][n], layout)
+                         for n, t in tree.items())
     for tree in args[1:]:
         total += state_bytes_per_device(tree, layout)
     return total

@@ -42,6 +42,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import (RMSNorm, apply_rope, empty_param,
                                       matmul, normal_)
 
@@ -111,7 +112,15 @@ def decode_attention(q, k_cache, v_cache, valid):
 class GQAttention(nn.Module):
     """Self-attention with ``num_kv_heads`` shared K/V heads.  Weights
     keep the JAX layouts: wq (D, H, Dh), wk / wv (D, KV, Dh), wo
-    (H, Dh, D)."""
+    (H, Dh, D).
+
+    On a mesh (``models.sharding``) with the query heads split over
+    ``model``, each rank attends with its own heads and the ranks' output
+    projections are summed.  Where the KV heads split too, each rank's
+    query heads read its own KV heads; where they do not (fewer KV heads
+    than ranks, chatglm3-6b's 2 on a 4-way axis), every rank projects
+    every KV head and keeps the ones its query heads share, and the
+    grads of K and V are summed over the ranks."""
 
     def __init__(self, cfg, device):
         super().__init__()
@@ -125,7 +134,7 @@ class GQAttention(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         d = self.cfg.d_model
-        h, dh = self.wo.shape[:2]
+        h, dh = shd.full_shape(self.wo)[:2]
         for w in (self.wq, self.wk, self.wv):
             normal_(w, 1.0 / math.sqrt(d), generator)
         normal_(self.wo, 1.0 / math.sqrt(h * dh), generator)
@@ -134,6 +143,20 @@ class GQAttention(nn.Module):
         b, s, d = x.shape
         return matmul(x.reshape(b * s, d), w.reshape(d, -1)).reshape(
             b, s, w.shape[1], w.shape[2])
+
+    def _own_kv(self, k, v):
+        """The KV heads this rank's query heads share, of whole K and V
+        (B, S, KV, Dh) (their grads summed over ``model``)."""
+        h, kv = self.cfg.num_heads, self.cfg.num_kv_heads
+        hq, group = self.wq.shape[1], h // kv
+        first = shd.offset(self.wq, 1)
+        if group % hq and hq % group:
+            raise NotImplementedError(
+                f"{hq} query heads a rank do not pair with KV groups of "
+                f"{group}")
+        lo, n = first // group, max(1, hq // group)
+        k, v = shd.copy_to(k), shd.copy_to(v)
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
 
     def forward(self, x, *, positions, rope, window: int = 0, cache=None,
                 index=None, lanes: int | None = None):
@@ -148,12 +171,32 @@ class GQAttention(nn.Module):
         (S == 1), where row r writes at its own ``index[r]`` and attends
         to its own cache.  ``lanes``: in a decode, the first ``lanes``
         rows own a cache row each; the rows after them are padding
-        (zero output)."""
+        (zero output).  On a mesh only the first (training) runs."""
         b, s, _ = x.shape
-        q, k = self._project(x, self.wq), self._project(x, self.wk)
+        cfg = self.cfg
+        if cache is not None and shd.active() is not None:
+            raise NotImplementedError(
+                "a sharded cache (prefill, decode) is not ported: the "
+                "sharded slice trains (ROADMAP.md queue 1 item 3)")
+        heads_split, kv_split = shd.split(self.wq, 1), shd.split(self.wk, 1)
+        xq = shd.copy_to(x) if heads_split else x
+        xkv = xq if kv_split else x
+        q = self._project(xq, shd.param(self.wq))
+        k = self._project(xkv, shd.param(self.wk))
         if rope is not None:
             q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-        v = self._project(x, self.wv)
+        v = self._project(xkv, shd.param(self.wv))
+        # JAX constrains K and V's sequence over data at b == 1
+        # ("seq_shard", a memory layout where the batch leaves data free);
+        # the port's data ranks then all hold every key (ROADMAP.md)
+        q = shd.shard(q, "batch", None, "heads", None,
+                      shape=(None, None, cfg.num_heads, None))
+        k = shd.shard(k, "batch", None, "kv_heads", None,
+                      shape=(None, None, cfg.num_kv_heads, None))
+        v = shd.shard(v, "batch", None, "kv_heads", None,
+                      shape=(None, None, cfg.num_kv_heads, None))
+        if heads_split and not kv_split:
+            k, v = self._own_kv(k, v)
         if cache is None or s > 1:
             q_pos = positions[0]
             out = dot_attention(q, k, v, q_pos, q_pos, causal=True,
@@ -168,9 +211,13 @@ class GQAttention(nn.Module):
                                   positions[:n, 0], window)
             out[:n, 0] = decode_attention(q[:n, 0], cache["k"], cache["v"],
                                           valid)
-        h, dh, d = self.wo.shape
-        return matmul(out.reshape(b * s, h * dh),
-                      self.wo.reshape(h * dh, d)).reshape(b, s, d)
+        out = shd.shard(out, "batch", None, "heads", None,
+                        shape=(None, None, cfg.num_heads, None))
+        wo = shd.param(self.wo)
+        h, dh, d = wo.shape
+        out = matmul(out.reshape(b * s, h * dh),
+                     wo.reshape(h * dh, d)).reshape(b, s, d)
+        return shd.reduce_from(out) if heads_split else out
 
 
 class CrossAttention(GQAttention):

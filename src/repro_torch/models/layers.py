@@ -5,11 +5,15 @@ with its LM head.
 The port of ``repro.models.layers``.  Parameters keep the JAX package's
 layouts (``w_gate`` is ``(d_model, d_ff)``, the embedding ``(V, d_model)``)
 so that a JAX pytree maps onto them one to one (``repro_torch.convert``).
-The JAX package's sharding constraints are no-ops without a mesh and have
-no counterpart here.  Initialisers draw JAX's scheme (a truncated normal
-on [-2, 2] in float32, scaled, then cast) from an explicit
-``torch.Generator``; they cannot reproduce JAX's bits, so parity tests
-carry JAX's weights over instead.
+The JAX package's sharding constraints sit at its sites
+(``models.sharding.shard``): no-ops without a mesh.  On a mesh of ranks a
+parameter is this rank's block (``sharding.place``), read in its compute
+layout through ``sharding.param``; the GLU's hidden units and the
+vocabulary split over ``model`` (Megatron's column- and row-parallel
+pair, the vocabulary-parallel lookup and head).  Initialisers draw JAX's
+scheme (a truncated normal on [-2, 2] in float32, scaled, then cast) from
+an explicit ``torch.Generator``; they cannot reproduce JAX's bits, so
+parity tests carry JAX's weights over instead.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.models import sharding as shd
 
 
 def param_dtype(cfg) -> torch.dtype:
@@ -44,10 +50,14 @@ def normal_(t: torch.Tensor, scale: float,
             generator: torch.Generator) -> torch.Tensor:
     """JAX's ``normal``: a truncated normal on [-2, 2] drawn in float32,
     times ``scale``, cast to ``t``'s dtype (in place).  One float32 buffer
-    of ``t``'s size lives for the call."""
-    buf = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    of ``t``'s size lives for the call.  A placed parameter
+    (``sharding.place``) draws its whole shape and keeps its block, so the
+    blocks of all ranks are the whole tensor's draw."""
+    block = getattr(t, "block", None)
+    buf = torch.empty(shd.full_shape(t), dtype=torch.float32,
+                      device=t.device)
     nn.init.trunc_normal_(buf, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    t.copy_(buf.mul_(scale))
+    t.copy_((buf if block is None else buf[block]).mul_(scale))
     return t
 
 
@@ -70,7 +80,7 @@ class RMSNorm(nn.Module):
         x32 = x.float()
         var = (x32 * x32).mean(-1, keepdim=True)
         y = x32 * torch.rsqrt(var + self.eps)
-        return (y * (1.0 + self.scale.float())).to(x.dtype)
+        return (y * (1.0 + shd.param(self.scale).float())).to(x.dtype)
 
 
 # ---------------------------------------------------------------------- rope
@@ -146,7 +156,9 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 # ----------------------------------------------------------------------- mlp
 class GLUMLP(nn.Module):
     """SwiGLU or GeGLU (tanh-approximate GELU, as ``jax.nn.gelu``'s
-    default)."""
+    default).  With its hidden units split over ``model``, each rank runs
+    its own units on the whole input and the ranks' down-projections are
+    summed (``sharding.copy_to`` / ``reduce_from``)."""
 
     def __init__(self, d_model: int, d_ff: int, kind: str, cfg, device):
         super().__init__()
@@ -156,22 +168,32 @@ class GLUMLP(nn.Module):
         self.w_down = empty_param((d_ff, d_model), cfg, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        d_model, d_ff = self.w_gate.shape
+        d_model, d_ff = shd.full_shape(self.w_gate)
         normal_(self.w_gate, 1.0 / math.sqrt(d_model), generator)
         normal_(self.w_up, 1.0 / math.sqrt(d_model), generator)
         normal_(self.w_down, 1.0 / math.sqrt(d_ff), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g = matmul(x, self.w_gate)
+        split = shd.split(self.w_gate, 1)
+        if split:
+            x = shd.copy_to(x)
+        g = matmul(x, shd.param(self.w_gate))
         act = F.silu(g) if self.kind == "swiglu" else \
             F.gelu(g, approximate="tanh")
-        return matmul(act * matmul(x, self.w_up), self.w_down)
+        h = act * matmul(x, shd.param(self.w_up))
+        h = shd.shard(h, "batch", None, "mlp",
+                      shape=(None, None, shd.full_shape(self.w_gate)[1]))
+        out = matmul(h, shd.param(self.w_down))
+        return shd.reduce_from(out) if split else out
 
 
 # ----------------------------------------------------------------- embedding
 class Embedding(nn.Module):
     """Token table (``padded_vocab`` rows) and, unless tied, the LM head.
-    Logits cover ``padded_vocab`` and are never sliced."""
+    Logits cover ``padded_vocab`` and are never sliced.  With the
+    vocabulary split over ``model``, each rank looks up the tokens in its
+    rows (zeros for the others, summed over the ranks) and computes its
+    block of the logits."""
 
     def __init__(self, cfg, device):
         super().__init__()
@@ -191,15 +213,26 @@ class Embedding(nn.Module):
         # F.embedding, not ``embedding[tokens]``: the same rows, and a
         # backward that adds a repeated token's grads in a fixed order
         # (indexing's accumulating index_put_ on the CPU does not)
-        x = F.embedding(tokens, self.embedding).to(compute_dtype(self.cfg))
+        table = shd.param(self.embedding)
+        if shd.split(self.embedding, 0):
+            local = tokens - shd.offset(self.embedding, 0)
+            inside = (local >= 0) & (local < table.shape[0])
+            x = F.embedding(torch.where(inside, local, 0), table)
+            x = shd.reduce_from(x.masked_fill(~inside[..., None], 0))
+        else:
+            x = F.embedding(tokens, table)
+        x = x.to(compute_dtype(self.cfg))
         if self.cfg.emb_scale:
             x = x * math.sqrt(self.cfg.d_model)
-        return x
+        return shd.shard(x, "batch", None, "embed")
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        table = self.embedding if self.lm_head is None else self.lm_head
-        logits = x @ table.to(compute_dtype(self.cfg)).T
+        head = self.embedding if self.lm_head is None else self.lm_head
+        if shd.split(head, 0):
+            x = shd.copy_to(x)
+        logits = x @ shd.param(head).to(compute_dtype(self.cfg)).T
         if self.cfg.logits_softcap:
             c = self.cfg.logits_softcap
             logits = c * torch.tanh(logits / c)
-        return logits
+        return shd.shard(logits, "batch", None, "vocab",
+                         shape=(None, None, self.cfg.padded_vocab))

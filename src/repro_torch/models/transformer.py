@@ -35,6 +35,13 @@ each period) and, with ``return_aux``, returns the decoder's MoE
 load-balance losses summed (the JAX package's ``aux``).  Serving runs
 under ``torch.no_grad()`` (``serve.engine``) and is unchanged by it.
 
+Sharded training (``models.sharding``, ``launch.train --ranks``): on a
+mesh of ranks, ``init_lm(mesh=)`` gives each rank its blocks of the
+dense family's parameters (the same draw as the unsharded model), and
+with ``cfg.shard_acts`` the residual stream between blocks is each rank's
+block of d_model over ``model`` (the JAX package's ``act_embed``
+constraint at each period boundary), so the checkpoints keep blocks.
+
 Decode (one token a row against a cache) runs on a row-padded batch of
 ``rows`` rows (default ``decode_rows(B)``, a multiple of
 ``DECODE_ROW_TILE``), the rows after B zero-token padding.  Every
@@ -55,6 +62,8 @@ counts is not a contract for them.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -63,6 +72,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import sharding as shd
 from repro_torch.models import ssm
 from repro_torch.models.layers import (GLUMLP, Embedding, RMSNorm,
                                       default_mrope_sections, rope_tables,
@@ -209,10 +219,32 @@ def run_block(block: Block, x, remat: bool, **kw):
     (``torch.utils.checkpoint``, non-reentrant): its activations are not
     kept for the backward but computed again there, as the JAX package's
     ``jax.checkpoint`` of each period does in training.  The values are
-    the same either way."""
+    the same either way.  On a mesh (:func:`_sharded_block`) the block's
+    weights are gathered before the checkpoint, so its recomputation does
+    not gather them again."""
+    fn = block
+    if shd.active() is not None:
+        fn = functools.partial(_sharded_block, block,
+                               shd.gathered(block) if remat else None)
     if remat:
-        return checkpoint(block, x, use_reentrant=False, **kw)
-    return block(x, **kw)
+        return checkpoint(fn, x, use_reentrant=False, **kw)
+    return fn(x, **kw)
+
+
+def _sharded_block(block: Block, weights, x, **kw):
+    """``block`` on a mesh, with its weights already gathered (``weights``;
+    None: gathered as it runs).  With ``cfg.shard_acts``, ``x`` is this
+    rank's block of the residual stream's d_model, gathered whole here, and
+    the output is cut to the block again (``act_embed``, JAX
+    ``transformer.py:242, 269``): inside the checkpoint, so what it keeps
+    for the backward is the block."""
+    acts = block.cfg.shard_acts
+    with shd.using(weights):
+        if acts:
+            x = shd.gather(x, "batch", None, "act_embed",
+                           shape=(None, None, block.cfg.d_model))
+        x, aux = block(x, **kw)
+    return (shd.shard(x, "batch", None, "act_embed") if acts else x), aux
 
 
 def encoder_cfg(cfg):
@@ -331,6 +363,10 @@ class LM(nn.Module):
         ValueError."""
         cfg = self.cfg
         b, s = tokens.shape
+        if cache is not None and shd.active() is not None:
+            raise NotImplementedError(
+                "a sharded cache (prefill, decode) is not ported: the "
+                "sharded slice trains (ROADMAP.md queue 1 item 3)")
         if (cfg.is_encoder_decoder and enc_frames is None
                 and cache is None):
             raise ValueError(f"{cfg.name}: a forward without a cache needs "
@@ -380,6 +416,9 @@ class LM(nn.Module):
             if enc_frames is not None:
                 enc_out = self.encoder(enc_frames, remat=remat)
         aux_total = None
+        acts = cfg.shard_acts and shd.active() is not None
+        if acts:
+            x = shd.shard(x, "batch", None, "act_embed")
         for i, block in enumerate(self.layers):
             x, aux = run_block(
                 block, x, remat, positions=pos1d, rope=rope,
@@ -388,6 +427,9 @@ class LM(nn.Module):
                 lanes=lanes, enc_out=enc_out)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
+        if acts:
+            x = shd.gather(x, "batch", None, "act_embed",
+                           shape=(None, None, cfg.d_model))
         logits = self.embed.unembed(self.final_norm(x))
         if cache is not None:
             cache["index"] += s
@@ -433,16 +475,35 @@ def init_stack_cache(cfg, batch: int, t_max: int, *, cross_len: int = 0,
             "index": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
-def init_lm(cfg, seed: int = 0, device=None) -> LM:
+def init_lm(cfg, seed: int = 0, device=None, mesh=None) -> LM:
     """A model with weights drawn from ``seed`` on ``device`` (cuda
     unless asked for the CPU), one tensor at a time: no float32 copy of
     the whole model ever exists.  The same seed and device give the same
-    weights."""
-    model = LM(cfg, device)
+    weights.
+
+    With ``mesh`` (a ``models.sharding.Mesh`` of more than one rank) the
+    model is built on the meta device and each parameter is this rank's
+    block of its ``sharding.param_spec`` (``cfg.fsdp_params``,
+    ``cfg.embed_fsdp``) on ``device`` (default: the mesh's): every rank
+    draws each whole tensor in turn, in float32, and keeps its block, so
+    the blocks are the unsharded model's weights and no rank ever holds
+    more than one whole tensor.  Only the dense family is sharded
+    (``sharding.check_supported`` raises for the others)."""
+    if mesh is None or mesh.size == 1:
+        model = LM(cfg, device)
+    else:
+        shd.check_supported(cfg)
+        model = LM(cfg, "meta")
+        shd.place(model, mesh, fsdp=cfg.fsdp_params,
+                  embed_fsdp=cfg.embed_fsdp,
+                  device=mesh.device if device is None
+                  else resolve_device(device))
     model.reset_parameters(
         torch.Generator(device=model.device).manual_seed(seed))
     return model
 
 
 def count_params(model: LM) -> int:
-    return sum(p.numel() for p in model.parameters())
+    """Parameters of the whole model (a placed parameter counts its whole
+    shape)."""
+    return sum(math.prod(shd.full_shape(p)) for p in model.parameters())

@@ -22,6 +22,13 @@ time: no second copy of the model exists while it runs, only float32
 temporaries of the leaf being updated.  The step count, the learning rate
 and the clipping scale stay on the device, so a step reads nothing back
 to the host.
+
+On a mesh of ranks (``models.sharding``) each rank updates its blocks:
+the grad norm is the global one (each block counted by one rank, summed
+over the mesh), and the master and moments are the full-FSDP blocks
+(``state_spec``, as the JAX package's ``train_state_sharding`` keeps them
+even under ``fsdp_params=False``), from which a parameter that ZeRO-2
+keeps whole over ``data`` is gathered back.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+
+from repro_torch.models import sharding as shd
 
 
 class AdamWConfig(NamedTuple):
@@ -63,14 +72,14 @@ def init(params, cfg: AdamWConfig) -> OptState:
     float32 parameter's ``.float()`` would be the parameter itself."""
     params = named(params)
     sd = getattr(torch, cfg.state_dtype)
-    master = {n: p.detach().to(torch.float32, copy=True)
+    master = {n: shd.state_block(p.detach(), p).to(torch.float32, copy=True)
               for n, p in params.items()}
     device = next(iter(params.values())).device
     return OptState(master=master,
-                    m={n: torch.zeros_like(p, dtype=sd)
-                       for n, p in params.items()},
-                    v={n: torch.zeros_like(p, dtype=sd)
-                       for n, p in params.items()},
+                    m={n: torch.zeros_like(t, dtype=sd)
+                       for n, t in master.items()},
+                    v={n: torch.zeros_like(t, dtype=sd)
+                       for n, t in master.items()},
                     step=torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -79,11 +88,23 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return warm * cfg.lr
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, params=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each grad's float32 sum of squares,
-    added leaf after leaf as the JAX package's Python ``sum`` does."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads))
+    added leaf after leaf as the JAX package's Python ``sum`` does.  On a
+    mesh (``params``: the placed parameters, in the grads' order) each
+    rank adds the blocks it counts (``sharding.counts_once``) and the sum
+    is taken over the mesh."""
+    if shd.active() is None or params is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in grads))
+    total = None
+    for g, p in zip(grads, params):
+        if shd.counts_once(p):
+            sq = torch.sum(torch.square(g.float()))
+            total = sq if total is None else total + sq
+    if total is None:
+        total = torch.zeros((), device=next(iter(params)).device)
+    return torch.sqrt(shd.all_sum(total))
 
 
 @torch.no_grad()
@@ -95,7 +116,7 @@ def apply(grads, opt_state: OptState, params, cfg: AdamWConfig):
     params = named(params)
     grads = {n: (torch.zeros_like(p) if grads.get(n) is None
                  else grads[n]) for n, p in params.items()}
-    gnorm = global_norm(grads.values())
+    gnorm = global_norm(grads.values(), params.values())
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip > 0 else 1.0)
     step = opt_state.step + 1
@@ -103,7 +124,7 @@ def apply(grads, opt_state: OptState, params, cfg: AdamWConfig):
     b1c = 1.0 - torch.pow(cfg.b1, step.float())
     b2c = 1.0 - torch.pow(cfg.b2, step.float())
     for name, p in params.items():
-        g32 = grads[name].float() * scale
+        g32 = shd.state_block(grads[name], p).float() * scale
         m, v, master = opt_state.m[name], opt_state.v[name], \
             opt_state.master[name]
         # m.float() is m itself for float32 moments: updated in place
@@ -114,7 +135,8 @@ def apply(grads, opt_state: OptState, params, cfg: AdamWConfig):
         if m.dtype != torch.float32:
             m.copy_(m32)
             v.copy_(v32)
-        p.copy_(master)
+        p.copy_(master if master.shape == p.shape else
+                shd.param_from_state(master.to(p.dtype), p))
     new_state = OptState(master=opt_state.master, m=opt_state.m,
                          v=opt_state.v, step=step)
     return params, new_state, gnorm

@@ -22,12 +22,17 @@ into the host) around a region, and keeps
   that never reach the dispatcher on a CPU tensor (``tolist``,
   ``numpy``).  A Python read is recorded once, not again as the op it
   dispatches;
-* ``collectives`` -- one :class:`CollectiveRecord` a ``c10d`` op.  On
-  torch 2.13 the dispatcher sees every ``c10d`` collective of a gloo or
-  NCCL group (``c10d.allreduce_`` and the rest) with its tensors, but the
-  reduce op is an opaque script object there; the kind (``add`` /
-  ``max``) is read from the enclosing ``torch.distributed.all_reduce``
-  call, which the function mode sees.
+* ``collectives`` -- one :class:`CollectiveRecord` a ``c10d`` op or a
+  functional collective.  On torch 2.13 the dispatcher sees every
+  ``c10d`` collective of a gloo or NCCL group (``c10d.allreduce_`` and
+  the rest) with its tensors, but the reduce op is an opaque script
+  object there; the kind (``add`` / ``max``) is read from the enclosing
+  ``torch.distributed.all_reduce`` call, which the function mode sees.
+  DTensor's redistributions and ``torch.distributed._functional_
+  collectives`` dispatch ``_c10d_functional`` ops instead
+  (``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+  ...), which carry their reduce op as a string; they are recorded under
+  the same names (``wait_tensor``, which moves nothing, is not).
 
 The region runs for real: a trace is a record of one execution, not of a
 compiled program, so a data-dependent region shows the path its data took.
@@ -76,6 +81,21 @@ _COLLECTIVE_NAMES = {"allreduce_": "all-reduce", "allgather_": "all-gather",
                      "recv_": "recv", "barrier": "barrier",
                      "gather_": "gather", "scatter_": "scatter",
                      "reduce_": "reduce"}
+# the functional collectives (DTensor's), by their op names
+FUNCTIONAL_NAMESPACES = ("_c10d_functional", "c10d_functional")
+_FUNCTIONAL_NAMES = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "broadcast": "broadcast",
+    "broadcast_": "broadcast"}
+_FUNCTIONAL_KINDS = {"sum": "add", "max": "max", "min": "min",
+                     "product": "mul", "prod": "mul", "avg": "avg"}
 
 
 class OpRecord(NamedTuple):
@@ -199,12 +219,22 @@ class Trace:
     def _record(self, func, args, kwargs, out) -> None:
         name = _op_name(func)
         ins, outs = _tensors((args, kwargs)), _tensors(out)
+        base = func._schema.name.split("::")[-1]
         if func.namespace == "c10d":
-            base = func._schema.name.split("::")[-1]
             self.collectives.append(CollectiveRecord(
                 _COLLECTIVE_NAMES.get(base, base),
                 self._kind if base == "allreduce_" else "",
                 sum(t.numel() for t in ins), _nbytes(ins)))
+        elif (func.namespace in FUNCTIONAL_NAMESPACES
+              and base in _FUNCTIONAL_NAMES):
+            op = _FUNCTIONAL_NAMES[base]
+            kind = ""
+            if op in ("all-reduce", "reduce-scatter"):
+                red = next((a for a in args if isinstance(a, str)), "")
+                kind = _FUNCTIONAL_KINDS.get(red, red) \
+                    if op == "all-reduce" else ""
+            self.collectives.append(CollectiveRecord(
+                op, kind, sum(t.numel() for t in ins), _nbytes(ins)))
         self.ops.append(OpRecord(
             name, tuple(t.dtype for t in outs),
             tuple(tuple(t.shape) for t in outs),
