@@ -8,7 +8,7 @@ no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- sixteen paths, each driven with the launch counts reset
+  2. paths      -- seventeen paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -348,6 +348,19 @@ no CPU fallback):
           losses within 1e-5 (relative), the gathered final parameters
           within 1e-5 where step 1's grad is above 1e-3 of its leaf's
           max (no kernel).
+       q. sharded training of the DeepSeek-V2 family (MLA's heads and the
+          MoE's router logits and experts over ``model``, the routing
+          groups the whole batch's), after path p on its mesh.  q1:
+          deepseek-v2-lite-16b at its published widths, its depth cut
+          from 27 layers to 3 (1 dense, 2 MoE), B = 4, S = 1,024, 2 steps:
+          each rank's bytes equal to the dry-run's count, its expert
+          block (16, 1,024, 1,408), ms a step, peak memory, step 1's
+          collectives by kind, and the two losses within 1e-2 of the same
+          cut model trained unsharded on the card here (the same seed-0
+          weights and batches).  q2: ``launch.train``'s trainer on
+          reduced deepseek-v2-lite-16b and deepseek-v2-236b, 2 float32
+          steps each, replayed on the CPU as p2 (236b's bf16 moments
+          widen its parameters' tolerance by Q_BF16_SLACK; no kernel).
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -429,6 +442,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -1747,8 +1761,6 @@ def f_rank(world, data_path: str) -> dict:
     records its packed calls by shape and copies one step's arguments of
     each run (on the card during the run, to the host after it), which the
     parent holds against the plain versions."""
-    import contextlib
-
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1824,6 +1836,8 @@ def f_rank(world, data_path: str) -> dict:
     if pmesh is not None:
         out["p"] = p_rank(pmesh, str(Path(data_path).parent))
         marks.append(("path p", time.time()))
+        out["q"] = q_rank(pmesh, str(Path(data_path).parent))
+        marks.append(("path q", time.time()))
     out["marks"] = marks
     return out
 
@@ -1886,11 +1900,12 @@ def model_colls(k: int, nu: float, steps: int, chunks: int, d: int) -> dict:
 
 def collectives_path(torch, dist_fits, serve, rec: PathRecorder,
                      rec_g: PathRecorder) -> tuple:
-    """Paths f, g and p: the references on the card, NCCL at world size 1
-    here (path f's solves, then path g's service), then the spawned gloo
-    ranks (path f, then path g on ranks 0-1, then path p on ranks 0-7);
-    each path's counts reset just before it and read after, here and on
-    each rank, its calls here recorded by ``rec`` / ``rec_g``.  Returns
+    """Paths f, g, p and q: the references on the card, NCCL at world size
+    1 here (path f's solves, then path g's service), then the spawned gloo
+    ranks (path f, then path g on ranks 0-1, then paths p and q on ranks
+    0-7); each path's counts reset just before it and read after, here
+    and on each rank, its calls here recorded by ``rec`` / ``rec_g``.
+    Returns
     (the ranks' recorders, p1's result for path m)."""
     t_path = time.perf_counter()
     ranks, spawn_s, arrays, refs, counts = f_parent(torch, dist_fits, rec,
@@ -1916,12 +1931,13 @@ def collectives_path(torch, dist_fits, serve, rec: PathRecorder,
         g_recs.append(grec)
     g_check(torch, [ranks[r]["g"] for r in range(2)], refs["g"])
     p1 = p_check(torch, ranks, refs["p files"])
+    q_check(torch, ranks, refs["p files"])
     return [rank0] + g_recs, p1
 
 
 def f_parent(torch, dist_fits, rec, rec_g, serve):
     """Path f's data, its references on the card and the NCCL runs here,
-    path g's NCCL service, then the spawn (paths f, g and p); returns (the
+    path g's NCCL service, then the spawn (paths f, g, p and q); returns (the
     ranks' results, the spawn's seconds, the data, the references with
     path p's files, the launches here of paths f and g)."""
     import shutil
@@ -1979,7 +1995,7 @@ def f_parent(torch, dist_fits, rec, rec_g, serve):
                                       args=(str(tmp / "data.npz"),))
         spawn_s = time.perf_counter() - t0
         refs["p files"] = {f.stem: dict(np.load(f))
-                           for f in tmp.glob("p2 *.npz")}
+                           for f in tmp.glob("[pq]2 *.npz")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("path f in the parent: " + "; ".join(
@@ -2155,45 +2171,55 @@ P_REPLAY_ATOL = 1e-5        # p2's parameters, where step 1's grad is big
 P_LAYOUT = ("2x4", ("data", "model"), (2, 4))
 
 
-def p_rank(mesh, tmp: str) -> dict:
-    """Path p on one rank of its mesh (see P_RANKS)."""
-    import numpy as np
+def sharded_train(mesh, argv: list, steps: int) -> dict:
+    """``train_lm.Trainer(argv, mesh=)`` on this rank (None: unsharded) for
+    ``steps`` steps: its set-up seconds, bytes (and the dry-run's count
+    for its layout),
+    each step's loss and seconds, step 1's collectives (traced), peak
+    memory, its first MoE layer's expert block shape (None without one)
+    and, on rank 0 (every rank without a mesh), each MoE layer's dropped
+    choices of step 1 over the whole batch (``moe_drops``).  The trainer
+    is freed before it returns."""
     import torch
 
     from repro_torch.examples import train_lm
     from repro_torch.launch import specs
-    from repro_torch.launch import train as launch_train
-    from repro_torch.models import sharding as shd
     from repro_torch.utils import dispatch_trace
 
     def nbytes(tensors) -> int:
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    t_path = time.perf_counter()
-    out = {"rank": mesh.rank, "layout": tuple(mesh.layout),
-           "device_mesh": mesh.device_mesh is not None}
+    out = {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tr = train_lm.Trainer(train_lm.parse_args(M_TRAIN), mesh=mesh)
+    tr = train_lm.Trainer(train_lm.parse_args(argv), mesh=mesh)
     torch.cuda.synchronize()
     out["setup_s"] = time.perf_counter() - t0
     st = tr.state.opt_state
     out["bytes"] = {"params": nbytes(tr.state.model.parameters()),
                     "master": nbytes(st.master.values()),
                     "m": nbytes(st.m.values()), "v": nbytes(st.v.values())}
-    out["want"] = specs.train_state_bytes_per_device(tr.cfg, mesh.layout)
+    out["want"] = (None if mesh is None else
+                   specs.train_state_bytes_per_device(tr.cfg, mesh.layout))
+    experts = [b.mlp.expert_gate for b in tr.state.model.layers
+               if hasattr(b.mlp, "expert_gate")]
+    out["expert_block"] = tuple(experts[0].shape) if experts else None
     losses, secs = [], []
-    for i in range(P_STEPS):
+    for i in range(steps):
         batch = tr.batch()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if i == 0:            # step 1's collectives; step 2 runs untraced
+        if i == 0:            # step 1's collectives; the others untraced
             with dispatch_trace.Trace() as trace:
                 tr.state, m = tr.train_step(tr.state, batch)
                 losses.append(float(m["loss"]))
             stats = trace.collective_stats()
             out["collectives"] = {"count": stats.count_by_op,
                                   "bytes": stats.bytes_by_op}
+            drops = moe_drops(tr.state.model,
+                              tr.pipe.batch_size * tr.pipe.seq_len)
+            if mesh is None or mesh.rank == 0:
+                out["drops"] = drops
         else:
             tr.state, m = tr.train_step(tr.state, batch)
             losses.append(float(m["loss"]))
@@ -2202,31 +2228,78 @@ def p_rank(mesh, tmp: str) -> dict:
                peak=torch.cuda.max_memory_allocated())
     del tr, st, m
     torch.cuda.empty_cache()
-    out["p1_s"] = time.perf_counter() - t_path
-    for arch in P_REPLAY:
+    return out
+
+
+def moe_drops(model, tokens: int) -> list:
+    """Each MoE layer's dropped choices of its last forward (``MoE.dropped``)
+    over the whole batch of ``tokens`` tokens, as numpy (groups, tokens a
+    group x top-k): all-gathered over ``data`` where each rank routed its
+    own groups (a collective: every rank of the mesh calls it)."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models import sharding as shd
+
+    groups = moe.num_groups(tokens)
+    out = []
+    for block in model.layers:
+        if isinstance(block.mlp, moe.MoE):
+            d = block.mlp.dropped.to(torch.float32)
+            if d.shape[0] != groups:
+                d = shd.all_gather(d, "data", 0)
+            out.append(d.bool().cpu().numpy())
+    return out
+
+
+def sharded_replays(mesh, tmp: str, label: str, archs) -> dict:
+    """``launch.train``'s reduced trainer of each of ``archs`` on this
+    rank for P_STEPS steps: its losses by ``"{label} {arch}"``; rank 0
+    writes the whole starting and final weights to ``tmp`` for the
+    parent's replay."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import sharding as shd
+
+    out = {}
+    for arch in archs:
         tr = launch_train.make_trainer(launch_train.parse_args(
             ["--arch", arch, "--steps", str(P_STEPS)]), mesh)
         model = tr.state.model
         init = {n: shd.whole(p).cpu().numpy()
                 for n, p in model.named_parameters()}
-        out[f"p2 {arch}"] = tr.train(P_STEPS)["loss"]
+        out[f"{label} {arch}"] = tr.train(P_STEPS)["loss"]
         final = {n: shd.whole(p).cpu().numpy()
                  for n, p in model.named_parameters()}
         if mesh.rank == 0:
-            np.savez(Path(tmp) / f"p2 {arch} init.npz", **init)
-            np.savez(Path(tmp) / f"p2 {arch} final.npz", **final)
+            np.savez(Path(tmp) / f"{label} {arch} init.npz", **init)
+            np.savez(Path(tmp) / f"{label} {arch} final.npz", **final)
         del tr, model
     shd.set_mesh_axes(None)
     torch.cuda.empty_cache()
+    return out
+
+
+def p_rank(mesh, tmp: str) -> dict:
+    """Path p on one rank of its mesh (see P_RANKS)."""
+    t_path = time.perf_counter()
+    out = {"rank": mesh.rank, "layout": tuple(mesh.layout),
+           "device_mesh": mesh.device_mesh is not None}
+    out.update(sharded_train(mesh, M_TRAIN, P_STEPS))
+    out["p1_s"] = time.perf_counter() - t_path
+    out.update(sharded_replays(mesh, tmp, "p2", P_REPLAY))
     out["p_s"] = time.perf_counter() - t_path
     return out
 
 
-def p_replay(torch, arch: str, init: dict, final: dict, got: list, card
-             ) -> None:
-    """p2 on the CPU: ``launch.train``'s unsharded trainer from the card's
-    starting weights, its losses and final parameters against the
-    card's sharded run."""
+def p_replay(torch, arch: str, init: dict, final: dict, got: list, card,
+             label: str = "p2", param_atol: float = P_REPLAY_ATOL) -> None:
+    """p2 (or q2, ``label``) on the CPU: ``launch.train``'s unsharded
+    trainer from the card's starting weights, its losses (P_REPLAY_ATOL,
+    relative) and final parameters (``param_atol``) against the card's
+    sharded run."""
     import numpy as np
 
     from repro_torch.data.tokens import TokenPipeline
@@ -2255,47 +2328,60 @@ def p_replay(torch, arch: str, init: dict, final: dict, got: list, card
         diff = (torch.from_numpy(final[n]) - p.detach())[big]
         if diff.numel():
             perr = max(perr, float(diff.abs().max()))
-    print(f"p2 {arch} (reduced, float32, {P_STEPS} steps, sharded "
+    print(f"{label} {arch} (reduced, float32, {P_STEPS} steps, sharded "
           f"{P_LAYOUT[0]} on the card / unsharded on the CPU): losses "
           f"{got!r} / {ref!r} (largest relative difference {rel:.3e}, tol "
           f"{P_REPLAY_ATOL:g}); final parameters {perr:.3e} where step 1's "
-          f"|g| > 1e-3 of its leaf's max (tol {P_REPLAY_ATOL:g}) [{card}]")
-    require(rel <= P_REPLAY_ATOL and perr <= P_REPLAY_ATOL,
-            f"p2 {arch}: the sharded run on the card differs from the CPU's")
-    require(bool(np.isfinite(got).all()), f"p2 {arch}: a non-finite loss")
+          f"|g| > 1e-3 of its leaf's max (tol {param_atol:g}) [{card}]")
+    require(rel <= P_REPLAY_ATOL and perr <= param_atol,
+            f"{label} {arch}: the sharded run on the card differs from the "
+            "CPU's")
+    require(bool(np.isfinite(got).all()),
+            f"{label} {arch}: a non-finite loss")
+
+
+def check_sharded_train(label: str, rs: list, card: str) -> dict:
+    """The holds of a ``sharded_train`` run (p1, q1) that need nothing but
+    the ranks' results: each rank's bytes against the dry-run, its losses
+    and collectives equal to rank 0's; prints each rank's figures and
+    rank 0's collectives by kind.  Returns rank 0's result."""
+    from repro_torch.launch import mesh as meshlib
+
+    r0 = rs[0]
+    layout = meshlib.Layout(*P_LAYOUT)
+    for r in rs:
+        print(f"{label} rank {r['rank']}: bytes {r['bytes']} (dry-run "
+              f"{r['want']}); set up {r['setup_s']:.2f} s; steps "
+              f"{[round(s * 1e3, 1) for s in r['step_s']]} ms (step 1 "
+              f"traced); peak memory {r['peak'] / 1e9:.2f} GB [{card}]")
+        require(r["bytes"] == r["want"], f"{label} rank {r['rank']}: its "
+                f"bytes {r['bytes']} are not the dry-run's {r['want']} for "
+                f"{layout.name}")
+        require(r["losses"] == r0["losses"] and r["collectives"]["count"]
+                == r0["collectives"]["count"],
+                f"{label} rank {r['rank']}: its losses or collectives "
+                "differ from rank 0's")
+    colls = r0["collectives"]
+    print(f"{label} collectives of step 1 on rank 0 (dispatch_trace): "
+          + ", ".join(f"{k} {n} ({colls['bytes'][k] / 1e6:.1f} MB)"
+                      for k, n in sorted(colls["count"].items())))
+    require(sum(colls["count"].values()) > 0, f"{label}: no collective "
+            "counted")
+    return r0
 
 
 def p_check(torch, ranks, files: dict) -> dict:
     """Path p's holds that need nothing but the ranks' results: p1's bytes
     against the dry-run, its losses equal on every rank, its collectives;
     then p2's replays.  Returns p1's losses for path m's comparison."""
-    from repro_torch.launch import mesh as meshlib
-
     card = card_line()
     rs = [r["p"] for r in ranks[:P_RANKS]]
     r0 = rs[0]
     require(r0["layout"] == P_LAYOUT, f"p: layout {r0['layout']}")
-    layout = meshlib.Layout(*P_LAYOUT)
-    print(f"p: {layout.name} mesh of gloo ranks on the card, its DeviceMesh "
+    print(f"p: {P_LAYOUT[0]} mesh of gloo ranks on the card, its DeviceMesh "
           f"made on {sum(r['device_mesh'] for r in rs)} of {len(rs)} ranks "
           f"[{card}]")
-    for r in rs:
-        print(f"p1 rank {r['rank']}: bytes {r['bytes']} (dry-run "
-              f"{r['want']}); set up {r['setup_s']:.2f} s; steps "
-              f"{[round(s * 1e3, 1) for s in r['step_s']]} ms (step 1 "
-              f"traced); peak memory {r['peak'] / 1e9:.2f} GB [{card}]")
-        require(r["bytes"] == r["want"], f"p1 rank {r['rank']}: its bytes "
-                f"{r['bytes']} are not the dry-run's {r['want']} for "
-                f"{layout.name}")
-        require(r["losses"] == r0["losses"] and r["collectives"]["count"]
-                == r0["collectives"]["count"],
-                f"p1 rank {r['rank']}: its losses or collectives differ "
-                "from rank 0's")
-    colls = r0["collectives"]
-    print("p1 collectives of step 1 on rank 0 (dispatch_trace): "
-          + ", ".join(f"{k} {n} ({colls['bytes'][k] / 1e6:.1f} MB)"
-                      for k, n in sorted(colls["count"].items())))
-    require(sum(colls["count"].values()) > 0, "p1: no collective counted")
+    check_sharded_train("p1", rs, card)
     ms = max(r["step_s"][-1] for r in rs) * 1e3
     print(f"p1: losses {r0['losses']!r}; step 2 {ms:.1f} ms (the slowest "
           f"rank); p1 {max(r['p1_s'] for r in rs):.1f} s, path p "
@@ -2317,6 +2403,185 @@ def p_versus_m1(p1: dict, m1_losses: list) -> None:
           f"{m1_losses[:P_STEPS]!r} unsharded, largest gap {gap:.3e} (tol "
           f"{P_LOSS_ATOL:g})")
     require(gap <= P_LOSS_ATOL, "p1: the sharded losses differ from m1's")
+
+
+# ---------------------------------------------------------------- path q
+# Sharded training of the DeepSeek-V2 family (``models.sharding``: MLA's
+# heads, the MoE's router logits and experts over ``model``, the routing
+# groups the whole batch's) on path p's mesh, after path p in path f's
+# spawn (no start-up of its own).  q1 trains deepseek-v2-lite-16b at its
+# published widths (d_model 2,048, 64 experts top-6, 2 shared, MLA lora
+# 512, vocabulary 102,400) with its depth cut from 27 layers to 3 (1 dense,
+# 2 MoE) so that 8 ranks' state fits the one card, at m1's B = 4, S = 1,024
+# for 2 steps.  Its losses and each MoE layer's dropped choices of step 1
+# are held to the same cut model trained unsharded on the card by rank 0
+# after the others are done (same seed-0 weights and batches), and two
+# planted faults, each one step, must break that hold: every rank routing
+# its own 2 rows' tokens (32 groups of 64 at capacity 8, not of 128 at
+# 15), and every rank running its experts on the next rank's slots.  q2
+# replays launch.train's reduced runs of both DeepSeek-V2 configs on the
+# CPU here, as p2 does.  No kernel is on this path.
+Q_LAYERS = 3
+Q_TRAIN = ["--full", "--arch", "deepseek-v2-lite-16b", "--layers",
+           str(Q_LAYERS), "--batch", "4", "--seq", "1024"]
+Q_EXPERT_BLOCK = (16, 1024, 1408)  # 64 / 4 experts, 2,048 / 2 rows of D
+# q1 vs unsharded, bf16 sums in other orders: losses 3.2e-5 to 5.1e-4
+# apart and 107 / 222 of a layer's 24,576 choices dropped differently in
+# runs of this script on an H100 80GB HBM3 at 700 W (the planted faults:
+# losses 9.9e-4 / 5.6e-3 apart, drops over other groups / 2,512 differing)
+Q_LOSS_ATOL = 2e-3
+Q_DROP_DIFF = 1000
+Q_FAULTS = ("own rows' groups", "experts on the next rank's slots")
+Q_REPLAY = ("deepseek-v2-lite-16b", "deepseek-v2-236b")
+# 236b keeps m and v in bf16.  Step 1's update reads m and v before their
+# rounding; step 2's reads the rounded ones, so where the card and the CPU
+# round a grad's moment to neighbouring bf16 values (2^-8 apart, relative)
+# step 2's update moves by at most b1 x 2^-8 x |m1| / ((1 - b1^2)
+# sqrt(v-hat)) <= 0.9 x 2^-8 x 0.76 (m) plus 2^-9 x |update| <= 2^-9 x 1.01
+# (v), times step 2's learning rate (2 / 10 warm-up steps x 1e-3): 9.2e-7.
+# The losses (each before its step's update) do not see it.
+Q_BF16_SLACK = 2.0e-4 * (0.9 * 2.0 ** -8 * 0.76 + 2.0 ** -9 * 1.01)
+
+
+def q_rank(mesh, tmp: str) -> dict:
+    """Path q on one rank of path p's mesh (see Q_TRAIN), its kernel
+    launches counted from 0 (none expected); then, on rank 0 alone, q1's
+    model and batches unsharded (``sharded_train`` without a mesh: its
+    losses and step 1's drops), so that the parent's CUDA state before
+    the paths after f is what it was without path q."""
+    from repro_torch.kernels import ops
+
+    ops.launch_counts.clear()
+    t_path = time.perf_counter()
+    out = {"rank": mesh.rank, "layout": tuple(mesh.layout)}
+    out.update(sharded_train(mesh, Q_TRAIN, P_STEPS))
+    out["q1_s"] = time.perf_counter() - t_path
+    for fault in Q_FAULTS:
+        with q_planted(fault):
+            r = sharded_train(mesh, Q_TRAIN, 1)
+        out[fault] = {"losses": r["losses"], "drops": r.get("drops")}
+    out["faults_s"] = time.perf_counter() - t_path - out["q1_s"]
+    out.update(sharded_replays(mesh, tmp, "q2", Q_REPLAY))
+    out["q_s"] = time.perf_counter() - t_path
+    if mesh.rank == 0:
+        t0 = time.perf_counter()
+        out["twin"] = sharded_train(None, Q_TRAIN, P_STEPS)
+        out["twin"]["s"] = time.perf_counter() - t0
+    out["launches"] = dict(ops.launch_counts)
+    return out
+
+
+@contextlib.contextmanager
+def q_planted(fault: str):
+    """One of Q_FAULTS planted in the MoE while the block runs."""
+    from repro_torch.models import sharding as shd
+
+    name = "batch_layout" if fault == Q_FAULTS[0] else "offset"
+    right = getattr(shd, name)
+
+    def own_rows(rows, whole):
+        return rows, 0
+
+    def next_rank(p, dim):
+        full = getattr(p, "full_shape", p.shape)
+        if p.dim() == 3 and dim == 0 and p.shape[0] < full[0]:   # experts
+            return (right(p, dim) + p.shape[0]) % full[0]
+        return right(p, dim)
+
+    setattr(shd, name, own_rows if name == "batch_layout" else next_rank)
+    try:
+        yield
+    finally:
+        setattr(shd, name, right)
+
+
+def q_drops(sharded: list, twin: list) -> tuple:
+    """Step 1's dropped choices of each MoE layer, sharded against the
+    unsharded twin: whether every layer's are over the same (groups,
+    choices), and (dropped in each, choices that differ) a layer."""
+    require(len(sharded) == len(twin) >= 1, f"q1: {len(sharded)} / "
+            f"{len(twin)} MoE layers' drops")
+    same = all(a.shape == b.shape for a, b in zip(sharded, twin))
+    return same, [(int(a.sum()), int(b.sum()),
+                   int((a != b).sum()) if same else None)
+                  for a, b in zip(sharded, twin)]
+
+
+def q_holds(losses: list, drops: list, twin: dict) -> tuple:
+    """q1's hold against the twin: (whether it holds, the largest loss
+    gap, the drops' shapes agree, (dropped, dropped, differ) a layer)."""
+    gap = max(abs(a - b) for a, b in zip(losses, twin["losses"]))
+    same, layers = q_drops(drops, twin["drops"])
+    ok = (gap <= Q_LOSS_ATOL and same
+          and all(n <= Q_DROP_DIFF for *_, n in layers))
+    return ok, gap, same, layers
+
+
+def q_check(torch, ranks, files: dict) -> None:
+    """Path q's holds: q1's bytes against the dry-run, its expert blocks,
+    its losses equal on every rank and within Q_LOSS_ATOL of the unsharded
+    run (rank 0's twin), each MoE layer's drops of step 1 over the same
+    (groups, choices) as the twin's and differing in at most Q_DROP_DIFF
+    of them, each planted fault refused by that hold; q2's replays on the
+    CPU."""
+    import numpy as np
+
+    card = card_line()
+    t0 = time.perf_counter()
+    rs = [r["q"] for r in ranks[:P_RANKS]]
+    r0 = rs[0]
+    require(r0["layout"] == P_LAYOUT, f"q: layout {r0['layout']}")
+    check_sharded_train("q1", rs, card)
+    for r in rs:
+        require(r["expert_block"] == Q_EXPERT_BLOCK,
+                f"q1 rank {r['rank']}: expert block {r['expert_block']}, "
+                f"not {Q_EXPERT_BLOCK}")
+        require(not r["launches"], f"q rank {r['rank']}: kernel launches "
+                f"{r['launches']} on the LM path")
+    ms = [round(max(r["step_s"][i] for r in rs) * 1e3, 1)
+          for i in range(P_STEPS)]
+    print(f"q1: expert block {r0['expert_block']} a rank; losses "
+          f"{r0['losses']!r}; ms a step {ms} (the slowest rank, step 1 "
+          f"traced); peak memory {max(r['peak'] for r in rs) / 1e9:.2f} GB "
+          f"(the largest rank); q1 {max(r['q1_s'] for r in rs):.1f} s, "
+          f"path q {max(r['q_s'] for r in rs):.1f} s on the ranks; launches "
+          f"on the ranks {[r['launches'] for r in rs]} [{card}]")
+    require(bool(np.isfinite(r0["losses"]).all()), "q1: a non-finite loss")
+    twin = r0["twin"]
+    print(f"q1 unsharded on the card (rank 0): {Q_TRAIN}, "
+          f"{sum(twin['bytes'].values()):,} B of parameters and AdamW "
+          f"state; losses {twin['losses']!r}; steps "
+          f"{[round(x * 1e3, 1) for x in twin['step_s']]} ms; peak memory "
+          f"{twin['peak'] / 1e9:.2f} GB; {twin['s']:.1f} s [{card}]")
+    ok, gap, _, drops = q_holds(r0["losses"], r0["drops"], twin)
+    print(f"q1 vs unsharded: losses {r0['losses']!r} sharded / "
+          f"{twin['losses']!r} unsharded, largest gap {gap:.3e} (tol "
+          f"{Q_LOSS_ATOL:g}); step 1's drops a MoE layer over "
+          f"{r0['drops'][0].shape} (groups, choices): "
+          + "; ".join(f"{a} sharded, {b} unsharded, {n} differ"
+                      for a, b, n in drops)
+          + f" (tol {Q_DROP_DIFF})")
+    require(ok, "q1: the sharded run's losses or drops differ from the "
+            "unsharded run's")
+    for fault in Q_FAULTS:
+        f = r0[fault]
+        ok, gap, same, drops = q_holds(f["losses"], f["drops"], twin)
+        print(f"q1 planted fault, {fault} (step 1): loss gap {gap:.3e}; "
+              f"drops over {[d.shape for d in f['drops']]}, differing "
+              f"{[n for *_, n in drops]}: the hold "
+              f"{'passes' if ok else 'fails'}")
+        require(not ok, f"q1: the planted fault ({fault}) passes q1's hold")
+    print(f"q1 planted faults: {max(r['faults_s'] for r in rs):.1f} s on "
+          "the ranks")
+    for arch in Q_REPLAY:
+        got = r0[f"q2 {arch}"]
+        require(all(r[f"q2 {arch}"] == got for r in rs),
+                f"q2 {arch}: the ranks' losses differ")
+        slack = Q_BF16_SLACK if arch == "deepseek-v2-236b" else 0.0
+        p_replay(torch, arch, files[f"q2 {arch} init"],
+                 files[f"q2 {arch} final"], got, card, label="q2",
+                 param_atol=P_REPLAY_ATOL + slack)
+    print(f"path q in the parent: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------- path g
@@ -4589,9 +4854,6 @@ N_NAN_FWHT = (195, 65_536)                  # n, d
 
 def n_lint(torch) -> None:
     """n1: the lint's serial targets on the card, zero findings."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
     from repro_torch.analysis import lint
 
     t0 = time.perf_counter()
@@ -4629,12 +4891,26 @@ def n_lint(torch) -> None:
         require(rec.get("calls_per_unit", {}) == want,
                 f"n1 {t.name}: packed launches a unit "
                 f"{rec.get('calls_per_unit')}, want {want}")
-    # one profiled chunk: the device's own launches of the packed kernels,
-    # after a warm-up cycle of the profiler (a first cycle can miss the
-    # kernels launched while device tracing starts)
-    target = targets[0]
+    kernels = n_profiled_chunk(torch, targets[0])
+    print(f"n1 profiled chunk of {targets[0].name}, {N_PROFILED} steps: "
+          f"device launches {dict(kernels)}")
+    require(kernels == Counter({name: N_PROFILED for name in PACKED}),
+            "n1: want 2 packed device launches a step")
+
+
+def n_profiled_chunk(torch, target) -> Counter:
+    """The device's own launches of the packed kernels in one profiled
+    chunk of ``target`` (N_PROFILED steps), after a warm-up cycle of the
+    profiler.  A session that is not a process's first can lose the device
+    events of its first milliseconds (``Timer.device_ms``): so each cycle
+    first keeps the device busy for ~50 ms with fills of a flush buffer,
+    and only then runs the chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
     ctx = target.setup(torch.device("cuda"), None)
     target.run(ctx, target.init(ctx), N_PROFILED)
+    flush = torch.empty(128 << 20, dtype=torch.float32, device="cuda")
     torch.cuda.synchronize()
     traced = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -4642,9 +4918,13 @@ def n_lint(torch) -> None:
                  on_trace_ready=lambda p: traced.append(p.key_averages())
                  ) as prof:
         for _ in range(2):
+            for _ in range(300):
+                flush.zero_()
+            torch.cuda.synchronize()
             target.run(ctx, target.init(ctx), N_PROFILED)
             torch.cuda.synchronize()
             prof.step()
+    del flush
     require(len(traced) == 1, "n1: the profiler gave no active cycle")
     kernels = Counter()
     for ev in traced[0]:
@@ -4652,10 +4932,7 @@ def n_lint(torch) -> None:
             for name in PACKED:
                 if name + "_kernel" in ev.key:
                     kernels[name] += ev.count
-    print(f"n1 profiled chunk of {target.name}, {N_PROFILED} steps: device "
-          f"launches {dict(kernels)}")
-    require(kernels == Counter({name: N_PROFILED for name in PACKED}),
-            "n1: want 2 packed device launches a step")
+    return kernels
 
 
 def n_nan_check(torch, name, fn, plain, real, label) -> None:
@@ -6169,7 +6446,7 @@ def main() -> int:
     lap("e")
     f_recs, p1 = collectives_path(torch, dist_fits, serve, recs[5], recs[6])
     recs += f_recs
-    lap("f, g and p")
+    lap("f, g, p and q")
     recs.append(PathRecorder("h"))
     baselines_path(torch, recs[-1], dist_fits)
     lap("h")

@@ -7,6 +7,8 @@ synthetic token pipeline with AdamW.
         --steps 200 --batch 8 --seq 64 [--device cpu]
     PYTHONPATH=src python -m repro_torch.examples.train_lm --full \\
         --arch h2o-danube-1.8b --batch 4 --seq 1024 --steps 8
+    PYTHONPATH=src python -m repro_torch.examples.train_lm --full \\
+        --arch deepseek-v2-lite-16b --layers 3 --batch 4 --seq 1024 --steps 2
 
 It runs on the card unless ``--device cpu`` is given.  A vision-language
 config trains with zero patch embeddings under a false mask and equal
@@ -17,6 +19,7 @@ script does.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -38,6 +41,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--full", action="store_true",
                     help="full (unreduced) config -- on the card")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                    "config's)")
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap.parse_args(argv)
@@ -49,8 +55,9 @@ def _line(i: int, out: dict, secs: float) -> str:
 
 
 class Trainer:
-    """What the script trains: the config, AdamW's settings (the JAX
-    script's: ``warmup_steps=20``, the config's state dtype), the model
+    """What the script trains: the config (its depth cut to ``--layers``
+    where given), AdamW's settings (the JAX script's: ``warmup_steps=20``,
+    the config's state dtype), the model
     and its optimizer state from seed 0, and the token pipeline (seed 0).
     ``warmup_steps`` overrides the script's 20 (``launch.train`` passes
     the JAX launcher's 10).
@@ -59,12 +66,16 @@ class Trainer:
     JAX launcher installs its mesh) the model and its AdamW state are this
     rank's blocks of the same seed-0 draw (``tf.init_lm(mesh=)``), and
     every rank draws the same pipeline batch and keeps its own ``data``
-    rows (``sharding.batch_rows``).  Without one nothing changes."""
+    rows (``sharding.batch_rows``), with the whole batch's row count
+    (``batch_size``).  Without one nothing changes."""
 
     def __init__(self, args: argparse.Namespace, device=None, *,
                  warmup_steps: int = 20, mesh=None):
         cfg = get_config(args.arch)
-        self.cfg = cfg if args.full else cfg.reduced()
+        cfg = cfg if args.full else cfg.reduced()
+        if getattr(args, "layers", 0):
+            cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        self.cfg = cfg
         self.ocfg = opt.AdamWConfig(
             lr=args.lr, warmup_steps=warmup_steps,
             state_dtype=self.cfg.optimizer_state_dtype)
@@ -89,6 +100,7 @@ class Trainer:
                "targets": torch.as_tensor(nb.targets, device=dev)}
         if self.mesh is not None:
             out = {k: shd.batch_rows(v) for k, v in out.items()}
+            out["batch_size"] = b
         if self.cfg.vision_embeds:
             out["vision_embeds"] = torch.zeros((b, s, d), device=dev)
             out["vision_mask"] = torch.zeros((b, s), dtype=torch.bool,

@@ -5,6 +5,8 @@ of ranks laid out (data, model), the counterpart of ``repro.launch.train``.
         --steps 20 --batch 8 --seq 64 [--full] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --ranks 8 \\
         --backend gloo --device cpu --arch h2o-danube-1.8b --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --ranks 8 \\
+        --backend gloo --device cpu --arch deepseek-v2-lite-16b --steps 3
 
 The JAX launcher jits the step over ``make_test_mesh()``, a mesh of every
 local device laid out ``(n // model, model)`` over ``("data", "model")``
@@ -16,8 +18,10 @@ k`` processes (``launch.mesh.spawn_clients``, the ``--backend`` the
 caller names: gloo, or NCCL with one card a rank; nothing falls back from
 one to the other): each rank joins ``launch.mesh.make_test_mesh`` and
 trains its blocks (``models.sharding``).  At ``--ranks 1`` (the default)
-it is one process with no mesh, as a one-device mesh is.  Only the dense
-family shards; the others raise NotImplementedError at k > 1.
+it is one process with no mesh, as a one-device mesh is.  The dense
+family and the DeepSeek-V2 family (MLA attention, MoE experts: ``--arch
+deepseek-v2-lite-16b`` or ``deepseek-v2-236b``) shard; the recurrent,
+whisper and qwen2-vl families raise NotImplementedError at k > 1.
 
 It trains what the JAX launcher trains: the config, reduced unless
 ``--full``; AdamW at lr 1e-3 with the launcher's 10 warm-up steps and the

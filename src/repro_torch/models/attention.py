@@ -377,7 +377,7 @@ class MLAttention(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         cfg = self.cfg
         d, lora = cfg.d_model, cfg.mla_kv_lora
-        h, vd = self.wo.shape[:2]
+        h, vd = shd.full_shape(self.wo)[:2]
         normal_(self.wkv_a, 1.0 / math.sqrt(d), generator)
         normal_(self.wkv_b_k, 1.0 / math.sqrt(lora), generator)
         normal_(self.wkv_b_v, 1.0 / math.sqrt(lora), generator)
@@ -388,14 +388,17 @@ class MLAttention(nn.Module):
         else:
             normal_(self.wq, 1.0 / math.sqrt(d), generator)
 
-    def _query(self, x):
-        """``_mla_q``: (B, S, H, nope + rope)."""
+    def _query(self, x, heads_split: bool = False):
+        """``_mla_q``: (B, S, H, nope + rope), this rank's heads where they
+        split (the head-split product's input through ``copy_to``)."""
         b, s, _ = x.shape
         if self.cfg.mla_q_lora:
-            x = self.q_norm(matmul(x, self.wq_a))
-            w = self.wq_b
+            x = self.q_norm(matmul(x, shd.param(self.wq_a)))
+            w = shd.param(self.wq_b)
         else:
-            w = self.wq
+            w = shd.param(self.wq)
+        if heads_split:
+            x = shd.copy_to(x)
         return matmul(x, w.reshape(w.shape[0], -1)).reshape(
             b, s, w.shape[1], w.shape[2])
 
@@ -408,24 +411,40 @@ class MLAttention(nn.Module):
         decompressed from the latent and exact causal attention at scale
         1/sqrt(nope + rope); a decode (S == 1) runs the ABSORBED path,
         q_nope through ``wkv_b_k`` once, then scores and context directly
-        against the compressed cache."""
+        against the compressed cache.
+
+        On a mesh (``models.sharding``; training only) the heads split
+        over ``model``: the latent ``c_kv``, ``k_rope`` and q-lora's ``cq``
+        are computed whole on every rank (their weights whole over
+        ``model``), enter the head-split products through ``copy_to``, and
+        the ranks' output projections are summed (``reduce_from``)."""
         cfg = self.cfg
         b, s, _ = x.shape
+        if cache is not None and shd.active() is not None:
+            raise NotImplementedError(
+                "a sharded cache (prefill, decode) is not ported: the "
+                "sharded slice trains (ROADMAP.md queue 1 item 3)")
         nope, lora = cfg.head_dim, cfg.mla_kv_lora
-        q = self._query(x)
+        heads_split = shd.split(self.wkv_b_k, 1)
+        q = self._query(x, heads_split)
         q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], *rope)
-        ckv = matmul(x, self.wkv_a)                         # (B, S, lora+rope)
+        ckv = matmul(x, shd.param(self.wkv_a))              # (B, S, lora+rope)
         c_kv = self.kv_norm(ckv[..., :lora])
         k_rope = apply_rope(ckv[..., None, lora:], *rope)[:, :, 0]
         scale = 1.0 / math.sqrt(nope + cfg.mla_rope_dim)
-        h, vd, d = self.wo.shape
+        wo = shd.param(self.wo)
+        h, vd, d = wo.shape
         if cache is None or s > 1:
-            k_nope = matmul(c_kv, self.wkv_b_k.reshape(lora, -1)).reshape(
-                b, s, h, nope)
-            v = matmul(c_kv, self.wkv_b_v.reshape(lora, -1)).reshape(
-                b, s, h, vd)
-            k = torch.cat([k_nope, k_rope[:, :, None].expand(
-                b, s, h, k_rope.shape[-1])], dim=-1)
+            c_in, kr_in = c_kv, k_rope
+            if heads_split:   # one all-reduce of both grads
+                lat = shd.copy_to(torch.cat([c_kv, k_rope], dim=-1))
+                c_in, kr_in = lat[..., :lora], lat[..., lora:]
+            k_nope = matmul(c_in, shd.param(self.wkv_b_k).reshape(
+                lora, -1)).reshape(b, s, h, nope)
+            v = matmul(c_in, shd.param(self.wkv_b_v).reshape(
+                lora, -1)).reshape(b, s, h, vd)
+            k = torch.cat([k_nope, kr_in[:, :, None].expand(
+                b, s, h, kr_in.shape[-1])], dim=-1)
             q_pos = positions[0]
             out = dot_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
                                 q_pos, q_pos, causal=True, window=0)
@@ -454,8 +473,11 @@ class MLAttention(nn.Module):
                 scale, c_kv.dtype).transpose(0, 1)
             out = matmul(ctx, self.wkv_b_v.transpose(0, 1)).transpose(
                 0, 1)[:, None]                              # (B, 1, H, vd)
-        return matmul(out.reshape(b * s, h * vd),
-                      self.wo.reshape(h * vd, d)).reshape(b, s, d)
+        out = shd.shard(out, "batch", None, "heads", None,
+                        shape=(None, None, cfg.num_heads, None))
+        out = matmul(out.reshape(b * s, h * vd),
+                     wo.reshape(h * vd, d)).reshape(b, s, d)
+        return shd.reduce_from(out) if heads_split else out
 
 
 def absorbed_attention(q_abs, q_rope, cache, valid, scale: float,

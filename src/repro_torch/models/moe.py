@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import GLUMLP, empty_param, matmul, normal_
 
 GROUP_TARGET = 32
@@ -112,51 +113,115 @@ class MoE(nn.Module):
         if self.shared is not None:
             self.shared.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, groups: int | None = None):
+    def forward(self, x: torch.Tensor, groups: int | None = None,
+                batch_size: int | None = None):
         """x: (B, S, D) -> (out (B, S, D), aux).  ``groups``: the number of
         routing groups (default ``num_groups(B * S)``, the JAX package's;
-        decode passes the row count)."""
+        decode passes the row count).
+
+        On a mesh (``models.sharding``) ``x`` is this rank's rows
+        (``sharding.batch_rows``) of a batch of ``batch_size`` rows, which
+        is required there, and the groups are the whole batch's, as GSPMD
+        keeps them: a rank routes its own groups where ``data`` divides
+        them, else every rank routes all of them (its rows all-gathered
+        over ``data``) and keeps its rows' outputs.  The router's logits are
+        all-gathered over ``model`` where its experts split, so the
+        softmax, ``top_k`` and the dispatch are whole and the same on
+        every rank; each rank runs its own experts (or, where the experts
+        do not divide ``model``, its hidden units of all of them) on its
+        slots, and the ranks' partial sums are added by ``reduce_from``.
+        The aux's sums over the tokens are added over ``data`` before its
+        product."""
         b, s, d = x.shape
-        e, k = self.cfg.moe_num_experts, self.cfg.moe_top_k
-        n = b * s
+        cfg = self.cfg
+        e, k = cfg.moe_num_experts, cfg.moe_top_k
+        rows, first = shd.batch_layout(b, batch_size)
+        n = rows * s
         g = num_groups(n) if groups is None else groups
         ng = n // g
-        cap = capacity(ng, self.cfg)
-        xf = x.reshape(g, ng, d)
+        cap = capacity(ng, cfg)
+        # experts (or their hidden units) and router split over model
+        esplit = shd.split(self.expert_gate, 0) or shd.split(
+            self.expert_gate, 2)
+        rsplit = shd.split(self.router, 1)
+        x_in = shd.copy_to(x) if esplit else x
+        # the groups straddle the data ranks' rows: route every row
+        gather = rows > b and g % (rows // b) != 0
 
-        probs = torch.softmax(xf.float() @ self.router, dim=-1)  # (G,Ng,E)
+        def routed(t):        # (G or this rank's G, Ng, D)
+            if gather:
+                t = shd.all_gather(t, "data", 0)
+            return t.reshape(-1, ng, d)
+
+        xr = routed(x_in if rsplit else x)
+        xe = xr if rsplit == esplit else routed(x_in)
+        gl = xr.shape[0]
+
+        logits = xr.float() @ shd.param(self.router)
+        if rsplit:
+            logits = shd.all_gather(logits, "model", -1)
+        probs = torch.softmax(logits, dim=-1)                  # (G,Ng,E)
         top_w, top_e = top_k(probs, k)
         top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
-        slot = dispatch(top_e.reshape(g, ng * k), e, cap)
-        # load-balance aux (Switch): E * sum_e fraction_e * prob_e
-        me = probs.mean(dim=(0, 1))
-        ce = _one_hot_sum(top_e, e, 2).float().mean(dim=(0, 1)) / k
-        aux = e * (me * ce).sum()
+        if esplit:            # its grad is a partial sum on each rank
+            top_w = shd.copy_to(top_w)
+        slot = dispatch(top_e.reshape(gl, ng * k), e, cap)
+        self.dropped = (slot == e * cap).detach()
+        aux = self._aux(probs, top_e, n,
+                        shd.batch_ways() if rows == b else 1,
+                        first * s if gather else None, b * s)
 
         # each slot's token; a slot no choice fills takes token 0 and
         # weight 0, as in the JAX package (its output is never added)
-        tok = torch.zeros((g, e * cap + 1), dtype=torch.long,
+        tok = torch.zeros((gl, e * cap + 1), dtype=torch.long,
                           device=x.device)
         tok.scatter_(-1, slot, torch.arange(ng * k, device=x.device)
-                     .div(k, rounding_mode="floor").expand(g, -1))
-        xs = xf.gather(1, tok[:, :-1, None].expand(-1, -1, d))
-        xs = xs.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
-        h = F.silu(matmul(xs, self.expert_gate)) * matmul(xs,
-                                                          self.expert_up)
-        ys = matmul(h, self.expert_down)                        # (E, G*C, D)
-        ys = ys.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
-        ys = torch.cat([ys, ys.new_zeros((g, 1, d))], dim=1)    # dummy slot
+                     .div(k, rounding_mode="floor").expand(gl, -1))
+        gate = shd.param(self.expert_gate)
+        ne, lo = gate.shape[0], shd.offset(self.expert_gate, 0) * cap
+        xs = xe.gather(1, tok[:, lo:lo + ne * cap, None].expand(-1, -1, d))
+        xs = xs.reshape(gl, ne, cap, d).transpose(0, 1).reshape(
+            ne, gl * cap, d)
+        h = F.silu(matmul(xs, gate)) * matmul(
+            xs, shd.param(self.expert_up))
+        ys = matmul(h, shd.param(self.expert_down))           # (E, G*C, D)
+        ys = ys.reshape(ne, gl, cap, d).transpose(0, 1).reshape(
+            gl, ne * cap, d)
+        ys = torch.cat([ys, ys.new_zeros((gl, 1, d))], dim=1)  # dummy slot
 
         # combine: each token's contributions in slot order, one add at a
-        # time (a dropped choice adds the dummy slot's zeros)
-        slot, perm = slot.reshape(g, ng, k).sort(dim=-1)
-        w = top_w.reshape(g, ng, k).gather(-1, perm).to(x.dtype)
-        contrib = ys.gather(1, slot.reshape(g, ng * k, 1).expand(-1, -1, d))
-        contrib = contrib.reshape(g, ng, k, d) * w[..., None]
-        out = torch.zeros((g, ng, d), dtype=contrib.dtype, device=x.device)
+        # time (a dropped choice, or another rank's expert, adds the dummy
+        # slot's zeros)
+        slot, perm = slot.reshape(gl, ng, k).sort(dim=-1)
+        if ne != e:
+            slot = torch.where((slot >= lo) & (slot < lo + ne * cap),
+                               slot - lo, ne * cap)
+        w = top_w.reshape(gl, ng, k).gather(-1, perm).to(x.dtype)
+        contrib = ys.gather(1, slot.reshape(gl, ng * k, 1).expand(-1, -1, d))
+        contrib = contrib.reshape(gl, ng, k, d) * w[..., None]
+        out = torch.zeros((gl, ng, d), dtype=contrib.dtype, device=x.device)
         for j in range(k):
             out = out + contrib[:, :, j]
-        out = out.reshape(b, s, d)
+        out = (out.reshape(rows, s, d).narrow(0, first, b) if gather
+               else out.reshape(b, s, d))
+        out = shd.reduce_from(out) if esplit else out
         if self.shared is not None:
             out = out + self.shared(x)
         return out, aux
+
+    @staticmethod
+    def _aux(probs, top_e, n: int, repeat: int, own: int | None,
+             count: int):
+        """The load-balance aux (Switch): E * sum_e fraction_e * prob_e,
+        the means over the whole batch's ``n`` tokens.  On a mesh the
+        sums of this rank's tokens (``count`` from token ``own`` of the
+        routed ones, or all of them), over ``repeat`` where every data
+        rank holds them, are added over ``data`` first."""
+        e, k = probs.shape[-1], top_e.shape[-1]
+        counts = _one_hot_sum(top_e, e, 2).float()
+        parts = [t.reshape(-1, e) for t in (probs, counts)]
+        if own is not None:
+            parts = [t.narrow(0, own, count) for t in parts]
+        sums = torch.stack([t.sum(0) for t in parts]) / repeat
+        me, ce = shd.reduce_from(sums, "data") / n
+        return e * (me * (ce / k)).sum()

@@ -16,7 +16,7 @@ for bit.
 Physical axes:
   pod    -- slowest axis, across pods (multi-pod layouts only)
   data   -- batch / FSDP axis
-  model  -- tensor / vocab-parallel axis
+  model  -- tensor / vocab / expert-parallel axis
 
 GSPMD turns the JAX package's constraints into collectives; eager PyTorch
 has no partitioner, so the port runs the same layouts explicitly,
@@ -61,10 +61,22 @@ weights are gathered once, before the checkpoint (:func:`gathered`,
 again: the gathered blocks of every layer live until that layer's
 backward (twice the parameters' local bytes at most).
 
-Scope: the dense decoder family (GQA attention, GLU MLPs, no experts, no
-MLA, no recurrent mixer, no encoder).  Given a mesh of more than one
-rank, :func:`check_supported` raises ``NotImplementedError`` for any other
-block: those would otherwise run replicated, unlike the JAX package.
+The MoE (``models.moe``) keeps JAX's GSPMD layout: its routing groups
+are the global batch's (:func:`batch_layout` says which rows this rank
+holds, from the whole batch's row count that the caller passes to
+``LM.forward(batch_size=)``; where ``data`` does not divide the groups,
+:func:`all_gather` brings every row), the router's logits are
+all-gathered over ``model`` and its experts (or, where they do not divide
+``model``, their hidden units) run on their own ranks, whose partial sums
+:func:`reduce_from` adds.  MLA
+(``models.attention.MLAttention``) splits its heads over ``model`` and
+computes its latent whole on every rank.
+
+Scope: the decoder families with GQA or MLA attention and GLU or MoE MLPs
+(no recurrent mixer, no encoder, no vision inputs).  Given a mesh of more
+than one rank, :func:`check_supported` raises ``NotImplementedError`` for
+any other block: those would otherwise run replicated, unlike the JAX
+package.
 """
 
 from __future__ import annotations
@@ -301,15 +313,15 @@ def _block(shape, spec, layout, coords) -> tuple:
 
 
 def check_supported(cfg) -> None:
-    """Raise NotImplementedError for a config outside the sharded dense
-    family (GQA attention and GLU MLPs only)."""
+    """Raise NotImplementedError for a config outside the sharded families
+    (GQA or MLA attention, GLU or MoE MLPs)."""
     from repro_torch.models.transformer import layer_kinds
 
     outside = []
-    if cfg.attention_kind != "gqa":
+    if cfg.attention_kind not in ("gqa", "mla"):
         outside.append(f"{cfg.attention_kind} attention")
-    if cfg.mlp_kind not in ("swiglu", "geglu") or cfg.moe_num_experts:
-        outside.append("MoE experts and router")
+    if cfg.mlp_kind not in ("swiglu", "geglu", "moe"):
+        outside.append(f"{cfg.mlp_kind} MLPs")
     kinds = set(layer_kinds(cfg)) - {"attn"}
     if kinds:
         outside.append(f"{sorted(kinds)} blocks")
@@ -320,8 +332,8 @@ def check_supported(cfg) -> None:
     if outside:
         raise NotImplementedError(
             f"{cfg.name}: sharding {', '.join(outside)} over a mesh is not "
-            "ported (ROADMAP.md queue 1 item 3: the sharding of the MoE, MLA, "
-            "SSM, whisper and qwen2-vl families)")
+            "ported (ROADMAP.md queue 1 item 3: the sharding of the SSM, "
+            "whisper and qwen2-vl families)")
 
 
 def _owner(module: torch.nn.Module, name: str):
@@ -510,6 +522,17 @@ def _group(mesh: Mesh, axis: str):
     return mesh.groups[axis]
 
 
+def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """The blocks of ``x`` of the ranks of ``axis`` concatenated along
+    ``dim`` in rank order; the backward keeps this rank's block of the
+    grad, so what follows must be the same on every rank of ``axis`` and
+    leave its grad so.  The identity without a mesh."""
+    mesh = active()
+    if mesh is None or mesh.layout.axis_sizes.get(axis, 1) == 1:
+        return x
+    return _Gather.apply(x, _group(mesh, axis), dim % x.dim())
+
+
 def copy_to(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     """``x`` into a layer split over ``axis`` (identity forward, the
     grad all-reduced over ``axis``); the identity without a mesh."""
@@ -649,16 +672,44 @@ def batch_ways() -> int:
     return n
 
 
+def _batch_block(rows: int) -> slice:
+    """This rank's rows of a whole batch of ``rows``: a block of the
+    ``batch`` axes where they divide it, else every row."""
+    mesh = active()
+    spec = spec_for(["batch"], (rows,), mesh.layout)
+    return _block((rows,), spec, mesh.layout, mesh.coords)[0]
+
+
 def batch_rows(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """This rank's rows of a whole batch (dim ``dim``): a block of the
     ``batch`` axes where they divide it, else every row (the identity
     without a mesh)."""
-    mesh = active()
-    if mesh is None:
+    if active() is None:
         return t
-    spec = spec_for(["batch"], (t.shape[dim],), mesh.layout)
-    block = _block((t.shape[dim],), spec, mesh.layout, mesh.coords)[0]
+    block = _batch_block(t.shape[dim])
     return t.narrow(dim, block.start, block.stop - block.start)
+
+
+def batch_layout(rows: int, whole: int | None) -> tuple[int, int]:
+    """(the whole batch's rows, this rank's first row) where this rank
+    holds ``rows`` rows, cut by :func:`batch_rows`, of a batch of
+    ``whole``.  ``(rows, 0)`` without a mesh.  On one, ``whole`` is
+    required, since the rows a rank holds do not tell a split batch from
+    a repeated one (1 row of 2 on a 2-way ``data`` axis, or the whole of a
+    1-row batch); a ``whole`` of which :func:`batch_rows` would not give
+    ``rows`` rows raises ValueError."""
+    if active() is None:
+        return rows, 0
+    if whole is None:
+        raise ValueError("on a mesh the whole batch's row count is needed "
+                         "(batch_size=): a rank's rows do not tell a split "
+                         "batch from a repeated one")
+    block = _batch_block(whole)
+    if block.stop - block.start != rows:
+        raise ValueError(f"{rows} rows are not this rank's rows of a batch "
+                         f"of {whole} (sharding.batch_rows gives "
+                         f"{block.stop - block.start})")
+    return whole, block.start
 
 
 def counts_once(p: torch.Tensor) -> bool:

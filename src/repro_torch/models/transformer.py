@@ -37,7 +37,8 @@ under ``torch.no_grad()`` (``serve.engine``) and is unchanged by it.
 
 Sharded training (``models.sharding``, ``launch.train --ranks``): on a
 mesh of ranks, ``init_lm(mesh=)`` gives each rank its blocks of the
-dense family's parameters (the same draw as the unsharded model), and
+parameters of the dense and DeepSeek-V2 families (GQA or MLA attention,
+GLU or MoE MLPs; the same draw as the unsharded model), and
 with ``cfg.shard_acts`` the residual stream between blocks is each rank's
 block of d_model over ``model`` (the JAX package's ``act_embed``
 constraint at each period boundary), so the checkpoints keep blocks.
@@ -180,7 +181,7 @@ class Block(nn.Module):
             self.mlp.reset_parameters(generator)
 
     def forward(self, x, *, positions, rope, cache=None, index=None,
-                lanes=None, enc_out=None):
+                lanes=None, enc_out=None, batch_size=None):
         h = self.norm1(x)
         if isinstance(self.mixer, attn.MLAttention):
             out = self.mixer(h, positions=positions, rope=rope, cache=cache,
@@ -202,7 +203,8 @@ class Block(nn.Module):
         if isinstance(self.mlp, MoE):
             # decode routes each row alone; else the JAX package's groups
             decode = cache is not None and x.shape[1] == 1
-            out, aux = self.mlp(h, groups=x.shape[0] if decode else None)
+            out, aux = self.mlp(h, groups=x.shape[0] if decode else None,
+                                batch_size=batch_size)
             return x + out, aux
         return x + self.mlp(h), None
 
@@ -336,8 +338,8 @@ class LM(nn.Module):
         return self.encoder(frames, remat=self.remat and grads_on(self))
 
     def forward(self, tokens: torch.Tensor, *, cache=None, positions=None,
-                rows: int | None = None, enc_frames=None,
-                vision_embeds=None, vision_mask=None,
+                rows: int | None = None, batch_size: int | None = None,
+                enc_frames=None, vision_embeds=None, vision_mask=None,
                 return_aux: bool = False):
         """Returns (logits (B, S, padded_vocab), cache), and with
         ``return_aux`` (logits, cache, aux) as the JAX package's
@@ -352,6 +354,10 @@ class LM(nn.Module):
         cache's index), and every row writes at its own cache index, which
         then advances by one.  The cache is updated in place and
         returned.
+
+        On a mesh, ``tokens`` are this rank's rows
+        (``sharding.batch_rows``) of a batch of ``batch_size`` rows; a MoE
+        model needs it there, to route the whole batch's groups.
 
         ``positions`` may be (3, B, S) t/h/w streams for M-RoPE.
         ``vision_embeds`` (B, S, D) replace the token embeddings where
@@ -424,7 +430,7 @@ class LM(nn.Module):
                 block, x, remat, positions=pos1d, rope=rope,
                 cache=None if cache is None else cache["layers"][i],
                 index=None if cache is None else cache["index"],
-                lanes=lanes, enc_out=enc_out)
+                lanes=lanes, enc_out=enc_out, batch_size=batch_size)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         if acts:
@@ -487,8 +493,8 @@ def init_lm(cfg, seed: int = 0, device=None, mesh=None) -> LM:
     ``cfg.embed_fsdp``) on ``device`` (default: the mesh's): every rank
     draws each whole tensor in turn, in float32, and keeps its block, so
     the blocks are the unsharded model's weights and no rank ever holds
-    more than one whole tensor.  Only the dense family is sharded
-    (``sharding.check_supported`` raises for the others)."""
+    more than one whole tensor.  Only the dense and DeepSeek-V2 families
+    are sharded (``sharding.check_supported`` raises for the others)."""
     if mesh is None or mesh.size == 1:
         model = LM(cfg, device)
     else:

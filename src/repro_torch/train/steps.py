@@ -1,9 +1,10 @@
 """Train and eval steps for the model zoo: the counterpart of
 ``repro.train.steps``.
 
-A batch is a dict of tensors: ``tokens`` and ``targets`` (B, S) always;
+A batch is a dict: ``tokens`` and ``targets`` (B, S) always;
 ``vision_embeds`` / ``vision_mask`` / (3, B, S) ``positions`` for a
-vision-language config; ``enc_frames`` for an encoder-decoder.  The loss
+vision-language config; ``enc_frames`` for an encoder-decoder; on a
+mesh, ``batch_size``: the whole batch's row count (an int).  The loss
 is next-token cross entropy with the padded-vocab tail masked out, plus
 ``AUX_WEIGHT`` times the MoE load-balance loss.
 
@@ -13,7 +14,8 @@ AdamW (``optimizer.apply``) in place.  Its metrics stay 0-d tensors on the
 device: nothing in a step reads back to the host.
 
 On a mesh of ranks (``models.sharding``; ``launch.train --ranks``) each
-rank holds its rows of the batch (``sharding.batch_rows``) and its block
+rank holds its rows of the batch (``sharding.batch_rows``; the batch's
+``batch_size`` says how many rows the whole batch has) and its block
 of the logits' vocabulary: the cross entropy takes the softmax's max and
 sums over ``model`` and the mean over the global batch (a sum over
 ``data``), and the backward leaves each rank its parameters' blocks of
@@ -31,7 +33,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.train import optimizer as opt
 
 AUX_WEIGHT = 0.01
-BATCH_EXTRAS = ("vision_embeds", "vision_mask", "enc_frames", "positions")
+BATCH_EXTRAS = ("vision_embeds", "vision_mask", "enc_frames", "positions",
+                "batch_size")
 
 
 class TrainState(NamedTuple):

@@ -17,6 +17,7 @@ import torch.distributed
 from repro_torch.configs import get_config
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import specs
+from repro_torch.models import moe
 from repro_torch.models import sharding as shd
 from repro_torch.models import transformer as tf
 from repro_torch.train import optimizer as opt
@@ -50,12 +51,30 @@ def _whole_rows(mesh, t: torch.Tensor, batch: int) -> torch.Tensor:
     return out
 
 
+def _moe_drops(mesh, model: tf.LM, tokens: int) -> list:
+    """Each MoE layer's dropped choices of its last forward, (groups,
+    tokens a group x top-k) over the whole batch of ``tokens`` tokens:
+    gathered over ``data`` where each rank routed its own groups."""
+    groups = moe.num_groups(tokens)
+    out = []
+    for block in model.layers:
+        if isinstance(block.mlp, moe.MoE):
+            d = block.mlp.dropped.to(torch.int32)
+            if mesh is not None:
+                d = _whole_rows(mesh, d, groups)
+            out.append(d.bool().numpy())
+    return out
+
+
 def _case(mesh, params: dict, case: dict) -> dict:
     """One config on ``mesh`` from the whole weights ``params``: the
     gathered forward logits of
     ``case["tokens"]``, this rank's bytes, the losses of the launcher's
     steps over ``case["batches"]`` and the trained parameters gathered
-    whole by ``sharding.whole`` (and, with ``case["dtensor"]``, whether
+    whole by ``sharding.whole``; for a MoE config what a forward without
+    the whole batch's row count raises, and the logits of the first row
+    alone as a batch of one, whole on every rank (and, with
+    ``case["dtensor"]``, whether
     DTensor gathers each block over ``mesh.device_mesh`` by
     ``sharding.to_placements`` to the same tensor)."""
     cfg = dataclasses.replace(get_config(case["arch"]).reduced(),
@@ -66,11 +85,25 @@ def _case(mesh, params: dict, case: dict) -> dict:
                                fsdp=cfg.fsdp_params,
                                embed_fsdp=cfg.embed_fsdp)
         tokens = torch.as_tensor(case["tokens"])
+        vocab = (None, None, cfg.padded_vocab)
         with torch.no_grad():
-            logits, _ = model(shd.batch_rows(tokens))
+            logits, _ = model(shd.batch_rows(tokens),
+                              batch_size=tokens.shape[0])
             logits = _whole_rows(mesh, shd.gather(
-                logits, "batch", None, "vocab",
-                shape=(None, None, cfg.padded_vocab)), tokens.shape[0])
+                logits, "batch", None, "vocab", shape=vocab),
+                tokens.shape[0])
+        dropped = _moe_drops(mesh, model, tokens.numel())
+        moe_out = {}
+        if cfg.moe_num_experts:
+            with torch.no_grad():
+                try:
+                    model(shd.batch_rows(tokens))
+                    moe_out["unsized"] = None
+                except ValueError as e:
+                    moe_out["unsized"] = str(e)
+                one, _ = model(tokens[:1], batch_size=1)
+                moe_out["one_row"] = shd.gather(
+                    one, "batch", None, "vocab", shape=vocab).numpy()
         ocfg = opt.AdamWConfig(lr=LR, warmup_steps=WARMUP_STEPS,
                                state_dtype=cfg.optimizer_state_dtype)
         state = steps.TrainState(steps.trainable(model),
@@ -87,7 +120,8 @@ def _case(mesh, params: dict, case: dict) -> dict:
         losses = []
         for tok, tgt in case["batches"]:
             batch = {"tokens": shd.batch_rows(torch.as_tensor(tok)),
-                     "targets": shd.batch_rows(torch.as_tensor(tgt))}
+                     "targets": shd.batch_rows(torch.as_tensor(tgt)),
+                     "batch_size": len(tok)}
             state, m = train_step(state, batch)
             losses.append(float(m["loss"]))
         out["losses"] = losses
@@ -104,6 +138,8 @@ def _case(mesh, params: dict, case: dict) -> dict:
                                        for n in whole)
         if mesh.rank == 0:
             out["logits"] = logits.numpy()
+            out["dropped"] = dropped
+            out.update(moe_out)
             out["trained"] = {n: t.numpy() for n, t in whole.items()}
         return out
     finally:
@@ -115,7 +151,7 @@ def sharded_cases(world, params: dict, cases: dict, sub_ranks: list
     """Every rank: the (2, 4) mesh of all 8 ranks runs ``cases["all"]``,
     then the (1, 2) mesh of ``sub_ranks`` (a ``sub_group``) runs
     ``cases["sub"]``, each case from the weights in the ``.npz`` file
-    ``params[case["arch"]]`` (numpy by the port's names).  Returns each
+    ``params[case["weights"]]`` (numpy by the port's names).  Returns each
     case's result (and its seconds) by name and layout."""
     torch.set_num_threads(1)
     big = meshlib.make_test_mesh(world)
@@ -124,15 +160,15 @@ def sharded_cases(world, params: dict, cases: dict, sub_ranks: list
     for where, mesh in (("all", big), ("sub", small)):
         for name, case in cases[where].items() if mesh is not None else ():
             t0 = time.perf_counter()
-            with np.load(params[case["arch"]]) as weights:
+            with np.load(params[case["weights"]]) as weights:
                 out[(where, name)] = _case(mesh, dict(weights), case)
             out[(where, name)]["seconds"] = time.perf_counter() - t0
     return out
 
 
 def fake_group_checks() -> dict:
-    """In a child process: on a fake group of 2 ranks, what a family
-    outside the dense one raises when placed on the (1, 2) mesh, and the
+    """In a child process: on a fake group of 2 ranks, what each family
+    raises when placed on the (1, 2) mesh (None: it placed), and the
     collectives ``dispatch_trace.Trace`` records of DTensor's
     redistributions and of the functional collectives."""
     import torch.distributed as dist
@@ -145,8 +181,9 @@ def fake_group_checks() -> dict:
     try:
         mesh = meshlib.make_test_mesh(world)
         raised = {}
-        for arch in ("deepseek-v2-lite-16b", "xlstm-125m", "whisper-medium",
-                     "qwen2-vl-7b", "recurrentgemma-2b"):
+        for arch in ("deepseek-v2-lite-16b", "deepseek-v2-236b",
+                     "xlstm-125m", "whisper-medium", "qwen2-vl-7b",
+                     "recurrentgemma-2b"):
             try:
                 tf.init_lm(get_config(arch).reduced(), 0, "cpu", mesh=mesh)
                 raised[arch] = None

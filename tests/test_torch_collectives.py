@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import _torch_collective_workers as workers
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.core import distributed as jdist
 from repro.core import engine as jengine
 from repro.core import preprocess as jpp
@@ -29,7 +30,7 @@ from repro_torch.core import distributed as dist
 from repro_torch.core import engine, saddle
 from repro_torch.launch import mesh as meshlib
 
-pytestmark = pytest.mark.dist
+pytestmark = [pytest.mark.dist, pytest.mark.usefixtures("one_thread")]
 
 CPU = "cpu"
 SPAWN_TIMEOUT_S = 240

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.core import engine as jengine
 from repro.core import preprocess as jpp
 from repro.core import projections as jproj
@@ -17,6 +18,8 @@ from repro.core import saddle as jsaddle
 from repro_torch import convert
 from repro_torch.core import engine, projections, saddle
 from repro_torch.core import preprocess as pp
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 CPU = "cpu"
 

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.models import layers as jlayers
 from repro.models import transformer as jtf
@@ -32,7 +33,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.serve import engine
 from repro_torch.serve.lm_service import LMService
 
-pytestmark = pytest.mark.serve
+pytestmark = [pytest.mark.serve, pytest.mark.usefixtures("one_thread")]
 
 CPU = "cpu"
 RTOL = 1e-4          # of max |logit|

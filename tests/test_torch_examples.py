@@ -7,7 +7,9 @@ scripts on JAX's arrays, weights and draws."""
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.serve
+from _torch_launch_workers import one_thread  # noqa: F401
+
+pytestmark = [pytest.mark.serve, pytest.mark.usefixtures("one_thread")]
 
 
 def test_serve_lm_example_exact_and_falls_back(capsys):

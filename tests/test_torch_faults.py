@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.serve import faults as jfaults
 from repro.serve import scheduler as jscheduler
 from repro_torch.core import engine
@@ -23,7 +24,8 @@ from repro_torch.serve.scheduler import (RequestFailure, ResultNotReady,
 from repro_torch.serve.solver_service import (FitRequest, SolverService,
                                               UpdateRequest)
 
-pytestmark = [pytest.mark.faults, pytest.mark.serve]
+pytestmark = [pytest.mark.faults, pytest.mark.serve,
+              pytest.mark.usefixtures("one_thread")]
 
 C = 40      # service chunk length (as tests/test_torch_serve.py)
 CPU = "cpu"

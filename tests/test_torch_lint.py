@@ -14,8 +14,11 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro_torch.analysis import lint
 from repro_torch.core import engine
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 

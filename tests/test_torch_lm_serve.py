@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.models import transformer as jtf
 from repro.serve import engine as jengine
@@ -38,7 +39,7 @@ from repro_torch.serve.lm_service import LMService
 from repro_torch.serve.scheduler import (RequestFailure, ResultNotReady,
                                          Status)
 
-pytestmark = pytest.mark.serve
+pytestmark = [pytest.mark.serve, pytest.mark.usefixtures("one_thread")]
 
 CPU = "cpu"
 

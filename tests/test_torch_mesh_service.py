@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import _torch_collective_workers as workers
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.core import engine as jengine
 from repro.core import preprocess as jpp
 from repro.core import saddle as jsaddle
@@ -36,7 +37,8 @@ from repro_torch.serve.scheduler import RequestFailure, Status
 from repro_torch.serve.solver_service import FitRequest, SolverService
 from repro_torch.utils import comm_audit
 
-pytestmark = [pytest.mark.serve, pytest.mark.dist]
+pytestmark = [pytest.mark.serve, pytest.mark.dist,
+              pytest.mark.usefixtures("one_thread")]
 
 C = workers.C
 CPU = "cpu"

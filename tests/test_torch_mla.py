@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.models import attention as jattn
 from repro.models import transformer as jtf
@@ -33,7 +34,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import rope_tables
 from repro_torch.serve import engine
 
-pytestmark = pytest.mark.serve
+pytestmark = [pytest.mark.serve, pytest.mark.usefixtures("one_thread")]
 
 CPU = "cpu"
 MLA = ["deepseek-v2-lite-16b", "deepseek-v2-236b"]

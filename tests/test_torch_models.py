@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.configs import list_configs as jlist_configs
 from repro.models import transformer as jtf
@@ -29,7 +30,7 @@ from repro_torch.configs import get_config, list_configs
 from repro_torch.models import transformer as tf
 from repro_torch.serve import engine
 
-pytestmark = pytest.mark.serve
+pytestmark = [pytest.mark.serve, pytest.mark.usefixtures("one_thread")]
 
 CPU = "cpu"
 ARCHS = ["gemma-7b", "h2o-danube-1.8b", "chatglm3-6b",

@@ -17,12 +17,15 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.models import moe as jmoe
 from repro_torch.configs import get_config
 from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 from repro_torch.serve import engine
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 CPU = "cpu"
 OUT_RTOL, AUX_ATOL = 1e-5, 1e-6

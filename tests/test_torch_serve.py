@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.core import engine as jengine
 from repro.serve.solver_service import FitRequest as JFitRequest
 from repro.serve.solver_service import SolverService as JSolverService
@@ -23,7 +24,7 @@ from repro_torch.serve.scheduler import RequestFailure, Status
 from repro_torch.serve.solver_service import (FitRequest, SolverService,
                                               UpdateRequest)
 
-pytestmark = pytest.mark.serve
+pytestmark = [pytest.mark.serve, pytest.mark.usefixtures("one_thread")]
 
 C = 40      # service chunk length == solo record_every (parity contract)
 CPU = "cpu"

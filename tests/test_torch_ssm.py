@@ -18,12 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.models import ssm as jssm
 from repro_torch.configs import get_config
 from repro_torch.models import ssm
 
-pytestmark = pytest.mark.serve
+pytestmark = [pytest.mark.serve, pytest.mark.usefixtures("one_thread")]
 
 CONV_TOL = 1e-6
 RTOL = 1e-5

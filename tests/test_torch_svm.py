@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.core import engine as jengine
 from repro.core import saddle as jsaddle
 from repro.core import svm as jsvm
@@ -21,6 +22,8 @@ from repro_torch.core import saddle
 from repro_torch.core import preprocess as pp
 from repro_torch.core.svm import SaddleNuSVC, SaddleSVC
 from repro_torch.data import synthetic
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"

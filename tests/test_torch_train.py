@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro.data.tokens import TokenPipeline as JTokenPipeline
 from repro.train import checkpoint as jcheckpoint
 from repro.train import optimizer as jopt
@@ -23,7 +24,7 @@ from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.train import checkpoint, optimizer as opt, steps
 
-pytestmark = pytest.mark.slow
+pytestmark = [pytest.mark.slow, pytest.mark.usefixtures("one_thread")]
 
 CPU = "cpu"
 OPT_RTOL = 1e-6

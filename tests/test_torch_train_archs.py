@@ -18,12 +18,13 @@ import pytest
 import torch
 
 import _torch_train_archs as common
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as tf
 from repro_torch.serve import engine
 from repro_torch.train import steps
 
-pytestmark = pytest.mark.slow
+pytestmark = [pytest.mark.slow, pytest.mark.usefixtures("one_thread")]
 
 ARCHS = ["h2o-danube-1.8b", "gemma-7b", "whisper-medium", "qwen2-vl-7b"]
 

@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 
 import _torch_train_archs as common
+from _torch_launch_workers import one_thread  # noqa: F401
 from repro_torch.train import steps
 
-pytestmark = pytest.mark.slow
+pytestmark = [pytest.mark.slow, pytest.mark.usefixtures("one_thread")]
 
 ARCHS = ["deepseek-v2-lite-16b", "xlstm-125m", "recurrentgemma-2b"]
 
