@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --path-r     # path r alone (no kernel built)
 
 Phases, each of which must pass (any failure exits non-zero, and there is
 no CPU fallback):
 
   1. build      -- compile every kernel from ``src/repro_torch/kernels/csrc``
                    with nvcc for sm_90a into ``build/repro_torch_kernels/``.
-  2. paths      -- seventeen paths, each driven with the launch counts reset
+  2. paths      -- eighteen paths, each driven with the launch counts reset
                    just before it and read just after, recording the
                    shape (and the operands) of every kernel call and the
                    sampled coordinates:
@@ -340,7 +341,7 @@ no CPU fallback):
           bytes of the parameters and of the master / m / v equal to the
           dry-run's count for that layout exactly, its ms a step and
           peak memory, the collectives of step 1 by kind (counted by
-          ``dispatch_trace``), and the two losses within 1e-2 of path
+          ``sharding.tally``), and the two losses within 1e-2 of path
           m1's first two (unsharded, the same seed-0 weights and
           batches).  p2: ``launch.train``'s trainer over the same mesh
           on reduced h2o-danube-1.8b and gemma-7b, 2 float32 steps each,
@@ -361,6 +362,26 @@ no CPU fallback):
           reduced deepseek-v2-lite-16b and deepseek-v2-236b, 2 float32
           steps each, replayed on the CPU as p2 (236b's bf16 moments
           widen its parameters' tolerance by Q_BF16_SLACK; no kernel).
+       r. sharded training of the recurrent, encoder-decoder and vision-
+          language families (the mLSTM / sLSTM heads and RG-LRU channels
+          over ``model``, whisper's encoder and cross attention, qwen2-vl's
+          vision inputs and M-RoPE positions as each rank's rows), after
+          path q on its mesh.  r1: four models at published widths, 2 steps
+          each: xlstm-125m at 12 layers (B = 8, S = 256), recurrentgemma-2b
+          cut to one period of 3 layers (B = 4, S = 1,024), whisper-medium
+          at 24 + 24 layers (B = 4, S = 448, 1,500 seeded frames),
+          qwen2-vl-7b cut to 2 layers (B = 4, S = 1,024, a 16 x 16 patch
+          image after 32 text tokens a row): each rank's bytes equal to
+          the dry-run's and R_BYTES, ms a step, peak memory, step 1's
+          collectives by kind and bytes, every parameter whole over
+          ``model`` bit-equal along each model line after step 2, the
+          losses (and but for xlstm-125m the grad norms) within each
+          model's R_HOLD of the same model trained unsharded on the card
+          by rank 0 or 1 (same weights, batches and extras), and a planted
+          fault (each rank's sLSTM recurrence with the next rank's heads
+          of ``w_rec``, step 1's loss) refused by that hold.  r2:
+          ``launch.train``'s trainer on the four reduced, 2 float32 steps
+          each, replayed on the CPU as p2 (no kernel).
   3. serial vs distributed -- each distributed fit refit serially on the
                    coordinates it drew: w within 1e-4.
   4. profile    -- short windows of the serial nu-SVM solve, of both
@@ -1838,6 +1859,8 @@ def f_rank(world, data_path: str) -> dict:
         marks.append(("path p", time.time()))
         out["q"] = q_rank(pmesh, str(Path(data_path).parent))
         marks.append(("path q", time.time()))
+        out["r"] = r_rank(pmesh, str(Path(data_path).parent))
+        marks.append(("path r", time.time()))
     out["marks"] = marks
     return out
 
@@ -1932,6 +1955,7 @@ def collectives_path(torch, dist_fits, serve, rec: PathRecorder,
     g_check(torch, [ranks[r]["g"] for r in range(2)], refs["g"])
     p1 = p_check(torch, ranks, refs["p files"])
     q_check(torch, ranks, refs["p files"])
+    r_check(torch, ranks, refs["p files"])
     return [rank0] + g_recs, p1
 
 
@@ -1995,7 +2019,7 @@ def f_parent(torch, dist_fits, rec, rec_g, serve):
                                       args=(str(tmp / "data.npz"),))
         spawn_s = time.perf_counter() - t0
         refs["p files"] = {f.stem: dict(np.load(f))
-                           for f in tmp.glob("[pq]2 *.npz")}
+                           for f in tmp.glob("[pqr]2 *.npz")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("path f in the parent: " + "; ".join(
@@ -2171,19 +2195,23 @@ P_REPLAY_ATOL = 1e-5        # p2's parameters, where step 1's grad is big
 P_LAYOUT = ("2x4", ("data", "model"), (2, 4))
 
 
-def sharded_train(mesh, argv: list, steps: int) -> dict:
-    """``train_lm.Trainer(argv, mesh=)`` on this rank (None: unsharded) for
-    ``steps`` steps: its set-up seconds, bytes (and the dry-run's count
-    for its layout),
-    each step's loss and seconds, step 1's collectives (traced), peak
+def sharded_train(mesh, argv: list, steps: int, extras=None,
+                  after=None) -> dict:
+    """``train_lm.Trainer(argv, mesh=, extras=)`` on this rank (None:
+    unsharded) for ``steps`` steps: its set-up seconds, bytes (and the
+    dry-run's count for its layout),
+    each step's loss, grad norm and seconds, on a mesh step 1's
+    collectives (``sharding.tally``), peak
     memory, its first MoE layer's expert block shape (None without one)
     and, on rank 0 (every rank without a mesh), each MoE layer's dropped
-    choices of step 1 over the whole batch (``moe_drops``).  The trainer
-    is freed before it returns."""
+    choices of step 1 over the whole batch (``moe_drops``); with
+    ``after``, what ``after(trainer)`` returns after the steps.  The
+    trainer is freed before it returns."""
     import torch
 
     from repro_torch.examples import train_lm
     from repro_torch.launch import specs
+    from repro_torch.models import sharding as shd
     from repro_torch.utils import dispatch_trace
 
     def nbytes(tensors) -> int:
@@ -2192,7 +2220,8 @@ def sharded_train(mesh, argv: list, steps: int) -> dict:
     out = {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tr = train_lm.Trainer(train_lm.parse_args(argv), mesh=mesh)
+    tr = train_lm.Trainer(train_lm.parse_args(argv), mesh=mesh,
+                          extras=extras)
     torch.cuda.synchronize()
     out["setup_s"] = time.perf_counter() - t0
     st = tr.state.opt_state
@@ -2204,18 +2233,21 @@ def sharded_train(mesh, argv: list, steps: int) -> dict:
     experts = [b.mlp.expert_gate for b in tr.state.model.layers
                if hasattr(b.mlp, "expert_gate")]
     out["expert_block"] = tuple(experts[0].shape) if experts else None
-    losses, secs = [], []
+    losses, norms, secs = [], [], []
     for i in range(steps):
         batch = tr.batch()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if i == 0:            # step 1's collectives; the others untraced
-            with dispatch_trace.Trace() as trace:
+        if i == 0:            # step 1's collectives; the others untallied
+            with (shd.tally() if mesh is not None
+                  else contextlib.nullcontext()) as tally:
                 tr.state, m = tr.train_step(tr.state, batch)
                 losses.append(float(m["loss"]))
-            stats = trace.collective_stats()
-            out["collectives"] = {"count": stats.count_by_op,
-                                  "bytes": stats.bytes_by_op}
+                norms.append(float(m["grad_norm"]))
+            if tally is not None:
+                stats = dispatch_trace.collective_stats(tally)
+                out["collectives"] = {"count": stats.count_by_op,
+                                      "bytes": stats.bytes_by_op}
             drops = moe_drops(tr.state.model,
                               tr.pipe.batch_size * tr.pipe.seq_len)
             if mesh is None or mesh.rank == 0:
@@ -2223,9 +2255,12 @@ def sharded_train(mesh, argv: list, steps: int) -> dict:
         else:
             tr.state, m = tr.train_step(tr.state, batch)
             losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
         secs.append(time.perf_counter() - t0)
-    out.update(losses=losses, step_s=secs,
+    out.update(losses=losses, grad_norm=norms, step_s=secs,
                peak=torch.cuda.max_memory_allocated())
+    if after is not None:
+        out.update(after(tr))
     del tr, st, m
     torch.cuda.empty_cache()
     return out
@@ -2318,7 +2353,8 @@ def p_replay(torch, arch: str, init: dict, final: dict, got: list, card,
                           seed=0).next_batch()
     _, _, g = steps.value_and_grad(model, cpu.cfg, {
         "tokens": torch.as_tensor(first.tokens),
-        "targets": torch.as_tensor(first.targets)})
+        "targets": torch.as_tensor(first.targets),
+        **cpu.extras(cpu.cfg, args.batch, args.seq, "cpu")})
     grads = {n: t.detach().clone() for n, t in g.items()}
     ref = cpu.train(P_STEPS)["loss"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
@@ -2353,7 +2389,7 @@ def check_sharded_train(label: str, rs: list, card: str) -> dict:
         print(f"{label} rank {r['rank']}: bytes {r['bytes']} (dry-run "
               f"{r['want']}); set up {r['setup_s']:.2f} s; steps "
               f"{[round(s * 1e3, 1) for s in r['step_s']]} ms (step 1 "
-              f"traced); peak memory {r['peak'] / 1e9:.2f} GB [{card}]")
+              f"tallied); peak memory {r['peak'] / 1e9:.2f} GB [{card}]")
         require(r["bytes"] == r["want"], f"{label} rank {r['rank']}: its "
                 f"bytes {r['bytes']} are not the dry-run's {r['want']} for "
                 f"{layout.name}")
@@ -2362,7 +2398,7 @@ def check_sharded_train(label: str, rs: list, card: str) -> dict:
                 f"{label} rank {r['rank']}: its losses or collectives "
                 "differ from rank 0's")
     colls = r0["collectives"]
-    print(f"{label} collectives of step 1 on rank 0 (dispatch_trace): "
+    print(f"{label} collectives of step 1 on rank 0 (sharding.tally): "
           + ", ".join(f"{k} {n} ({colls['bytes'][k] / 1e6:.1f} MB)"
                       for k, n in sorted(colls["count"].items())))
     require(sum(colls["count"].values()) > 0, f"{label}: no collective "
@@ -2542,7 +2578,7 @@ def q_check(torch, ranks, files: dict) -> None:
           for i in range(P_STEPS)]
     print(f"q1: expert block {r0['expert_block']} a rank; losses "
           f"{r0['losses']!r}; ms a step {ms} (the slowest rank, step 1 "
-          f"traced); peak memory {max(r['peak'] for r in rs) / 1e9:.2f} GB "
+          f"tallied); peak memory {max(r['peak'] for r in rs) / 1e9:.2f} GB "
           f"(the largest rank); q1 {max(r['q1_s'] for r in rs):.1f} s, "
           f"path q {max(r['q_s'] for r in rs):.1f} s on the ranks; launches "
           f"on the ranks {[r['launches'] for r in rs]} [{card}]")
@@ -2582,6 +2618,300 @@ def q_check(torch, ranks, files: dict) -> None:
                  files[f"q2 {arch} final"], got, card, label="q2",
                  param_atol=P_REPLAY_ATOL + slack)
     print(f"path q in the parent: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------- path r
+# Sharded training of the recurrent, encoder-decoder and vision-language
+# families (``models.sharding``: mLSTM / sLSTM heads and RG-LRU channels
+# over ``model``, whisper's encoder and cross attention, qwen2-vl's vision
+# inputs and M-RoPE positions cut to each rank's rows) on path p's mesh,
+# after path q in path f's spawn (no start-up of its own).  r1 trains four
+# models at their published widths, 2 steps each from seed 0: xlstm-125m
+# (the JAX launcher's default arch) at all 12 layers, B = 8, S = 256 (S
+# short for the sLSTM's loop over time steps); recurrentgemma-2b with its
+# 26 layers cut to one period of 3 (rglru, rglru, local_attn), B = 4, S =
+# 1,024; whisper-medium at all 24 + 24 layers, B = 4, S = 448 (its text
+# context) over 1,500 seeded frames; qwen2-vl-7b with its 28 layers cut
+# to 2, B = 4, S = 1,024, each row a 16 x 16 patch image after 32 text
+# tokens with seeded patch embeddings and Qwen2-VL's t/h/w streams.  Each
+# rank's bytes equal the dry-run's; after step 2 every parameter whole
+# over ``model`` is bit-equal along each model line; each model's losses
+# (and grad norms) are held to the same model trained unsharded on the
+# card by rank 0 or 1 after the others are done (same weights, batches
+# and extras), and one planted fault (each rank's sLSTM recurrence with
+# the next rank's heads of ``w_rec``, step 1's loss, a forward alone) must
+# break that hold.  r2 replays launch.train's
+# reduced runs of the four on the CPU here, as p2 does.  No kernel is on
+# this path.
+R_TRAIN = {
+    "xlstm-125m": ["--full", "--arch", "xlstm-125m", "--batch", "8",
+                   "--seq", "256"],
+    "recurrentgemma-2b": ["--full", "--arch", "recurrentgemma-2b",
+                          "--layers", "3", "--batch", "4", "--seq", "1024"],
+    "whisper-medium": ["--full", "--arch", "whisper-medium", "--batch", "4",
+                       "--seq", "448"],
+    "qwen2-vl-7b": ["--full", "--arch", "qwen2-vl-7b", "--layers", "2",
+                    "--batch", "4", "--seq", "1024"]}
+# bytes a rank on (data 2, model 4): parameters, each of master / m / v
+# (launch.specs.train_state_bytes_per_device on launch.mesh.layout_for(8))
+R_BYTES = {"xlstm-125m": (43_391_232, 86_782_464),
+           "recurrentgemma-2b": (307_799_040, 615_577_600),
+           "whisper-medium": (253_349_888, 506_699_776),
+           "qwen2-vl-7b": (389_057_536, 778_115_072)}
+R_GRID, R_TEXT = (16, 16), 32      # qwen2-vl: the patch image, text before
+# r1 vs unsharded, each model's own relative limits on its losses and its
+# grad norms (None: not held): 3.5-5x its largest sound reading in runs of
+# path r on an H100 80GB HBM3 at 700 W (PERF.md section 6), and for
+# xlstm-125m under its planted fault's 3.0e-3.  Relative, since
+# recurrentgemma's random tied embedding, scaled by sqrt(d), gives losses
+# of ~2,234.  xlstm-125m's step-1 grad norm parts ~3% in bf16, more than
+# its planted fault's: only its losses are held.
+R_HOLD = {"xlstm-125m": (1e-3, None), "recurrentgemma-2b": (4e-5, 3e-4),
+          "whisper-medium": (1e-4, 5e-3), "qwen2-vl-7b": (6e-5, 2e-3)}
+R_TWIN_RANK = {"xlstm-125m": 0, "recurrentgemma-2b": 1,   # who trains it
+               "whisper-medium": 1, "qwen2-vl-7b": 1}     # unsharded
+R_FAULT = ("xlstm-125m", "sLSTM's w_rec of the next rank's heads")
+
+
+def r_extras(cfg, b: int, s: int, device) -> dict:
+    """r1's extras of a whole batch, the same on every rank and every step
+    (seed 0 on the card): whisper's frames (a standard normal times
+    L_FRAME_SCALE, in the compute dtype); qwen2-vl's patch embeddings under
+    the mask of an R_GRID image after R_TEXT text tokens, with
+    ``l_mrope_positions``' t/h/w streams, every row alike."""
+    import torch
+
+    from repro_torch.models.layers import compute_dtype
+
+    g = torch.Generator(device=device).manual_seed(0)
+    dt, out = compute_dtype(cfg), {}
+    if cfg.is_encoder_decoder:
+        out["enc_frames"] = (torch.randn(
+            (b, cfg.enc_frames, cfg.d_model), generator=g, device=device)
+            * L_FRAME_SCALE).to(dt)
+    if cfg.vision_embeds:
+        rows, cols = R_GRID
+        pos, mask = l_mrope_positions(R_GRID,
+                                      (R_TEXT, s - R_TEXT - rows * cols))
+        out["positions"] = torch.as_tensor(
+            pos, dtype=torch.int32, device=device)[:, None].expand(3, b, s)
+        out["vision_mask"] = torch.as_tensor(mask, device=device)[
+            None].expand(b, s)
+        out["vision_embeds"] = torch.randn(
+            (b, s, cfg.d_model), generator=g, device=device).to(dt)
+    return out
+
+
+@contextlib.contextmanager
+def r_planted():
+    """R_FAULT planted: ``w_rec`` gathered whole, then rolled by a rank's
+    heads, so that each rank's recurrence runs the next rank's heads."""
+    import torch
+
+    from repro_torch.models import sharding as shd
+
+    right = shd.param_whole
+
+    def next_heads(p, partial):
+        w = right(p, partial)
+        if not partial or getattr(w, "planted", False):
+            return w                    # gathered before the checkpoint
+        m = shd.active().layout.axis_sizes["model"]
+        w = torch.roll(w, -(w.shape[0] // m), dims=0)
+        w.planted = True
+        return w
+
+    shd.param_whole = next_heads
+    try:
+        yield
+    finally:
+        shd.param_whole = right
+
+
+def r_drift(tr) -> dict:
+    """After a sharded run: the parameters whole over ``model`` that are
+    not bit-equal along this rank's model line, of how many
+    (``sharding.model_line_drift``; a collective)."""
+    from repro_torch.models import sharding as shd
+
+    return {"drift": shd.model_line_drift(tr.state.model)}
+
+
+def r_fault(mesh) -> float:
+    """R_FAULT planted: step 1's loss of its model, a forward alone (the
+    hold reads the loss)."""
+    import torch
+
+    from repro_torch.examples import train_lm
+    from repro_torch.train import steps
+
+    tr = train_lm.Trainer(train_lm.parse_args(R_TRAIN[R_FAULT[0]]),
+                          mesh=mesh, extras=r_extras)
+    with r_planted(), torch.no_grad():
+        loss, _ = steps.loss_fn(tr.state.model, tr.cfg, tr.batch())
+    loss = float(loss)
+    del tr
+    torch.cuda.empty_cache()
+    return loss
+
+
+def r_rank(mesh, tmp: str) -> dict:
+    """Path r on one rank of path p's mesh (see R_TRAIN), its kernel
+    launches counted from 0 (none expected); then, on ranks 0 and 1
+    (R_TWIN_RANK), each r1 model unsharded (``sharded_train`` without a
+    mesh), its twin."""
+    from repro_torch.kernels import ops
+
+    ops.launch_counts.clear()
+    t_path = time.perf_counter()
+    out = {"rank": mesh.rank, "layout": tuple(mesh.layout)}
+    for arch, argv in R_TRAIN.items():
+        t0 = time.perf_counter()
+        out[arch] = sharded_train(mesh, argv, P_STEPS, extras=r_extras,
+                                  after=r_drift)
+        out[arch].update(rank=mesh.rank, s=time.perf_counter() - t0)
+    out["r1_s"] = time.perf_counter() - t_path
+    t0 = time.perf_counter()
+    out["fault"] = r_fault(mesh)
+    out["fault_s"] = time.perf_counter() - t0
+    out.update(sharded_replays(mesh, tmp, "r2", tuple(R_TRAIN)))
+    out["r_s"] = time.perf_counter() - t_path
+    out["twins"] = {}
+    for arch, argv in R_TRAIN.items():
+        if R_TWIN_RANK[arch] == mesh.rank:
+            t0 = time.perf_counter()
+            twin = sharded_train(None, argv, P_STEPS, extras=r_extras)
+            out["twins"][arch] = dict(twin, s=time.perf_counter() - t0)
+    out["launches"] = dict(ops.launch_counts)
+    return out
+
+
+def r_gaps(got: list, want: list) -> float:
+    """The largest gap of ``got`` to ``want``, relative to ``want``."""
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def r_holds(arch: str, run: dict, twin: dict) -> tuple:
+    """(whether ``run``'s losses and grad norms are within ``arch``'s
+    R_HOLD of its twin's, the loss gap, the grad norms' gap or None)."""
+    loss_tol, norm_tol = R_HOLD[arch]
+    loss_gap = r_gaps(run["losses"], twin["losses"])
+    norm_gap = (None if norm_tol is None or "grad_norm" not in run
+                else r_gaps(run["grad_norm"], twin["grad_norm"]))
+    ok = loss_gap <= loss_tol and (norm_gap is None or norm_gap <= norm_tol)
+    return ok, loss_gap, norm_gap
+
+
+def r_check(torch, ranks, files: dict) -> None:
+    """Path r's holds: for each r1 model its bytes against the dry-run and
+    R_BYTES, its losses and collectives equal on every rank, no parameter
+    whole over ``model`` drifting on a model line, its losses and grad
+    norms within its R_HOLD of its unsharded twin's, no kernel launch; the
+    planted fault refused by that hold; r2's replays on the CPU."""
+    import numpy as np
+
+    card = card_line()
+    t0 = time.perf_counter()
+    rs = [r["r"] for r in ranks[:P_RANKS]]
+    r0 = rs[0]
+    require(r0["layout"] == P_LAYOUT, f"r: layout {r0['layout']}")
+    twins = {arch: rs[rank]["twins"][arch]
+             for arch, rank in R_TWIN_RANK.items()}
+    for arch in R_TRAIN:
+        label = f"r1 {arch}"
+        runs = [r[arch] for r in rs]
+        check_sharded_train(label, runs, card)
+        params, state = R_BYTES[arch]
+        require(r0[arch]["want"] == {"params": params, "master": state,
+                                     "m": state, "v": state},
+                f"{label}: the dry-run's bytes {r0[arch]['want']} are not "
+                f"{R_BYTES[arch]}")
+        for r in runs:
+            differ, held = r["drift"]
+            require(held > 0 and not differ, f"{label} rank {r['rank']}: "
+                    f"{len(differ)} of {held} parameters whole over model "
+                    f"differ along its model line: {differ[:4]}")
+        twin = twins[arch]
+        ok, loss_gap, norm_gap = r_holds(arch, r0[arch], twin)
+        ms = [round(max(r["step_s"][i] for r in runs) * 1e3, 1)
+              for i in range(P_STEPS)]
+        print(f"{label}: {R_TRAIN[arch]}; losses {r0[arch]['losses']!r}, "
+              f"grad norms {r0[arch]['grad_norm']!r}; ms a step {ms} (the "
+              f"slowest rank, step 1 tallied); peak memory "
+              f"{max(r['peak'] for r in runs) / 1e9:.2f} GB (the largest "
+              f"rank); {held} parameters whole over model bit-equal on "
+              f"every model line; {max(r['s'] for r in runs):.1f} s on the "
+              f"ranks [{card}]")
+        norms = ("not held" if norm_gap is None else
+                 f"{norm_gap:.3e} (tol {R_HOLD[arch][1]:g})")
+        print(f"{label} unsharded on the card (rank {R_TWIN_RANK[arch]}): "
+              f"{sum(twin['bytes'].values()):,} B of parameters and AdamW "
+              f"state; losses {twin['losses']!r}, grad norms "
+              f"{twin['grad_norm']!r}; steps "
+              f"{[round(x * 1e3, 1) for x in twin['step_s']]} ms; peak "
+              f"memory {twin['peak'] / 1e9:.2f} GB; {twin['s']:.1f} s; "
+              f"largest gaps, relative: losses {loss_gap:.3e} (tol "
+              f"{R_HOLD[arch][0]:g}), grad norms {norms} [{card}]")
+        require(bool(np.isfinite(r0[arch]["losses"]).all()),
+                f"{label}: a non-finite loss")
+        require(ok, f"{label}: the sharded run's losses or grad norms "
+                "differ from the unsharded run's")
+    for r in rs:
+        require(not r["launches"], f"r rank {r['rank']}: kernel launches "
+                f"{r['launches']} on the LM path")
+    arch, fault = R_FAULT
+    ok, gap, _ = r_holds(arch, {"losses": [r0["fault"]]}, twins[arch])
+    print(f"r1 planted fault, {fault} (step 1's loss): {r0['fault']!r} "
+          f"against {twins[arch]['losses'][0]!r} unsharded, gap {gap:.3e} "
+          f"relative (tol {R_HOLD[arch][0]:g}): the hold "
+          f"{'passes' if ok else 'fails'}; "
+          f"{max(r['fault_s'] for r in rs):.1f} s on the ranks")
+    require(not ok, f"r1: the planted fault ({fault}) passes r1's hold")
+    for arch in R_TRAIN:
+        got = r0[f"r2 {arch}"]
+        require(all(r[f"r2 {arch}"] == got for r in rs),
+                f"r2 {arch}: the ranks' losses differ")
+        p_replay(torch, arch, files[f"r2 {arch} init"],
+                 files[f"r2 {arch} final"], got, card, label="r2")
+    print(f"path r: r1 {max(r['r1_s'] for r in rs):.1f} s, path r "
+          f"{max(r['r_s'] for r in rs):.1f} s on the ranks, the twins "
+          f"{sum(t['s'] for t in twins.values()):.1f} s on ranks 0-1, "
+          f"{time.perf_counter() - t0:.1f} s in the parent")
+
+
+def r_alone_rank(world, tmp: str) -> dict:
+    from repro_torch.launch import mesh as meshlib
+
+    return {"r": r_rank(meshlib.make_test_mesh(world), tmp)}
+
+
+def r_alone(torch) -> int:
+    """Path r alone (``--path-r``): its P_RANKS gloo ranks spawned for it,
+    not inside path f's spawn, and r_check's holds in this process (no
+    kernel is on the path, so none is built).  Ends with the card's line,
+    not the whole script's last line."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import mesh as meshlib
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_r_"))
+    try:
+        ranks = meshlib.spawn_clients(r_alone_rank, P_RANKS, backend="gloo",
+                                      device="cuda", timeout_s=F_TIMEOUT_S,
+                                      args=(str(tmp),))
+        spawn_s = time.perf_counter() - t0
+        files = {f.stem: dict(np.load(f)) for f in tmp.glob("r2 *.npz")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r_check(torch, ranks, files)
+    print(f"path r alone: the spawn {spawn_s:.1f} s, "
+          f"{time.perf_counter() - t0:.1f} s in all")
+    print(card_line())
+    return 0
 
 
 # ---------------------------------------------------------------- path g
@@ -6406,6 +6736,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:] == ["--path-r"]:
+        return r_alone(torch)
     global HBM_BW, F32_FLOPS, PEAK_FLOPS
     from repro_torch.kernels import build
     from repro_torch.utils.roofline import F32_FLOPS, HBM_BW, PEAK_FLOPS
@@ -6446,7 +6778,7 @@ def main() -> int:
     lap("e")
     f_recs, p1 = collectives_path(torch, dist_fits, serve, recs[5], recs[6])
     recs += f_recs
-    lap("f, g, p and q")
+    lap("f, g, p, q and r")
     recs.append(PathRecorder("h"))
     baselines_path(torch, recs[-1], dist_fits)
     lap("h")

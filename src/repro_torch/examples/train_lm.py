@@ -54,6 +54,22 @@ def _line(i: int, out: dict, secs: float) -> str:
             f"  grad_norm {out['grad_norm'][-1]:.3f}  ({secs:.1f}s)")
 
 
+def zero_extras(cfg, b: int, s: int, device) -> dict:
+    """A batch's extras as the JAX script trains: for a vision-language
+    config zero patch embeddings under a false mask and equal t/h/w
+    position streams, for an encoder-decoder zero frames."""
+    out, d = {}, cfg.d_model
+    if cfg.vision_embeds:
+        out["vision_embeds"] = torch.zeros((b, s, d), device=device)
+        out["vision_mask"] = torch.zeros((b, s), dtype=torch.bool,
+                                         device=device)
+        out["positions"] = torch.arange(
+            s, dtype=torch.int32, device=device).expand(3, b, s)
+    if cfg.is_encoder_decoder:
+        out["enc_frames"] = torch.zeros((b, cfg.enc_frames, d), device=device)
+    return out
+
+
 class Trainer:
     """What the script trains: the config (its depth cut to ``--layers``
     where given), AdamW's settings (the JAX script's: ``warmup_steps=20``,
@@ -66,11 +82,15 @@ class Trainer:
     JAX launcher installs its mesh) the model and its AdamW state are this
     rank's blocks of the same seed-0 draw (``tf.init_lm(mesh=)``), and
     every rank draws the same pipeline batch and keeps its own ``data``
-    rows (``sharding.batch_rows``), with the whole batch's row count
-    (``batch_size``).  Without one nothing changes."""
+    rows (``sharding.batch_rows``) of the tokens, targets and extras, with
+    the whole batch's row count (``batch_size``).  Without one nothing
+    changes.
+
+    ``extras(cfg, b, s, device)`` gives a whole batch's extras by name
+    (default :func:`zero_extras`, the JAX script's)."""
 
     def __init__(self, args: argparse.Namespace, device=None, *,
-                 warmup_steps: int = 20, mesh=None):
+                 warmup_steps: int = 20, mesh=None, extras=None):
         cfg = get_config(args.arch)
         cfg = cfg if args.full else cfg.reduced()
         if getattr(args, "layers", 0):
@@ -89,27 +109,21 @@ class Trainer:
                                   seed=0)
         self.train_step = steps.make_train_step(self.cfg, self.ocfg)
         self.eval_step = steps.make_eval_step(self.cfg)
+        self.extras = zero_extras if extras is None else extras
 
     def batch(self) -> dict:
         """The pipeline's next batch on the device, with the config's
-        extras."""
+        extras; on a mesh this rank's rows of each (``positions`` (3, B,
+        S) on dim 1)."""
         nb = self.pipe.next_batch()
         b, s = nb.tokens.shape
-        dev, d = self.device, self.cfg.d_model
-        out = {"tokens": torch.as_tensor(nb.tokens, device=dev),
-               "targets": torch.as_tensor(nb.targets, device=dev)}
+        out = {"tokens": torch.as_tensor(nb.tokens, device=self.device),
+               "targets": torch.as_tensor(nb.targets, device=self.device)}
+        out.update(self.extras(self.cfg, b, s, self.device))
         if self.mesh is not None:
-            out = {k: shd.batch_rows(v) for k, v in out.items()}
+            out = {k: shd.batch_rows(v, 1 if k == "positions" else 0)
+                   for k, v in out.items()}
             out["batch_size"] = b
-        if self.cfg.vision_embeds:
-            out["vision_embeds"] = torch.zeros((b, s, d), device=dev)
-            out["vision_mask"] = torch.zeros((b, s), dtype=torch.bool,
-                                             device=dev)
-            out["positions"] = torch.arange(
-                s, dtype=torch.int32, device=dev).expand(3, b, s)
-        if self.cfg.is_encoder_decoder:
-            out["enc_frames"] = torch.zeros((b, self.cfg.enc_frames, d),
-                                            device=dev)
         return out
 
     def train(self, n: int, log_every: int | None = None,

@@ -7,6 +7,8 @@ of ranks laid out (data, model), the counterpart of ``repro.launch.train``.
         --backend gloo --device cpu --arch h2o-danube-1.8b --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --ranks 8 \\
         --backend gloo --device cpu --arch deepseek-v2-lite-16b --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --ranks 8 \\
+        --backend gloo --device cpu --steps 3       # xlstm-125m, as JAX's
 
 The JAX launcher jits the step over ``make_test_mesh()``, a mesh of every
 local device laid out ``(n // model, model)`` over ``("data", "model")``
@@ -18,10 +20,12 @@ k`` processes (``launch.mesh.spawn_clients``, the ``--backend`` the
 caller names: gloo, or NCCL with one card a rank; nothing falls back from
 one to the other): each rank joins ``launch.mesh.make_test_mesh`` and
 trains its blocks (``models.sharding``).  At ``--ranks 1`` (the default)
-it is one process with no mesh, as a one-device mesh is.  The dense
-family and the DeepSeek-V2 family (MLA attention, MoE experts: ``--arch
-deepseek-v2-lite-16b`` or ``deepseek-v2-236b``) shard; the recurrent,
-whisper and qwen2-vl families raise NotImplementedError at k > 1.
+it is one process with no mesh, as a one-device mesh is.  Every arch the
+JAX launcher trains shards: the dense family, DeepSeek-V2 (MLA's heads and
+the MoE's experts over ``model``), the recurrent families (xlstm-125m's
+mLSTM and sLSTM heads, recurrentgemma-2b's RG-LRU channels), whisper
+(encoder, decoder and cross attention) and qwen2-vl (its vision inputs
+and M-RoPE positions cut to each rank's rows).
 
 It trains what the JAX launcher trains: the config, reduced unless
 ``--full``; AdamW at lr 1e-3 with the launcher's 10 warm-up steps and the

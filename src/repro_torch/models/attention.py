@@ -224,7 +224,9 @@ class CrossAttention(GQAttention):
     """Decoder-to-encoder attention (``init_cross``, ``gqa_attention(
     cross_kv=)``): GQA's weights; q from the decoder's stream, K and V
     from the encoder's output (or the cross cache); no RoPE and no mask,
-    every encoder frame visible to every query."""
+    every encoder frame visible to every query.  On a mesh its heads split
+    as ``GQAttention``'s, the decoder's stream and the encoder's output
+    both entering the head-split products through ``copy_to``."""
 
     def forward(self, x, *, enc_out=None, cache=None,
                 lanes: int | None = None):
@@ -239,10 +241,19 @@ class CrossAttention(GQAttention):
         (``decode_attention``), the rows after ``lanes`` padding (zero
         output), as ``GQAttention``'s decode."""
         b, s, _ = x.shape
-        q = self._project(x, self.wq)
+        if cache is not None and shd.active() is not None:
+            raise NotImplementedError(
+                "a sharded cache (prefill, decode) is not ported: the "
+                "sharded slice trains (ROADMAP.md queue 1 item 3)")
+        heads_split, kv_split = shd.split(self.wq, 1), shd.split(self.wk, 1)
+        q = self._project(shd.copy_to(x) if heads_split else x,
+                          shd.param(self.wq))
         if enc_out is not None:
-            k, v = self._project(enc_out, self.wk), self._project(
-                enc_out, self.wv)
+            ekv = shd.copy_to(enc_out) if kv_split else enc_out
+            k = self._project(ekv, shd.param(self.wk))
+            v = self._project(ekv, shd.param(self.wv))
+            if heads_split and not kv_split:
+                k, v = self._own_kv(k, v)
             if cache is not None:
                 cache["cross_k"] = k.transpose(1, 2).contiguous()
                 cache["cross_v"] = v.transpose(1, 2).contiguous()
@@ -264,9 +275,11 @@ class CrossAttention(GQAttention):
             out = dot_attention(
                 q, k, v, torch.zeros((s,), dtype=torch.long, device=x.device),
                 torch.arange(t, device=x.device), causal=False, window=0)
-        h, dh, d = self.wo.shape
-        return matmul(out.reshape(b * s, h * dh),
-                      self.wo.reshape(h * dh, d)).reshape(b, s, d)
+        wo = shd.param(self.wo)
+        h, dh, d = wo.shape
+        out = matmul(out.reshape(b * s, h * dh),
+                     wo.reshape(h * dh, d)).reshape(b, s, d)
+        return shd.reduce_from(out) if heads_split else out
 
 
 def init_cross_cache(cfg, batch: int, cross_len: int, *,

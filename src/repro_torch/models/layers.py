@@ -76,11 +76,17 @@ class RMSNorm(nn.Module):
         self.scale = zeros_param((d,), cfg, device)
         self.eps = cfg.norm_eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, partial: bool = False) -> torch.Tensor:
+        """``partial``: on a mesh each rank of ``model`` applies the norm to
+        its own part of an activation (an SSM's heads), so the scale's grad
+        is also summed over ``model`` (``sharding.copy_to``)."""
         x32 = x.float()
         var = (x32 * x32).mean(-1, keepdim=True)
         y = x32 * torch.rsqrt(var + self.eps)
-        return (y * (1.0 + shd.param(self.scale).float())).to(x.dtype)
+        scale = shd.param(self.scale)
+        if partial:
+            scale = shd.copy_to(scale)
+        return (y * (1.0 + scale.float())).to(x.dtype)
 
 
 # ---------------------------------------------------------------------- rope

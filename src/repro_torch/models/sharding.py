@@ -1,5 +1,5 @@
-"""Logical->physical sharding of the model zoo, and the pieces that run a
-dense LM over a (data, model) group of ranks: the counterpart of
+"""Logical->physical sharding of the model zoo, and the pieces that run
+any of its LMs over a (data, model) group of ranks: the counterpart of
 ``repro.models.sharding``.
 
 The rules are the JAX package's, a small logical-axis system: model code
@@ -72,11 +72,25 @@ all-gathered over ``model`` and its experts (or, where they do not divide
 (``models.attention.MLAttention``) splits its heads over ``model`` and
 computes its latent whole on every rank.
 
-Scope: the decoder families with GQA or MLA attention and GLU or MoE MLPs
-(no recurrent mixer, no encoder, no vision inputs).  Given a mesh of more
-than one rank, :func:`check_supported` raises ``NotImplementedError`` for
-any other block: those would otherwise run replicated, unlike the JAX
-package.
+The recurrent mixers (``models.ssm``) follow the same invariant.  The
+mLSTM and sLSTM split their heads over ``model`` and RG-LRU its channels;
+where a rank then uses only its part of a whole activation or of a whole
+parameter, the whole is made so that its grad is summed over ``model``:
+:func:`copy_to` of an :func:`all_gather` (the grad summed over ``model``,
+then this rank's block kept) for an activation, :func:`copy_to` or
+:func:`own_block` on a parameter (a conv's
+taps, a head norm's scale, RG-LRU's gates and ``lam``), so that its copies
+on a model line stay equal.  The sLSTM's recurrence ``w_rec`` is gathered
+whole over every axis that splits it once a block (:func:`param_whole`,
+listed by the module's ``whole_params``), never inside its time loop.
+Whisper's encoder runs its blocks as the decoder does, and each decoder
+block's cross attention reads the encoder's whole output through
+:func:`copy_to`.  Every registered config places on a mesh; a cache does
+not (prefill and decode raise on a mesh).
+
+Every collective of the sharded step is made in this module, and
+:func:`tally` records them (as ``utils.dispatch_trace.Trace`` does, but
+with no cost to the other ops, which a dispatch mode sees one by one).
 """
 
 from __future__ import annotations
@@ -89,10 +103,13 @@ from typing import Any, NamedTuple, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.utils.dispatch_trace import CollectiveRecord
+
 # The installed mesh and rules: process-wide, not thread-local as the JAX
 # package's, because autograd runs a CUDA backward (and the checkpoints'
 # recomputation in it) on its own device thread
-_state = types.SimpleNamespace(mesh=None, rules=None, gathered=None)
+_state = types.SimpleNamespace(mesh=None, rules=None, gathered=None,
+                               tally=None)
 
 # logical axis -> tuple of physical mesh axes (in priority order): the
 # JAX package's DEFAULT_RULES (its comments give each rule's reason)
@@ -312,30 +329,6 @@ def _block(shape, spec, layout, coords) -> tuple:
     return tuple(out)
 
 
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for a config outside the sharded families
-    (GQA or MLA attention, GLU or MoE MLPs)."""
-    from repro_torch.models.transformer import layer_kinds
-
-    outside = []
-    if cfg.attention_kind not in ("gqa", "mla"):
-        outside.append(f"{cfg.attention_kind} attention")
-    if cfg.mlp_kind not in ("swiglu", "geglu", "moe"):
-        outside.append(f"{cfg.mlp_kind} MLPs")
-    kinds = set(layer_kinds(cfg)) - {"attn"}
-    if kinds:
-        outside.append(f"{sorted(kinds)} blocks")
-    if cfg.is_encoder_decoder:
-        outside.append("an encoder and cross attention")
-    if cfg.vision_embeds:
-        outside.append("vision inputs")
-    if outside:
-        raise NotImplementedError(
-            f"{cfg.name}: sharding {', '.join(outside)} over a mesh is not "
-            "ported (ROADMAP.md queue 1 item 3: the sharding of the SSM, "
-            "whisper and qwen2-vl families)")
-
-
 def _owner(module: torch.nn.Module, name: str):
     *path, leaf = name.split(".")
     for part in path:
@@ -408,14 +401,35 @@ def offset(p: torch.Tensor, dim: int) -> int:
 # ------------------------------------------------------------ collectives
 # torch 2.13 names them *_single and deprecates the *_tensor names, which
 # the card's older torch has alone
-_all_gather_single = getattr(dist, "all_gather_single", None) \
+_gather_into = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
-_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
+_scatter_into = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
+
+
+def _record(op: str, ts, kind: str = "") -> None:
+    """A collective into the active :func:`tally` (if any), with the
+    tensors it is passed, as ``dispatch_trace.Trace`` records it."""
+    if _state.tally is not None:
+        _state.tally.append(CollectiveRecord(
+            op, kind, sum(t.numel() for t in ts),
+            sum(t.numel() * t.element_size() for t in ts)))
+
+
+def _all_gather_single(out: torch.Tensor, src: torch.Tensor, group):
+    _record("all-gather", (out, src))
+    _gather_into(out, src, group=group.group)
+
+
+def _reduce_scatter_single(out: torch.Tensor, src: torch.Tensor, group):
+    _record("reduce-scatter", (out, src))
+    _scatter_into(out, src, group=group.group)
 
 
 def _all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM):
     if group.size > 1:
+        _record("all-reduce", (t,), "max" if op == dist.ReduceOp.MAX
+                else "add")
         dist.all_reduce(t, op=op, group=group.group)
     return t
 
@@ -427,7 +441,7 @@ def _all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
         return t
     src = t.movedim(dim, 0).contiguous()
     out = src.new_empty((group.size * src.shape[0],) + src.shape[1:])
-    _all_gather_single(out, src, group=group.group)
+    _all_gather_single(out, src, group)
     return out.movedim(0, dim).contiguous()
 
 
@@ -437,7 +451,7 @@ def _reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
         return t
     src = t.movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // group.size,) + src.shape[1:])
-    _reduce_scatter_single(out, src, group=group.group)
+    _reduce_scatter_single(out, src, group)
     return out.movedim(0, dim).contiguous()
 
 
@@ -497,21 +511,59 @@ class _Gather(torch.autograd.Function):
         return _narrow(g, ctx.group, ctx.dim), None, None
 
 
-class _Param(torch.autograd.Function):
-    """A parameter block's compute layout: all-gathered over the group
-    along ``dim`` (None: kept as it is).  The backward sums the grad over
-    the group: a reduce-scatter along ``dim``, or an all-reduce."""
+class _ParamBucket(torch.autograd.Function):
+    """Parameter blocks of one dtype in their compute layout, in one
+    collective each way: the blocks split over the group (each along its
+    own dim in ``dims``) all-gathered as one flat buffer, the others kept
+    as they are.  The backward sums their grads over the group: the
+    gathered ones in one reduce-scatter, the others in one all-reduce."""
 
     @staticmethod
-    def forward(ctx, p, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return p.view_as(p) if dim is None else _all_gather(p, group, dim)
+    def forward(ctx, group, dims, *ps):
+        ctx.group, ctx.dims = group, dims
+        ctx.shapes = [p.shape for p in ps]
+        out = [p.view_as(p) for p in ps]
+        split = [i for i, d in enumerate(dims) if d is not None]
+        if not split:
+            return tuple(out)
+        moved = [ps[i].movedim(dims[i], 0) for i in split]
+        flat = torch.cat([m.reshape(-1) for m in moved])
+        full = flat.new_empty(group.size * flat.numel())
+        _all_gather_single(full, flat, group)
+        full, at = full.view(group.size, -1), 0
+        for i, m in zip(split, moved):
+            t = full[:, at:at + m.numel()].reshape(
+                (group.size * m.shape[0],) + m.shape[1:])
+            out[i] = t.movedim(0, dims[i]).contiguous()
+            at += m.numel()
+        return tuple(out)
 
     @staticmethod
-    def backward(ctx, g):
-        if ctx.dim is None:
-            return _all_reduce_(g.contiguous().clone(), ctx.group), None, None
-        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
+    def backward(ctx, *gs):
+        group, dims, k = ctx.group, ctx.dims, ctx.group.size
+        grads = [None] * len(gs)
+        split = [i for i, d in enumerate(dims) if d is not None]
+        if split:
+            moved = [gs[i].movedim(dims[i], 0) for i in split]
+            flat = torch.cat([m.reshape(k, -1) for m in moved], dim=1)
+            part = flat.new_empty(flat.shape[1])
+            _reduce_scatter_single(part, flat.reshape(-1), group)
+            at = 0
+            for i, m in zip(split, moved):
+                n = m.numel() // k
+                grads[i] = part[at:at + n].view(
+                    (m.shape[0] // k,) + m.shape[1:]).movedim(0, dims[i])
+                at += n
+        whole = [i for i, d in enumerate(dims) if d is None]
+        if whole:
+            flat = _all_reduce_(torch.cat([gs[i].reshape(-1)
+                                           for i in whole]), group)
+            at = 0
+            for i in whole:
+                n = gs[i].numel()
+                grads[i] = flat[at:at + n].view(ctx.shapes[i])
+                at += n
+        return (None, None) + tuple(grads)
 
 
 def _group(mesh: Mesh, axis: str):
@@ -531,6 +583,19 @@ def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
     if mesh is None or mesh.layout.axis_sizes.get(axis, 1) == 1:
         return x
     return _Gather.apply(x, _group(mesh, axis), dim % x.dim())
+
+
+def own_block(t: torch.Tensor, dim: int, axis: str = "model"
+              ) -> torch.Tensor:
+    """This rank's block along ``dim`` over ``axis`` of ``t``, a tensor
+    whole on every rank of ``axis`` of which each rank uses its own block
+    (RG-LRU's gates of its channels): the backward all-gathers the blocks'
+    grads, so every rank gets the whole grad.  The identity without a
+    mesh."""
+    mesh = active()
+    if mesh is None or mesh.layout.axis_sizes.get(axis, 1) == 1:
+        return t
+    return _Slice.apply(t, _group(mesh, axis), dim % t.dim())
 
 
 def copy_to(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
@@ -576,18 +641,80 @@ def param(p: torch.Tensor) -> torch.Tensor:
         raise RuntimeError("an unplaced parameter under an active mesh")
     if _state.gathered is not None and id(p) in _state.gathered:
         return _state.gathered[id(p)]
-    dims = [i for i, e in enumerate(spec) if "data" in _axes(e)]
+    return params([p])[0]
+
+
+def _data_split(mesh: Mesh) -> bool:
+    """Whether ``data`` splits anything on ``mesh`` (a ``pod`` axis
+    raises: the sharded step takes a (data, model) mesh)."""
     if "pod" in mesh.layout.axis_names:
-        _group(mesh, "pod")                   # raises: (data, model) only
-    if mesh.layout.axis_sizes.get("data", 1) == 1:
-        return p
-    return _Param.apply(p, _group(mesh, "data"), dims[0] if dims else None)
+        _group(mesh, "pod")
+    return mesh.layout.axis_sizes.get("data", 1) > 1
+
+
+def _data_dim(p: torch.Tensor) -> int | None:
+    """The dim of placed ``p`` that ``data`` splits (None: whole)."""
+    spec = getattr(p, "spec", None)
+    if spec is None:
+        raise RuntimeError("an unplaced parameter under an active mesh")
+    dims = [i for i, e in enumerate(spec) if "data" in _axes(e)]
+    return dims[0] if dims else None
+
+
+def params(ps: Sequence[torch.Tensor]) -> list:
+    """:func:`param` of each of ``ps``, their ``data`` gathers in one
+    all-gather a dtype and their grads' sums in one reduce-scatter and one
+    all-reduce a dtype (:class:`_ParamBucket`), rather than a collective a
+    parameter each way."""
+    mesh = active()
+    if mesh is None:
+        return [param(p) for p in ps]
+    if not _data_split(mesh):
+        return list(ps)
+    group, out = _group(mesh, "data"), [None] * len(ps)
+    for dtype in dict.fromkeys(p.dtype for p in ps):
+        idx = [i for i, p in enumerate(ps) if p.dtype == dtype]
+        got = _ParamBucket.apply(group, tuple(_data_dim(ps[i]) for i in idx),
+                                 *(ps[i] for i in idx))
+        for i, t in zip(idx, got):
+            out[i] = t
+    return out
+
+
+def param_whole(p: torch.Tensor, partial: bool) -> torch.Tensor:
+    """A parameter whole on every rank: :func:`param` (its ``data`` split
+    gathered), then its ``model`` split gathered too.  ``partial``: each
+    rank of ``model`` uses only its own part of the whole (sLSTM's
+    recurrence of its heads), so the grad is summed over ``model`` before
+    this rank keeps its block (:func:`copy_to` of the :func:`all_gather`);
+    else every rank uses it alike (:func:`all_gather`).  The identity
+    without a mesh."""
+    if _state.gathered is not None and ("whole", id(p)) in _state.gathered:
+        return _state.gathered[("whole", id(p))]
+    w = param(p)
+    if active() is None:
+        return w
+    for dim, entry in enumerate(p.spec):
+        if "model" in _axes(entry):
+            w = all_gather(w, "model", dim)
+    return copy_to(w) if partial else w
 
 
 def gathered(module: torch.nn.Module) -> dict:
-    """Every parameter of ``module`` in its compute layout (:func:`param`)
-    by ``id``, for :func:`using`."""
-    return {id(p): param(p) for p in module.parameters()}
+    """Every parameter of ``module`` in its compute layout (:func:`params`,
+    one collective a dtype each way; :func:`param_whole` for those a
+    submodule lists in its ``whole_params()``, by name: whether each is
+    used in part) by ``id``, for :func:`using`."""
+    out, rest = {}, []
+    for mod in module.modules():
+        whole = mod.whole_params() if hasattr(mod, "whole_params") else {}
+        for name, p in mod.named_parameters(recurse=False):
+            if name in whole:
+                out[("whole", id(p))] = param_whole(p, whole[name])
+            else:
+                rest.append(p)
+    out.update(zip(map(id, rest), params(rest)))
+    return out
 
 
 @contextlib.contextmanager
@@ -602,6 +729,19 @@ def using(weights: dict | None):
         yield
     finally:
         _state.gathered = prev
+
+
+@contextlib.contextmanager
+def tally():
+    """While it lasts, every collective of this module (the sharded step
+    makes all of its collectives here) is recorded in the list it yields,
+    as ``dispatch_trace.Trace`` records it, at no cost to the other ops
+    (``dispatch_trace.collective_stats`` sums them)."""
+    prev, _state.tally = _state.tally, []
+    try:
+        yield _state.tally
+    finally:
+        _state.tally = prev
 
 
 def _convert(x, logical, shape, mesh, gather: bool):
@@ -759,6 +899,31 @@ def param_from_state(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         if _axes(have) != _axes(want):
             t = _all_gather(t, _group(mesh, want), dim)
     return t
+
+
+@torch.no_grad()
+def model_line_drift(module: torch.nn.Module) -> tuple[list, int]:
+    """(the names of ``module``'s parameters whole over ``model`` whose
+    blocks are not bit-equal on every rank of this rank's ``model`` line,
+    how many such parameters there are): one all-gather of them all, in
+    float32 (exact for the model's dtypes).  A collective over ``model``;
+    ``([], 0)`` without a mesh."""
+    mesh = active()
+    if mesh is None or mesh.layout.axis_sizes.get("model", 1) == 1:
+        return [], 0
+    group = _group(mesh, "model")
+    held = [(n, p) for n, p in module.named_parameters()
+            if not any(split(p, d) for d in range(p.dim()))]
+    flat = torch.cat([p.detach().float().reshape(-1) for _, p in held])
+    rows = _all_gather(flat, group, 0).view(group.size, -1)
+    differ, at = [], 0
+    for n, p in held:
+        part = rows[:, at:at + p.numel()]
+        at += p.numel()
+        if not all(torch.equal(part[0], part[i])
+                   for i in range(1, group.size)):
+            differ.append(n)
+    return differ, len(held)
 
 
 @torch.no_grad()

@@ -32,6 +32,25 @@ decode step (S == 1) runs on the transformer's row-padded batch: the
 rows after the cache's rows (its lanes) read a fresh state, and only the
 lanes' state and history are written back.  All of it is
 plain torch ops: the JAX package has no Pallas kernel here.
+
+On a mesh of ranks (``models.sharding``; training, no cache) the JAX
+package's specs place the weights and the port picks each mixer's compute
+layout (GSPMD picks JAX's; the values are the same):
+
+  mLSTM   ``w_up``'s column block a rank, gathered whole over ``model``
+          (``copy_to`` of its ``all_gather``); the conv on every channel; q / k / v and the
+          gates of this rank's heads; the cell and head norm per head;
+          ``w_down``'s rows of those heads, the ranks' sums added.
+  sLSTM   the gates and the recurrence of this rank's heads, ``w_rec``
+          gathered whole once a block (never inside the time loop); the
+          hidden state gathered whole, ``w_in``'s column block gathered
+          whole for the GeGLU, ``w_out``'s rows of this rank's units.
+  RG-LRU  ``w_in``'s columns give each rank its channels: the conv, the
+          gates and the scan on them (``xc`` gathered whole for the gates'
+          products), ``w_out``'s rows of them, the ranks' sums added.
+
+Where a dim does not divide ``model`` it stays whole and every rank runs
+it alike.
 """
 
 from __future__ import annotations
@@ -42,6 +61,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import (RMSNorm, empty_param, matmul,
                                       normal_, zeros_param)
 
@@ -64,6 +84,27 @@ def _rows(t: torch.Tensor, rows: int, fill: float = 0.0) -> torch.Tensor:
     if rows == n:
         return t
     return torch.cat([t, t.new_full((rows - n,) + t.shape[1:], fill)])
+
+
+def _up_whole(x: torch.Tensor, w: torch.Tensor, partial: bool):
+    """``x @ w`` whole on every rank of ``model``: where ``w``'s columns
+    split over ``model``, this rank's block gathered (``x`` entering through
+    ``copy_to``).  ``partial``: each rank then uses only its own part of the
+    product, so its grad is summed over ``model``."""
+    if shd.split(w, 1):
+        y = matmul(shd.copy_to(x), shd.param(w))
+        y = shd.all_gather(y, "model", -1)
+        return shd.copy_to(y) if partial else y
+    y = matmul(x, shd.param(w))
+    return shd.copy_to(y) if partial else y
+
+
+def _shared(p: torch.Tensor, partial: bool) -> torch.Tensor:
+    """A parameter whole over ``model`` in its compute layout; ``partial``:
+    used on this rank's part of an activation, its grad summed over
+    ``model`` too."""
+    w = shd.param(p)
+    return shd.copy_to(w) if partial else w
 
 
 def _write_state(dst: dict, src: dict) -> None:
@@ -92,7 +133,8 @@ def causal_conv1d(w: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
 
 
 class CausalConv1d(nn.Module):
-    """``init_conv1d``: taps ``w`` (width, C), bias ``b`` (C,) zeros."""
+    """``init_conv1d``: taps ``w`` (width, C), bias ``b`` (C,) zeros; the
+    mixers apply them (``causal_conv1d``) in their own layout on a mesh."""
 
     def __init__(self, width: int, channels: int, cfg, device):
         super().__init__()
@@ -100,10 +142,8 @@ class CausalConv1d(nn.Module):
         self.b = zeros_param((channels,), cfg, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        normal_(self.w, 1.0 / math.sqrt(self.w.shape[0]), generator)
-
-    def forward(self, x, buf=None):
-        return causal_conv1d(self.w, self.b, x, buf)
+        normal_(self.w, 1.0 / math.sqrt(shd.full_shape(self.w)[0]),
+                generator)
 
 
 def _conv_history(cache, rows: int):
@@ -204,22 +244,30 @@ class MLSTM(nn.Module):
         self.w_down = empty_param((inner, d), cfg, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        d, inner = self.w_down.shape[1], self.w_down.shape[0]
+        inner, d = shd.full_shape(self.w_down)
         normal_(self.w_up, 1.0 / math.sqrt(d), generator)
         self.conv.reset_parameters(generator)
         for w in (self.wq, self.wk, self.wv, self.w_gates, self.w_down):
             normal_(w, 1.0 / math.sqrt(inner), generator)
 
     def forward(self, x, cache=None):
+        """On a mesh (no cache) this rank's heads: module docstring."""
         b, s, _ = x.shape
-        up = matmul(x, self.w_up)
+        split = shd.split(self.wq, 1)
+        if split != shd.split(self.w_down, 0):
+            raise NotImplementedError("mLSTM: heads and w_down's rows split "
+                                      "unlike over model")
+        up = _up_whole(x, self.w_up, split)
         inner = up.shape[-1] // 2
         x_in, z = up[..., :inner], up[..., inner:]
-        xc, new_buf = self.conv(x_in, _conv_history(cache, b))
+        xc, new_buf = causal_conv1d(_shared(self.conv.w, split),
+                                    _shared(self.conv.b, split), x_in,
+                                    _conv_history(cache, b))
         xc = F.silu(xc)
-        q, k = _project(xc, self.wq), _project(xc, self.wk)
-        v = _project(x_in, self.wv)
-        gates = _project(xc, self.w_gates)
+        q = _project(xc, shd.param(self.wq))
+        k = _project(xc, shd.param(self.wk))
+        v = _project(x_in, shd.param(self.wv))
+        gates = _project(xc, shd.param(self.w_gates))
         i_pre, f_pre = gates[..., 0], gates[..., 1]
         if cache is None or s > 1:
             out = mlstm_parallel(q, k, v, i_pre, f_pre)
@@ -233,8 +281,12 @@ class MLSTM(nn.Module):
             _write_state(cache["state"], st)
         if cache is not None:
             cache["conv"].copy_(new_buf[:cache["conv"].shape[0]])
-        out = self.head_norm(out).reshape(b, s, inner) * F.silu(z)
-        return matmul(out, self.w_down)
+        hl, dh = q.shape[2:]
+        c0 = shd.offset(self.wq, 1) * dh
+        out = self.head_norm(out, partial=split).reshape(b, s, hl * dh)
+        out = matmul(out * F.silu(z[..., c0:c0 + hl * dh]),
+                     shd.param(self.w_down))
+        return shd.reduce_from(out) if split else out
 
 
 def init_mlstm_cache(cfg, batch: int, device=None) -> dict:
@@ -281,8 +333,15 @@ class SLSTM(nn.Module):
         self.w_in = empty_param((d, 2 * up), cfg, device)
         self.w_out = empty_param((up, d), cfg, device)
 
+    def whole_params(self) -> dict:
+        """``w_rec``, gathered whole once a block (``sharding.gathered``),
+        of which each rank takes its own heads where they split."""
+        return {"w_rec": shd.split(self.w_x, 1)}
+
     def reset_parameters(self, generator: torch.Generator) -> None:
-        d, dh, up = self.w_x.shape[0], self.w_rec.shape[1], self.w_out.shape[0]
+        d = shd.full_shape(self.w_x)[0]
+        dh = shd.full_shape(self.w_rec)[1]
+        up = shd.full_shape(self.w_out)[0]
         normal_(self.w_x, 1.0 / math.sqrt(d), generator)
         normal_(self.w_rec, 1.0 / math.sqrt(dh), generator)
         normal_(self.w_in, 1.0 / math.sqrt(d), generator)
@@ -292,8 +351,14 @@ class SLSTM(nn.Module):
         """No cache: from a fresh state; a prompt: from the cache's state;
         a decode step: one step on the row-padded batch."""
         b, s, d = x.shape
-        h, dh = self.w_rec.shape[:2]
-        pre_x = _project(x, self.w_x)                       # (B, S, H, 4 Dh)
+        split = shd.split(self.w_x, 1)
+        pre_x = _project(shd.copy_to(x) if split else x,
+                         shd.param(self.w_x))              # (B, S, H, 4 Dh)
+        h = pre_x.shape[2]                                  # this rank's heads
+        w_rec = shd.param_whole(self.w_rec, split)
+        h0 = shd.offset(self.w_x, 1)
+        w_rec = w_rec[h0:h0 + h]
+        dh = w_rec.shape[1]
         if cache is None:
             st = slstm_state(b, h, dh, x.device)
         else:
@@ -302,16 +367,25 @@ class SLSTM(nn.Module):
         hidden = []
         for t in range(s):
             rec = torch.matmul(st["h"].to(pre_x.dtype).transpose(0, 1),
-                               self.w_rec).transpose(0, 1)  # (B, H, 4 Dh)
+                               w_rec).transpose(0, 1)       # (B, H, 4 Dh)
             st = slstm_cell(pre_x[:, t] + rec, st, dh)
             hidden.append(st["h"])
         if cache is not None:
             _write_state(cache["state"], st)
-        hid = self.head_norm(torch.stack(hidden, dim=1).to(x.dtype))
-        up = matmul(hid.reshape(b, s, d), self.w_in)
+        hid = self.head_norm(torch.stack(hidden, dim=1).to(x.dtype),
+                             partial=split).reshape(b, s, h * dh)
+        if split:
+            hid = shd.all_gather(hid, "model", -1)
+        out_split = shd.split(self.w_out, 0)
+        up = _up_whole(hid, self.w_in, out_split)
         half = up.shape[-1] // 2
         out = F.gelu(up[..., :half], approximate="tanh") * up[..., half:]
-        return matmul(out, self.w_out)
+        w_out = shd.param(self.w_out)
+        if out_split:
+            r0 = shd.offset(self.w_out, 0)
+            out = out[..., r0:r0 + w_out.shape[0]]
+        out = matmul(out, w_out)
+        return shd.reduce_from(out) if out_split else out
 
 
 def slstm_state(batch: int, h: int, dh: int, device=None) -> dict:
@@ -371,31 +445,54 @@ class RGLRU(nn.Module):
         self.w_out = empty_param((w, d), cfg, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        d, w = self.w_in.shape
+        d, w = shd.full_shape(self.w_in)
         normal_(self.w_in, 1.0 / math.sqrt(d), generator)
         normal_(self.w_gate_branch, 1.0 / math.sqrt(d), generator)
         self.conv.reset_parameters(generator)
         for p in (self.w_r, self.w_i, self.w_out):
             normal_(p, 1.0 / math.sqrt(w), generator)
+        # lam is no draw: a placed (zero) block gets its part of the line
+        lam = torch.linspace(-4.0, -1.0, w, dtype=torch.float32,
+                             device=self.lam.device)
+        block = getattr(self.lam, "block", None)
+        with torch.no_grad():
+            self.lam.copy_(lam if block is None else lam[block])
 
     def forward(self, x, cache=None):
+        """On a mesh (no cache) this rank's channels: module docstring."""
         b, s, _ = x.shape
-        branch = F.gelu(matmul(x, self.w_gate_branch), approximate="tanh")
-        xc, new_buf = self.conv(matmul(x, self.w_in),
-                                _conv_history(cache, b))
-        r, i = matmul(xc, self.w_r), matmul(xc, self.w_i)
+        split = shd.split(self.w_in, 1)
+        if split != shd.split(self.w_out, 0):
+            raise NotImplementedError("RG-LRU: w_in's columns and w_out's "
+                                      "rows split unlike over model")
+
+        def own(p, dim):    # this rank's channels of a whole parameter
+            w = shd.param(p)
+            return shd.own_block(w, dim) if split else w
+
+        if split:
+            x = shd.copy_to(x)
+        branch = F.gelu(matmul(x, own(self.w_gate_branch, 1)),
+                        approximate="tanh")
+        xc, new_buf = causal_conv1d(own(self.conv.w, 1), own(self.conv.b, 0),
+                                    matmul(x, shd.param(self.w_in)),
+                                    _conv_history(cache, b))
+        xw = shd.copy_to(shd.all_gather(xc, "model", -1)) if split else xc
+        r, i = matmul(xw, own(self.w_r, 1)), matmul(xw, own(self.w_i, 1))
+        lam = own(self.lam, 0)
         if cache is None or s > 1:
-            h = rglru_scan(xc, r, i, self.lam)
+            h = rglru_scan(xc, r, i, lam)
             if cache is not None:
                 cache["h"].copy_(h[:, -1])
         else:
-            a, gated = rglru_gates(xc[:, 0], r[:, 0], i[:, 0], self.lam)
+            a, gated = rglru_gates(xc[:, 0], r[:, 0], i[:, 0], lam)
             h_new = a * _rows(cache["h"], b) + gated
             cache["h"].copy_(h_new[:cache["h"].shape[0]])
             h = h_new[:, None]
         if cache is not None:
             cache["conv"].copy_(new_buf[:cache["conv"].shape[0]])
-        return matmul(h.to(x.dtype) * branch, self.w_out)
+        out = matmul(h.to(x.dtype) * branch, shd.param(self.w_out))
+        return shd.reduce_from(out) if split else out
 
 
 def init_rglru_cache(cfg, batch: int, device=None) -> dict:

@@ -37,11 +37,12 @@ under ``torch.no_grad()`` (``serve.engine``) and is unchanged by it.
 
 Sharded training (``models.sharding``, ``launch.train --ranks``): on a
 mesh of ranks, ``init_lm(mesh=)`` gives each rank its blocks of the
-parameters of the dense and DeepSeek-V2 families (GQA or MLA attention,
-GLU or MoE MLPs; the same draw as the unsharded model), and
-with ``cfg.shard_acts`` the residual stream between blocks is each rank's
-block of d_model over ``model`` (the JAX package's ``act_embed``
-constraint at each period boundary), so the checkpoints keep blocks.
+parameters of any registered config (the same draw as the unsharded
+model), and with ``cfg.shard_acts`` the residual stream between blocks,
+the decoder's and the encoder's, is each rank's block of d_model over
+``model`` (the JAX package's ``act_embed`` constraint at each period
+boundary), so the checkpoints keep blocks.  The vision inputs and
+positions a forward takes are this rank's rows, as its tokens are.
 
 Decode (one token a row against a cache) runs on a row-padded batch of
 ``rows`` rows (default ``decode_rows(B)``, a multiple of
@@ -283,14 +284,20 @@ class Encoder(nn.Module):
         frames' dtype where the weights' do not promote it; each block
         checkpointed with ``remat`` (``run_block``).  The blocks' aux is
         dropped, as the JAX package's ``encode`` drops it."""
-        b, t, _ = frames.shape
+        b, t, d = frames.shape
         pe = sinusoidal_positions(torch.arange(t, device=frames.device),
                                   self.cfg.d_model)
         x = frames + pe.to(frames.dtype)
         positions = torch.full((b, t), t - 1, device=frames.device)
+        acts = self.cfg.shard_acts and shd.active() is not None
+        if acts:            # the residual stream's act_embed block, as LM's
+            x = shd.shard(x, "batch", None, "act_embed")
         for block in self.layers:
             x, _aux = run_block(block, x, remat, positions=positions,
                                 rope=None)
+        if acts:
+            x = shd.gather(x, "batch", None, "act_embed",
+                           shape=(None, None, d))
         return self.final_norm(x)
 
 
@@ -493,12 +500,10 @@ def init_lm(cfg, seed: int = 0, device=None, mesh=None) -> LM:
     ``cfg.embed_fsdp``) on ``device`` (default: the mesh's): every rank
     draws each whole tensor in turn, in float32, and keeps its block, so
     the blocks are the unsharded model's weights and no rank ever holds
-    more than one whole tensor.  Only the dense and DeepSeek-V2 families
-    are sharded (``sharding.check_supported`` raises for the others)."""
+    more than one whole tensor.  Every registered config places so."""
     if mesh is None or mesh.size == 1:
         model = LM(cfg, device)
     else:
-        shd.check_supported(cfg)
         model = LM(cfg, "meta")
         shd.place(model, mesh, fsdp=cfg.fsdp_params,
                   embed_fsdp=cfg.embed_fsdp,

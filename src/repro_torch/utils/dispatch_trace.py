@@ -133,6 +133,16 @@ class CollectiveStats(NamedTuple):
         return sum(self.count_by_op.values())
 
 
+def collective_stats(records) -> CollectiveStats:
+    """Counts and bytes by op of :class:`CollectiveRecord` s (a trace's,
+    or ``models.sharding.tally``'s)."""
+    count, nbytes = collections.Counter(), collections.Counter()
+    for c in records:
+        count[c.op] += 1
+        nbytes[c.op] += c.nbytes
+    return CollectiveStats(dict(count), dict(nbytes))
+
+
 def _tensors(tree) -> list[torch.Tensor]:
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
@@ -269,11 +279,7 @@ class Trace:
                                    for c in self.collectives)
 
     def collective_stats(self) -> CollectiveStats:
-        count, nbytes = collections.Counter(), collections.Counter()
-        for c in self.collectives:
-            count[c.op] += 1
-            nbytes[c.op] += c.nbytes
-        return CollectiveStats(dict(count), dict(nbytes))
+        return collective_stats(self.collectives)
 
     def wide_dtypes(self) -> list[OpRecord]:
         """Ops with a float64 or complex128 output."""

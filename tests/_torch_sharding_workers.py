@@ -14,7 +14,7 @@ import numpy as np
 import torch
 import torch.distributed
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_configs
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import specs
 from repro_torch.models import moe
@@ -24,6 +24,9 @@ from repro_torch.train import optimizer as opt
 from repro_torch.train import steps
 
 LR, WARMUP_STEPS = 1e-3, 10          # the JAX launcher's AdamWConfig
+# a batch's extras and the dim of its rows (sharding.batch_rows)
+EXTRA_ROWS = {"enc_frames": 0, "vision_embeds": 0, "vision_mask": 0,
+              "positions": 1}
 
 
 def _nbytes(tensors) -> int:
@@ -48,6 +51,33 @@ def _whole_rows(mesh, t: torch.Tensor, batch: int) -> torch.Tensor:
     out = t.new_empty((group.size * t.shape[0],) + t.shape[1:])
     torch.distributed.all_gather_into_tensor(out, t.contiguous(),
                                              group=group.group)
+    return out
+
+
+def _rows(extras: dict) -> dict:
+    """This rank's rows of a whole batch's numpy extras, as tensors."""
+    return {k: shd.batch_rows(torch.as_tensor(v), EXTRA_ROWS[k])
+            for k, v in extras.items()}
+
+
+def _collectives_by_seq(model: tf.LM, state, train_step, cfg, batch: int,
+                        seqs) -> dict:
+    """The collectives (count and bytes by kind) of one train step at each
+    of ``seqs`` (random tokens, the same on every rank), as
+    ``dispatch_trace.Trace`` and as ``sharding.tally`` record them."""
+    from repro_torch.utils import dispatch_trace
+
+    out = {}
+    for seq in seqs:
+        tok = torch.as_tensor(np.random.default_rng(seq).integers(
+            0, cfg.vocab_size, (batch, seq + 1)))
+        b = {"tokens": shd.batch_rows(tok[:, :-1]),
+             "targets": shd.batch_rows(tok[:, 1:]), "batch_size": batch}
+        with dispatch_trace.Trace() as tr, shd.tally() as tally:
+            state, _ = train_step(state, b)
+        out[seq] = {name: tuple(stats) for name, stats in (
+            ("trace", tr.collective_stats()),
+            ("tally", dispatch_trace.collective_stats(tally)))}
     return out
 
 
@@ -85,10 +115,11 @@ def _case(mesh, params: dict, case: dict) -> dict:
                                fsdp=cfg.fsdp_params,
                                embed_fsdp=cfg.embed_fsdp)
         tokens = torch.as_tensor(case["tokens"])
+        extras = _rows(case.get("extras", {}))
         vocab = (None, None, cfg.padded_vocab)
         with torch.no_grad():
             logits, _ = model(shd.batch_rows(tokens),
-                              batch_size=tokens.shape[0])
+                              batch_size=tokens.shape[0], **extras)
             logits = _whole_rows(mesh, shd.gather(
                 logits, "batch", None, "vocab", shape=vocab),
                 tokens.shape[0])
@@ -121,11 +152,23 @@ def _case(mesh, params: dict, case: dict) -> dict:
         for tok, tgt in case["batches"]:
             batch = {"tokens": shd.batch_rows(torch.as_tensor(tok)),
                      "targets": shd.batch_rows(torch.as_tensor(tgt)),
-                     "batch_size": len(tok)}
+                     "batch_size": len(tok), **extras}
             state, m = train_step(state, batch)
             losses.append(float(m["loss"]))
         out["losses"] = losses
         whole = {n: shd.whole(p) for n, p in model.named_parameters()}
+        if case.get("trace_seqs"):
+            out["collectives"] = _collectives_by_seq(
+                model, state, train_step, cfg, len(case["tokens"]),
+                case["trace_seqs"])
+        out["drift"] = shd.model_line_drift(model)
+        # a planted drift: one rank of each model line moves final_norm
+        with torch.no_grad():
+            scale = model.final_norm.scale
+            kept = scale.clone()
+            scale[0] += float(mesh.coords["model"] == 1)
+            out["planted_drift"] = shd.model_line_drift(model)
+            scale.copy_(kept)
         if case.get("dtensor"):
             from torch.distributed.tensor import DTensor
 
@@ -146,17 +189,32 @@ def _case(mesh, params: dict, case: dict) -> dict:
         shd.set_mesh_axes(None)
 
 
-def sharded_cases(world, params: dict, cases: dict, sub_ranks: list
-                  ) -> dict:
-    """Every rank: the (2, 4) mesh of all 8 ranks runs ``cases["all"]``,
-    then the (1, 2) mesh of ``sub_ranks`` (a ``sub_group``) runs
-    ``cases["sub"]``, each case from the weights in the ``.npz`` file
+def placed_init(mesh, arch: str) -> dict | None:
+    """``init_lm(mesh=)`` of reduced ``arch`` (seed 0), each parameter
+    gathered whole (``sharding.whole``): numpy by name on rank 0, None
+    elsewhere."""
+    shd.set_mesh_axes(mesh)
+    try:
+        model = tf.init_lm(get_config(arch).reduced(), 0, "cpu", mesh=mesh)
+        whole = {n: shd.whole(p).numpy() for n, p in model.named_parameters()}
+        return whole if mesh.rank == 0 else None
+    finally:
+        shd.set_mesh_axes(None)
+
+
+def sharded_cases(world, params: dict, cases: dict, sub_ranks: list,
+                  init_archs=()) -> dict:
+    """Every rank: the (2, 4) mesh of all 8 ranks places each of
+    ``init_archs`` (``placed_init``) and runs ``cases["all"]``, then the
+    (1, 2) mesh of ``sub_ranks`` (a ``sub_group``) runs ``cases["sub"]``,
+    each case from the weights in the ``.npz`` file
     ``params[case["weights"]]`` (numpy by the port's names).  Returns each
     case's result (and its seconds) by name and layout."""
     torch.set_num_threads(1)
     big = meshlib.make_test_mesh(world)
     small = meshlib.make_test_mesh(world, ranks=sub_ranks)
     out = {"layouts": (big.layout, None if small is None else small.layout)}
+    out["init"] = {arch: placed_init(big, arch) for arch in init_archs}
     for where, mesh in (("all", big), ("sub", small)):
         for name, case in cases[where].items() if mesh is not None else ():
             t0 = time.perf_counter()
@@ -167,10 +225,11 @@ def sharded_cases(world, params: dict, cases: dict, sub_ranks: list
 
 
 def fake_group_checks() -> dict:
-    """In a child process: on a fake group of 2 ranks, what each family
-    raises when placed on the (1, 2) mesh (None: it placed), and the
-    collectives ``dispatch_trace.Trace`` records of DTensor's
-    redistributions and of the functional collectives."""
+    """In a child process: on a fake group of 2 ranks, what each registered
+    config raises when placed on the (1, 2) mesh (None: it placed), what a
+    forward of it with a cache raises there, and the collectives
+    ``dispatch_trace.Trace`` records of DTensor's redistributions and of
+    the functional collectives."""
     import torch.distributed as dist
     import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -180,15 +239,25 @@ def fake_group_checks() -> dict:
     world = meshlib.init_fake_group(2, "cpu")
     try:
         mesh = meshlib.make_test_mesh(world)
-        raised = {}
-        for arch in ("deepseek-v2-lite-16b", "deepseek-v2-236b",
-                     "xlstm-125m", "whisper-medium", "qwen2-vl-7b",
-                     "recurrentgemma-2b"):
+        raised, cached = {}, {}
+        for arch in list_configs():
+            cfg = get_config(arch).reduced()
             try:
-                tf.init_lm(get_config(arch).reduced(), 0, "cpu", mesh=mesh)
+                model = tf.init_lm(cfg, 0, "cpu", mesh=mesh)
                 raised[arch] = None
             except NotImplementedError as e:
                 raised[arch] = str(e)
+                continue
+            cache = tf.init_stack_cache(cfg, 1, 8, device="cpu",
+                                        cross_len=cfg.enc_frames)
+            shd.set_mesh_axes(mesh)
+            try:
+                model(torch.zeros((1, 4), dtype=torch.long), cache=cache)
+                cached[arch] = None
+            except NotImplementedError as e:
+                cached[arch] = str(e)
+            finally:
+                shd.set_mesh_axes(None)
         dm = mesh.device_mesh
         t = torch.ones(4, 6)
         line = dm["model"]
@@ -205,7 +274,7 @@ def fake_group_checks() -> dict:
                         .to_local())
             for o in outs:
                 funcol.wait_tensor(o)
-        return {"raised": raised,
+        return {"raised": raised, "cached": cached,
                 "collectives": [tuple(c) for c in tr.collectives],
                 "layout": mesh.layout, "dm": dm is not None}
     finally:

@@ -3,8 +3,9 @@ test meshes (``launch.mesh.make_test_mesh``) and its launcher over several
 ranks, held to the JAX package's (``repro.models.sharding``,
 ``repro.launch.mesh``), which run in a subprocess with 8 forced host
 devices as ``tests/test_sharding.py`` runs them; and, on a fake group of
-2 ranks, the families outside the sharded one and the functional
-collectives that ``utils.dispatch_trace`` records."""
+2 ranks, every registered config placed on a mesh, its cache refused
+there, and the functional collectives that ``utils.dispatch_trace``
+records."""
 
 import json
 import os
@@ -25,8 +26,8 @@ from repro_torch.models import transformer as tf
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 ARCHS = ("h2o-danube-1.8b", "gemma-7b", "deepseek-v2-lite-16b",
-         "deepseek-v2-236b")
-SHARDED = ("deepseek-v2-lite-16b", "deepseek-v2-236b")
+         "deepseek-v2-236b", "xlstm-125m", "recurrentgemma-2b",
+         "whisper-medium", "qwen2-vl-7b")
 LAYOUT = meshlib.Layout("4x2", ("data", "model"), (4, 2))
 
 JAX_SIDE = r"""
@@ -184,16 +185,19 @@ def fake():
 
 
 def test_families_outside_the_slice_raise_on_a_mesh(fake):
-    """DeepSeek-V2 (MLA, MoE) places on a mesh; the recurrent, whisper
-    and qwen2-vl families still raise."""
+    """Every registered config places on a mesh (the recurrent, whisper
+    and qwen2-vl families too); a forward with a cache (a prefill) on a
+    mesh still raises, naming the sharded cache."""
+    from repro_torch.configs import list_configs
+
     assert fake["layout"].shape == (1, 2)
-    assert set(fake["raised"]) > set(SHARDED)
+    assert set(fake["raised"]) == set(list_configs())
     for arch, msg in fake["raised"].items():
-        if arch in SHARDED:
-            assert msg is None, f"{arch}: {msg}"
-            continue
-        assert msg is not None, f"{arch} was placed on a mesh"
-        assert "ROADMAP.md" in msg and arch in msg
+        assert msg is None, f"{arch}: {msg}"
+    assert set(fake["cached"]) == set(list_configs())
+    for arch, msg in fake["cached"].items():
+        assert msg is not None, f"{arch}: a cache ran on a mesh"
+        assert "sharded cache" in msg and "ROADMAP.md" in msg, msg
 
 
 def test_trace_counts_functional_collectives(fake):
@@ -225,3 +229,20 @@ def test_launcher_over_two_ranks_prints_jax_lines(capsys, one_thread):
 def test_ranks_above_one_need_a_backend():
     with pytest.raises(SystemExit):
         train.parse_args(["--ranks", "2"])
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-medium"])
+def test_launcher_over_two_ranks_trains_every_family(capsys, one_thread,
+                                                     arch):
+    """``launch.train --ranks 2`` of JAX's default arch (xlstm-125m: its
+    mLSTM and sLSTM heads split) and of whisper (encoder, cross attention,
+    the launcher's frames cut to each rank's rows): the unsharded
+    launcher's losses (1e-5)."""
+    flags = ["--arch", arch, "--steps", "2", "--batch", "2", "--seq", "16",
+             "--device", "cpu"]
+    got = train.main(flags + ["--ranks", "2", "--backend", "gloo"])
+    lines = capsys.readouterr().out.splitlines()
+    want = train.make_trainer(train.parse_args(flags)).train(2)["loss"]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert lines[0].startswith("mesh={'data': 1, 'model': 2} "
+                               f"arch={arch}")
